@@ -1,0 +1,15 @@
+"""oryx_tpu_torch — the ALS serving path of ``oryx_tpu`` in PyTorch for
+an NVIDIA H100.
+
+Module paths mirror ``oryx_tpu/``, so each module's counterpart sits at
+the same relative path there.  The package imports ``torch`` and
+``numpy`` and nothing of JAX or of ``oryx_tpu``: what it needs from a
+JAX-free module of the reference it keeps as its own copy.
+
+Every entry point that places data takes ``device=None``, which means
+``cuda``; without a CUDA device such a call raises unless the caller
+passes ``device="cpu"``.  The phase-A scoring kernel is hand-written
+CUDA (``csrc/phase_a.cu``), built at first use into ``build/kernels/``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,679 @@
+"""The ALS serving model: factor matrices in device memory, top-N on the
+device.
+
+Counterpart of ``oryx_tpu/app/als/serving_model.py`` (reference:
+ALSServingModel.java:57-422, TopNConsumer.java:30).  The whole item
+matrix lives in one device tensor beside per-item LSH bucket ids; top-N
+over a small catalogue is
+
+    scores = Q @ Yᵀ;  scores = where(active & lsh_mask, scores, -inf);  top_k
+
+and over a large one the two-phase streaming top-k: phase A reduces
+Q·Yᵀ to the maximum of every 128-row block (the hand-written kernel of
+``ops/phase_a.py``), phase B rescores the best blocks exactly and emits
+an exactness certificate, and a row whose certificate fails is
+recomputed on the exact chunked scan.
+
+Every top-k here has ``jax.lax.top_k``'s contract — descending, equal
+values in ascending index order — so ids come out in the reference's
+order, ties included (``torch.topk`` promises no order among ties).
+The reference's ``approx_max_k`` block selection is an exact top-k here.
+
+Float32 products run in full float32: on a CUDA device the scoring
+paths refuse to run while ``torch.backends.cuda.matmul.allow_tf32`` is
+set, because TF32 rounding in phase B or the flat path would break the
+certificate's margin and change answers.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Callable, Iterable, Sequence
+
+import numpy as np
+import torch
+
+from ...api.serving import ServingModel
+from ...common.lang import AutoReadWriteLock
+from ...ops.phase_a import phase_a
+from .factor_model import FactorModelBase
+from .lsh import LocalitySensitiveHash, _bucket_kernel, _popcount
+from .rescorer import Rescorer
+
+__all__ = ["ALSServingModel"]
+
+_NEG_INF = float("-inf")
+
+
+def _pad_k(k: int) -> int:
+    """Round requested top-N size up to a power of two, as the reference
+    does for its compiled shapes; the window size decides when a host
+    fallback is needed, so it must match."""
+    return 1 << max(3, (k - 1).bit_length())
+
+
+# Above this many bytes of (B, N) score matrix the batched path streams
+# the item matrix in row chunks instead of materializing all scores.
+# Chunk rows stay a power of two <= feature_vectors._LARGE_ALIGN so
+# every store capacity divides evenly.
+_FLAT_SCORES_LIMIT = 1 << 30
+_MAX_CHUNK_ROWS = 1 << 17
+
+# The streaming path pads every request batch to a window of the ladder
+# and splits bigger drains into full windows.
+_CHUNKED_BATCH = 256
+_WINDOW_LADDER = (8, 32, 256)
+
+# rows per float32 matmul when a bf16 store is widened for scoring:
+# bounds the float32 copy
+_WIDEN_CHUNK_ROWS = 1 << 20
+
+
+def _window_sizes(n: int) -> list[int]:
+    """Window shapes covering an ``n``-query drain: full windows plus one
+    ladder window that fits the tail."""
+    out = [_CHUNKED_BATCH] * (n // _CHUNKED_BATCH)
+    tail = n % _CHUNKED_BATCH
+    if tail:
+        out.append(next(w for w in _WINDOW_LADDER if w >= tail))
+    return out
+
+
+def _check_f32_matmul(device: torch.device) -> None:
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is set: ALS scoring needs "
+            "full float32 products (the two-phase certificate's 1e-4 margin "
+            "does not cover TF32 rounding)")
+
+
+def _q_cast(Q: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Match the query operand to a stored factor matrix: zero-pad its
+    columns to the snapshot's padded width (every dot product stays
+    bit-identical: 0-column contributions are exactly 0) and cast it to
+    bfloat16 for a bf16 store, so products are bf16 x bf16 as on the
+    reference."""
+    fp = Y.shape[-1]
+    if Q.shape[-1] != fp:
+        Q = torch.nn.functional.pad(Q, (0, fp - Q.shape[-1]))
+    return Q.to(Y.dtype) if Y.dtype == torch.bfloat16 else Q
+
+
+def _scores(Qc: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """(B, N) float32 ``Qc @ Yᵀ`` with float32 accumulation.  A bf16
+    store is widened to float32 in row chunks (exact, so the products
+    are the bf16 x bf16 products) — ``torch.matmul`` on bf16 would round
+    its output to bf16."""
+    q = Qc.to(torch.float32)
+    if Y.dtype == torch.float32:
+        return q @ Y.T
+    return torch.cat([q @ Y[s:s + _WIDEN_CHUNK_ROWS].to(torch.float32).T
+                      for s in range(0, Y.shape[0], _WIDEN_CHUNK_ROWS)],
+                     dim=1)
+
+
+def _dot_scores(Y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return _scores(_q_cast(x[None, :], Y), Y)[0]
+
+
+def _lsh_ok(ok, buckets, target, max_bits: int):
+    """Fuse the LSH Hamming-ball candidate test into a mask: ok AND
+    popcount(bucket XOR target) <= max_bits — the one definition every
+    scoring path shares, so phase A and phase B agree on the candidate
+    set."""
+    return ok & (_popcount(torch.bitwise_xor(buckets, target)) <= max_bits)
+
+
+def _query_buckets(Q: torch.Tensor, hyperplanes: torch.Tensor):
+    """LSH bucket id per query row, on the device, by the same kernel
+    that bucketed the items."""
+    return _bucket_kernel(Q, hyperplanes, int(hyperplanes.shape[0]))
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last axis: the ``k`` largest values,
+    descending, equal values in ascending index order.
+
+    ``torch.topk`` finds the set; when values equal to the k-th one were
+    left out, which of them belong is decided by index, so those rows
+    take a stable full sort instead."""
+    n = x.shape[-1]
+    if k >= n:
+        return torch.sort(x, dim=-1, descending=True, stable=True)
+    vals, idx = torch.topk(x, k, dim=-1)
+    kth = vals[..., -1:]
+    if bool(((x == kth).sum(-1) == (vals == kth).sum(-1)).all()):
+        idx, perm = idx.sort(dim=-1)
+        vals, perm = vals.gather(-1, perm).sort(dim=-1, descending=True,
+                                                stable=True)
+        return vals, idx.gather(-1, perm)
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _batch_top_n_kernel(Y, Q, active, k: int):
+    """Score a whole request batch at once: masked top-k per row of
+    ``Q @ Yᵀ`` (the request batcher's flat path)."""
+    scores = _scores(_q_cast(Q, Y), Y)
+    return _top_k(torch.where(active[None, :], scores, _NEG_INF), k)
+
+
+def _batch_top_n_lsh_kernel(Y, Q, active, buckets, hyperplanes, k: int,
+                            max_bits: int):
+    """Batched top-k with the LSH Hamming-ball candidate mask fused in;
+    each query's target bucket is computed on the device."""
+    target = _query_buckets(Q, hyperplanes)
+    scores = _scores(_q_cast(Q, Y), Y)
+    ok = _lsh_ok(active[None, :], buckets[None, :], target[:, None],
+                 max_bits)
+    return _top_k(torch.where(ok, scores, _NEG_INF), k)
+
+
+def _stream_plan(n_rows: int, b_pad: int) -> tuple[bool, int]:
+    """(use_streaming_path, chunk_rows) for a batch of ``b_pad`` queries
+    over ``n_rows`` items: stream whenever the item matrix is big."""
+    chunk = _MAX_CHUNK_ROWS
+    while chunk > 1024 and _CHUNKED_BATCH * chunk * 4 > _FLAT_SCORES_LIMIT:
+        chunk //= 2
+    big = (n_rows > (1 << 19)
+           or b_pad * n_rows * 4 > _FLAT_SCORES_LIMIT)
+    return big, chunk
+
+
+# Two-phase streaming top-k: rows per block maximum, and blocks rescored
+# exactly per query in phase B.
+_BLOCK_ROWS = 128
+_BLOCK_KSEL = 32
+
+
+def _phase_b(Y, Qc, active, buckets, target, M, k: int, bs: int,
+             ksel: int, max_bits: int):
+    """Phase B shared by every phase-A build: pick the ``ksel`` best
+    ``bs``-row blocks per query from the block maxima ``M`` (B, N // bs),
+    exactly rescore the gathered rows, and emit top-k plus the exactness
+    certificate kth_score >= max(unselected block maxima)."""
+    b, f = Qc.shape
+    _, bi = _top_k(M, ksel)
+    m_rest = M.scatter(1, bi, _NEG_INF).amax(-1)
+    # gathered blocks stay in the store dtype and widen exactly: phase B
+    # must reduce the SAME bf16 products phase A did, or the
+    # certificate's phase-A-bounds-phase-B argument breaks at the
+    # rounding margin
+    Yg = Y.view(-1, bs, f)[bi].view(b, ksel * bs, f)
+    scores = torch.bmm(Yg.to(torch.float32),
+                       Qc.to(torch.float32)[:, :, None])[:, :, 0]
+    ok = active.view(-1, bs)[bi].reshape(b, ksel * bs)
+    if target is not None:
+        bg = buckets.view(-1, bs)[bi].reshape(b, ksel * bs)
+        ok = _lsh_ok(ok, bg, target[:, None], max_bits)
+    scores = torch.where(ok, scores, _NEG_INF)
+    ts, ti = _top_k(scores, k)
+    rows = (bi[:, :, None] * bs
+            + torch.arange(bs, device=Y.device)[None, None, :]).reshape(
+                b, ksel * bs)
+    idx = rows.gather(1, ti)
+    # conservative margin: phase A and phase B may sum the same products
+    # in different orders; inflating m_rest by a relative epsilon can
+    # only FAIL the certificate more often, never pass a true miss.
+    # Relative only: zero-padded query rows score exactly 0 on both
+    # phases and must keep passing; a -inf m_rest (every unselected
+    # block masked) must stay -inf, not -inf + inf = NaN
+    m_guard = torch.where(torch.isfinite(m_rest),
+                          m_rest + m_rest.abs() * 1e-4, m_rest)
+    cert = ts[:, k - 1] >= m_guard
+    return ts, idx, cert
+
+
+# Rows a store capacity must divide into for the "pallas" kind to be
+# chosen — the reference's phase-A tile.  The CUDA kernel itself needs
+# only N % 128 == 0; the rule is kept so the port picks its phase-A kind
+# wherever the reference would pick its Pallas kernel.
+_PA_TILE = 4096
+
+
+def _batch_top_n_twophase_cuda(Y, Q, penalty, active, buckets,
+                               hyperplanes, k: int, bs: int, ksel: int,
+                               max_bits: int):
+    """Two-phase streaming top-k with the phase-A block maxima computed
+    by the hand-written kernel (ops/phase_a.py): the scores never reach
+    device memory.  Counterpart of the reference's
+    ``_batch_top_n_twophase_pallas``; ``penalty`` is the (N // bs, bs)
+    0/-inf live-row mask."""
+    Qc = _q_cast(Q, Y).contiguous()
+    target = None
+    if buckets is not None:
+        target = _query_buckets(Q, hyperplanes)
+    M = phase_a(Qc, Y, penalty, buckets, target, max_bits, bs)
+    return _phase_b(Y, Qc, active, buckets, target, M, k, bs, ksel,
+                    max_bits)
+
+
+def _batch_top_n_twophase_kernel(Y, Q, active, buckets, hyperplanes,
+                                 k: int, chunk: int, bs: int, ksel: int,
+                                 max_bits: int):
+    """Streaming two-phase top-k with phase A as plain PyTorch over row
+    chunks (the reference's ``scan`` kind): each chunk's (B, chunk)
+    scores are reduced to block maxima, then phase B as always.
+    ``buckets``/``hyperplanes`` of None select the exact scan."""
+    b = Q.shape[0]
+    target = None
+    if buckets is not None:
+        target = _query_buckets(Q, hyperplanes)
+    Qc = _q_cast(Q, Y)
+    ms = []
+    for start in range(0, Y.shape[0], chunk):
+        stop = start + chunk
+        scores = _scores(Qc, Y[start:stop])
+        ok = active[None, start:stop]
+        if target is not None:
+            ok = _lsh_ok(ok, buckets[None, start:stop], target[:, None],
+                         max_bits)
+        scores = torch.where(ok, scores, _NEG_INF)
+        ms.append(scores.view(b, chunk // bs, bs).amax(-1))
+    M = torch.cat(ms, dim=1)
+    return _phase_b(Y, Qc, active, buckets, target, M, k, bs, ksel,
+                    max_bits)
+
+
+def _batch_top_n_chunked_kernel(Y, Q, active, buckets, hyperplanes,
+                                k: int, chunk: int, max_bits: int):
+    """Streaming batched top-k with an exact per-chunk top-k and a
+    running (B, k) carry — the fallback for certificate failures.
+    ``buckets``/``hyperplanes`` of None select the exact scan."""
+    b = Q.shape[0]
+    target = None
+    if buckets is not None:
+        target = _query_buckets(Q, hyperplanes)
+    Qc = _q_cast(Q, Y)
+    best_s = torch.full((b, k), _NEG_INF, dtype=torch.float32,
+                        device=Y.device)
+    best_i = torch.zeros((b, k), dtype=torch.int64, device=Y.device)
+    for start in range(0, Y.shape[0], chunk):
+        stop = start + chunk
+        scores = _scores(Qc, Y[start:stop])
+        ok = active[None, start:stop]
+        if target is not None:
+            ok = _lsh_ok(ok, buckets[None, start:stop], target[:, None],
+                         max_bits)
+        cs, ci = _top_k(torch.where(ok, scores, _NEG_INF), k)
+        best_s, sel = _top_k(torch.cat([best_s, cs], dim=1), k)
+        best_i = torch.cat([best_i, ci + start], dim=1).gather(1, sel)
+    return best_s, best_i
+
+
+def _masked_top_k(scores, mask, k: int):
+    return _top_k(torch.where(mask, scores, _NEG_INF), k)
+
+
+def _penalty_kernel(active, bs: int):
+    """(N // bs, bs) float32 additive mask for phase A: 0 for live rows,
+    -inf for retired ones."""
+    return torch.where(active, 0.0, _NEG_INF).to(torch.float32).reshape(
+        -1, bs)
+
+
+def _fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
+    return [t.cpu().numpy() for t in tensors]
+
+
+class ALSServingModel(FactorModelBase, ServingModel):
+    """Factor stores + known-items, with device top-N."""
+
+    def __init__(self, features: int, implicit: bool,
+                 sample_rate: float = 1.0, rescorer_provider=None,
+                 dtype="float32", device=None):
+        super().__init__(features, implicit, dtype=dtype, device=device)
+        self.rescorer_provider = rescorer_provider
+        self._known_items: dict[str, set[str]] = {}
+        self._known_lock = AutoReadWriteLock()
+        self.lsh = (LocalitySensitiveHash(sample_rate, features,
+                                          device=self.device)
+                    if sample_rate < 1.0 else None)
+        self._item_buckets: torch.Tensor | None = None
+        self._item_buckets_version: int = -1
+        self._penalty: torch.Tensor | None = None
+        self._penalty_version: int = -1
+        self._bucket_lock = threading.Lock()
+        # exact-scan recomputes forced by a failed two-phase certificate
+        self.twophase_fallbacks = 0
+
+    # -- known items ---------------------------------------------------------
+
+    def add_known_items(self, user_id: str, item_ids: Iterable[str]) -> None:
+        with self._known_lock.write():
+            self._known_items.setdefault(user_id, set()).update(item_ids)
+
+    def get_known_items(self, user_id: str) -> set[str]:
+        with self._known_lock.read():
+            return set(self._known_items.get(user_id, ()))
+
+    # -- scoring -------------------------------------------------------------
+
+    def metrics(self) -> dict:
+        """App-level gauges."""
+        return {
+            "users": len(self.X),
+            "items": len(self.Y),
+            # exact-scan recomputes forced by a failed streaming top-k
+            # certificate; nonzero is worth an operator's attention
+            "twophase_fallbacks": self.twophase_fallbacks,
+        }
+
+    @property
+    def kernel_route_label(self) -> str | None:
+        """Label of the measured-cost route serving this shape: None, as
+        the measured-cost router is not part of this package yet."""
+        return None
+
+    def _lsh_active(self) -> bool:
+        """True when this model's LSH configuration actually prunes."""
+        return (self.lsh is not None and self.lsh.num_hashes > 0
+                and self.lsh.max_bits_differing < self.lsh.num_hashes)
+
+    def _cached_penalty(self, active, version) -> torch.Tensor:
+        """(N // 128, 128) float32 additive live-row mask for phase A,
+        recomputed only when the Y snapshot version changes."""
+        with self._bucket_lock:
+            if self._penalty is None or self._penalty_version != version:
+                self._penalty = _penalty_kernel(active, _BLOCK_ROWS)
+                self._penalty_version = version
+            return self._penalty
+
+    def _cached_buckets(self, vecs, version) -> torch.Tensor:
+        """Per-item LSH bucket ids on the device, recomputed only when
+        the Y snapshot version changes."""
+        with self._bucket_lock:
+            if self._item_buckets is None \
+                    or self._item_buckets_version != version:
+                self._item_buckets = self.lsh.device_buckets(vecs)
+                self._item_buckets_version = version
+            return self._item_buckets
+
+    def _lsh_mask(self, query_vec: np.ndarray | None, vecs, version, active):
+        if self.lsh is None or query_vec is None \
+                or self.lsh.num_hashes == 0:
+            return active
+        buckets = self._cached_buckets(vecs, version)
+        return active & self.lsh.candidate_mask(query_vec, buckets)
+
+    def top_n(self, how_many: int,
+              user_vector: np.ndarray,
+              exclude: Iterable[str] = (),
+              rescorer: Rescorer | None = None,
+              allowed: Callable[[str], bool] | None = None,
+              lowest: bool = False,
+              use_lsh: bool = True) -> list[tuple[str, float]]:
+        """Top (or bottom, with ``lowest``) dot-product scoring items with
+        scores (the reference's DotsFunction).  ``use_lsh=False`` forces
+        an exact scan even on an LSH-configured model."""
+        _check_f32_matmul(self.device)
+        vecs, active, version = self.Y.device_arrays_versioned()
+        q = np.asarray(user_vector, dtype=np.float32)
+        scores = _dot_scores(vecs, torch.from_numpy(q).to(self.device))
+        if lowest:
+            scores = -scores
+        mask = self._lsh_mask(q if use_lsh else None, vecs, version, active)
+
+        exclude = set(exclude)
+        n_rows = int(vecs.shape[0])
+        if rescorer is not None or allowed is not None:
+            # device-side top-M, rescore the M candidates on host; falls
+            # back to the full pull only when filtering eats the window
+            # (reference: Recommend.java:91-107)
+            m = min(_pad_k(max(4 * (how_many + len(exclude)), 512)), n_rows)
+            if m < n_rows:
+                out = self._rescored_from_window(
+                    scores, mask, m, how_many, exclude, rescorer,
+                    allowed, lowest)
+                if out is not None:
+                    return out
+            s, mk = _fetch(scores, mask)
+            return self._host_top_n(s, mk, how_many, exclude, rescorer,
+                                    allowed, lowest)
+        # pull a padded window to absorb excluded ids, then host-filter
+        k = min(_pad_k(how_many + len(exclude)), n_rows)
+        top_scores, top_idx = _fetch(*_masked_top_k(scores, mask, k))
+        out: list[tuple[str, float]] = []
+        for s, i in zip(top_scores.tolist(), top_idx.tolist()):
+            if not math.isfinite(s):
+                break
+            id_ = self.Y.id_of(i)
+            if id_ is None or id_ in exclude:
+                continue
+            out.append((id_, -s if lowest else s))
+            if len(out) == how_many:
+                break
+        if len(out) < how_many and k < n_rows:
+            # excluded set ate into the window; fall back to exact host scan
+            s, mk = _fetch(scores, mask)
+            return self._host_top_n(s, mk, how_many, exclude, None, None,
+                                    lowest)
+        return out
+
+    def top_n_batch(self, how_many: int | Sequence[int],
+                    user_vectors: np.ndarray,
+                    exclude: Sequence[Iterable[str]] | None = None,
+                    use_lsh: bool = True) -> list[list[tuple[str, float]]]:
+        """Batched top-N: one device pass for a whole batch of /recommend
+        requests.  ``user_vectors`` is (B, features); ``how_many`` is one
+        size for all requests or one per request; ``exclude`` optionally
+        gives per-request excluded item IDs.
+
+        On an LSH-configured model each query's Hamming-ball candidate
+        mask is fused into the scoring.  ``use_lsh=False`` forces the
+        exact scan.  Above ~0.5M items (or ~1 GB of score matrix) the
+        batch runs the two-phase streaming top-k in windows of the
+        ladder; below, one flat masked top-k."""
+        _check_f32_matmul(self.device)
+        Q = np.asarray(user_vectors, dtype=np.float32)
+        if Q.ndim != 2 or Q.shape[1] != self.features:
+            raise ValueError("user_vectors must be (B, features)")
+        n_req = Q.shape[0]
+        if n_req == 0:
+            return []
+        hm = [how_many] * n_req if isinstance(how_many, int) \
+            else list(how_many)
+        if len(hm) != n_req:
+            raise ValueError("one how_many per user vector required")
+        excl = [set(e) for e in exclude] if exclude is not None \
+            else [set()] * n_req
+        vecs, active, version = self.Y.device_arrays_versioned()
+        n_rows = int(vecs.shape[0])
+        k = min(_pad_k(max(h + len(e) for h, e in zip(hm, excl))), n_rows)
+        # pow2 floor of 8 for the flat path's sizing decision, as the
+        # reference sizes it
+        b_pad = 1 << max(3, (n_req - 1).bit_length())
+        lsh_on = use_lsh and self._lsh_active()
+        buckets = self._cached_buckets(vecs, version) if lsh_on else None
+        big, chunk = _stream_plan(n_rows, b_pad)
+        bs = _BLOCK_ROWS
+        ksel = min(_BLOCK_KSEL, n_rows // max(1, bs))
+        if big and n_rows % chunk == 0 and k <= chunk:
+            # streaming path: window shapes from the ladder (computed
+            # from the TRUE request count — a 257-query drain is
+            # [256, 8], not two full windows)
+            hp = self.lsh._device_hyperplanes() if lsh_on else None
+            mb = self.lsh.max_bits_differing if lsh_on else 0
+            sizes = _window_sizes(n_req)
+            Qp = np.zeros((sum(sizes), Q.shape[1]), np.float32)
+            Qp[:n_req] = Q
+            Qd = torch.from_numpy(Qp).to(self.device)
+            starts = np.cumsum([0] + sizes[:-1]).tolist()
+            windows = [Qd[s:s + size] for s, size in zip(starts, sizes)]
+            if n_rows % bs == 0 and 1 <= ksel < n_rows // bs \
+                    and k <= ksel * bs:
+                fetched = self._dispatch_twophase(
+                    vecs, windows, active, version, buckets, hp, k,
+                    chunk, bs, ksel, mb)
+                for w, (ts, ti, cert) in enumerate(fetched):
+                    if not cert.all():
+                        # block selection missed a head block for some
+                        # row; recompute on the exact scan.  Counted per
+                        # certificate-failing row, under the lock —
+                        # batcher dispatcher threads race on this gauge
+                        with self._bucket_lock:
+                            self.twophase_fallbacks += int((~cert).sum())
+                        ts, ti = _fetch(*_batch_top_n_chunked_kernel(
+                            vecs, windows[w], active, buckets, hp, k,
+                            chunk, mb))
+                        fetched[w] = (ts, ti, None)
+            else:
+                fetched = [_fetch(*_batch_top_n_chunked_kernel(
+                    vecs, qw, active, buckets, hp, k, chunk, mb))
+                    for qw in windows]
+            top_scores = np.concatenate([f[0] for f in fetched])
+            top_idx = np.concatenate([f[1] for f in fetched])
+        else:
+            Qp = np.zeros((b_pad, Q.shape[1]), np.float32)
+            Qp[:n_req] = Q
+            Qd = torch.from_numpy(Qp).to(self.device)
+            if lsh_on:
+                out_dev = _batch_top_n_lsh_kernel(
+                    vecs, Qd, active, buckets,
+                    self.lsh._device_hyperplanes(), k,
+                    self.lsh.max_bits_differing)
+            else:
+                out_dev = _batch_top_n_kernel(vecs, Qd, active, k)
+            top_scores, top_idx = _fetch(*out_dev)
+        return self._decode_top_n(top_scores, top_idx, hm, excl, n_req,
+                                  k < n_rows, Q, use_lsh)
+
+    def _dispatch_twophase(self, vecs, windows, active, version, buckets,
+                           hp, k: int, chunk: int, bs: int, ksel: int,
+                           mb: int) -> list:
+        """Run every window's two-phase program on the first kind of the
+        phase-A chain and fetch the results together.  There is no
+        fallback to another kind: a kernel that fails to build or launch
+        raises, and the batcher surfaces it per request."""
+        kind = self._phase_a_kinds(int(vecs.shape[0]))[0]
+        ctx: dict = {}
+        handles = [self._dispatch_kind(kind, qw, vecs, active, version,
+                                       buckets, hp, k, bs, ksel, mb, ctx,
+                                       chunk=chunk)
+                   for qw in windows]
+        return [_fetch(*h) for h in handles]
+
+    def _dispatch_kind(self, kind: str, qw, vecs, active, version,
+                       buckets, hp, k: int, bs: int, ksel: int, mb: int,
+                       ctx: dict, chunk: int = 0):
+        """Run ONE window's two-phase program with the given phase-A
+        kind; ``ctx`` caches the phase-A side inputs across the windows
+        of a drain."""
+        if kind == "pallas":
+            if "penalty" not in ctx:
+                ctx["penalty"] = self._cached_penalty(active, version)
+            return _batch_top_n_twophase_cuda(
+                vecs, qw, ctx["penalty"], active, buckets, hp, k, bs,
+                ksel, mb)
+        if kind == "scan":
+            return _batch_top_n_twophase_kernel(
+                vecs, qw, active, buckets, hp, k, chunk, bs, ksel, mb)
+        raise ValueError(f"unknown phase-A kind {kind!r}")
+
+    def _phase_a_kinds(self, n_rows: int) -> list[str]:
+        """Phase-A kinds for a streaming shape, best first.  The kind
+        names are the reference's: "pallas" is the hand-written CUDA
+        kernel, "scan" the plain-PyTorch chunked build.  The reference's
+        "fold", "i8", "i8_fold" and "ivf" kinds come with their kernels
+        in later slices."""
+        kinds = ["pallas"] if n_rows % _PA_TILE == 0 else []
+        kinds.append("scan")
+        return kinds
+
+    def _decode_top_n(self, top_scores, top_idx, hm: list[int],
+                      excl: list[set[str]], n_req: int, window_partial: bool,
+                      Q: np.ndarray,
+                      use_lsh: bool) -> list[list[tuple[str, float]]]:
+        """Host decode shared by the flat and streaming batched paths:
+        map rows to ids, drop excluded/retired rows, and retry a request
+        on the single-request path when its exclusions ate the whole
+        fetched window."""
+        row_ids = self.Y.row_ids()
+        results: list[list[tuple[str, float]]] = []
+        for b in range(n_req):
+            out: list[tuple[str, float]] = []
+            for s, i in zip(top_scores[b].tolist(), top_idx[b].tolist()):
+                if not math.isfinite(s):
+                    break
+                id_ = row_ids[i]
+                if id_ is None or id_ in excl[b]:
+                    continue
+                out.append((id_, s))
+                if len(out) == hm[b]:
+                    break
+            if len(out) < hm[b] and window_partial:
+                out = self.top_n(hm[b], user_vector=Q[b],
+                                 exclude=excl[b], use_lsh=use_lsh)
+            results.append(out)
+        return results
+
+    def _rescored_from_window(self, scores, mask, m: int, how_many: int,
+                              exclude: set[str],
+                              rescorer: Rescorer | None,
+                              allowed: Callable[[str], bool] | None,
+                              lowest: bool) -> list[tuple[str, float]] | None:
+        """Rescore/filter the device top-``m`` window; None when the
+        filters ate the window without filling ``how_many`` AND more
+        candidates exist beyond it (caller falls back to the full
+        pull)."""
+        ts, ti = _fetch(*_masked_top_k(scores, mask, m))
+        out: list[tuple[str, float]] = []
+        exhausted = False
+        for s, i in zip(ts.tolist(), ti.tolist()):
+            if not math.isfinite(s):
+                exhausted = True  # -inf tail: no candidates remain
+                break
+            id_ = self.Y.id_of(i)
+            if id_ is None or id_ in exclude:
+                continue
+            if allowed is not None and not allowed(id_):
+                continue
+            score = -s if lowest else s
+            if rescorer is not None:
+                if rescorer.is_filtered(id_):
+                    continue
+                score = rescorer.rescore(id_, score)
+                if math.isnan(score):
+                    continue
+            out.append((id_, score))
+        if len(out) < how_many and not exhausted:
+            return None
+        out.sort(key=lambda t: t[1] if lowest else -t[1])
+        return out[:how_many]
+
+    def _host_top_n(self, scores: np.ndarray, mask: np.ndarray,
+                    how_many: int, exclude: set[str],
+                    rescorer: Rescorer | None,
+                    allowed: Callable[[str], bool] | None,
+                    lowest: bool) -> list[tuple[str, float]]:
+        """Exact host-side top-N.  ``scores`` arrive already negated when
+        ``lowest``; emitted scores are restored to original sign."""
+        order = np.argsort(-scores)
+        out: list[tuple[str, float]] = []
+        for i in order:
+            if not mask[i] or not math.isfinite(scores[i]):
+                continue
+            id_ = self.Y.id_of(int(i))
+            if id_ is None or id_ in exclude:
+                continue
+            if allowed is not None and not allowed(id_):
+                continue
+            score = -float(scores[i]) if lowest else float(scores[i])
+            if rescorer is not None:
+                if rescorer.is_filtered(id_):
+                    continue
+                score = rescorer.rescore(id_, score)
+                if math.isnan(score):
+                    continue
+            out.append((id_, score))
+            if rescorer is None and len(out) == how_many:
+                return out
+        if rescorer is not None:
+            out.sort(key=lambda t: t[1] if lowest else -t[1])
+            return out[:how_many]
+        return out
+
+    def __repr__(self):  # pragma: no cover
+        return (f"ALSServingModel[features:{self.features}, "
+                f"X:({len(self.X)} users), Y:({len(self.Y)} items)]")

@@ -1,0 +1,303 @@
+// Phase A of the two-phase streaming top-k: per-block maxima of Q . Y^T.
+//
+// Replaces oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas,
+// both of its bodies.  For every 128-row item block `blk` and query `q`:
+//
+//   M[q, blk] = max over rows r of block blk of (Y[r] . Q[q] + penalty[r])
+//
+// accumulated in float32, where penalty[r] is 0 for a live row and -inf for
+// a retired one.  The LSH body first sets to -inf every row whose bucket
+// differs from the query's target bucket in more than `max_bits` bits.
+// The scores never reach device memory: only the (B, N/128) maxima do.
+//
+// Stores: float32, or bfloat16 with a bfloat16 query.  A bf16 x bf16
+// product is exact in float32, so the bf16 body widens both operands on
+// the way into shared memory and runs the same float32 FMA loop.  A float32
+// store runs on the CUDA cores in full float32 (FFMA, no TF32): phase B's
+// exactness certificate holds only if phase A's maxima and phase B's exact
+// rescore agree within its 1e-4 relative margin, and TF32 keeps ~3 digits.
+//
+// What bounds it on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s FP32 on CUDA
+// cores, 989 TFLOP/s bf16 dense on tensor cores), at the serving shape of
+// 5,111,808 rows x 256 columns (250 features padded to a multiple of 32):
+//   - float32 store: 5.23 GB to read, 1.56 ms; at B = 8 that is the bound.
+//     The product is 2 x 5,111,808 x 250 x B flops: at B = 256, 654 GFLOP,
+//     9.8 ms on the CUDA cores, so the large window is bound by operations.
+//   - bfloat16 store: 2.62 GB, 0.78 ms; memory-bound at every window
+//     against the tensor cores' rate.  This kernel multiplies on the CUDA
+//     cores, so at B = 256 it is bound by FFMA throughput, not by bytes.
+//
+// Design: one thread block per (128-row item block, tile of QT queries),
+// QT in {8, 32, 64}.  Blocks of one item block are adjacent in the launch
+// order, so the tiles of a wide window read their rows from L2, not HBM.
+// The block walks the features in stages of 32 columns: each stage's rows
+// and queries are loaded from device memory into registers one stage
+// ahead (16-byte loads), then stored transposed into shared memory as
+// float32, so a thread reads its rows and queries as float4.  Each of the
+// 256 threads holds a TM x TN register tile of dot products (8 x 4 at
+// QT = 64), so the FMA loop issues one shared-memory load for ~10 FMAs.
+// The epilogue adds the penalty, applies the LSH mask with __popc, takes
+// the max over the thread's rows, and finishes the max over the block's
+// 128 rows with warp shuffles.  A fully masked block gives exactly -inf
+// (never NaN), and a zero query row scores exactly 0 before the penalty.
+//
+// The kernel needs N % 128 == 0 and F % 32 == 0, launches on the caller's
+// stream, allocates nothing and does not synchronise.  wgmma, TMA and a
+// deeper pipeline are later work.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BS = 128;            // rows per item block (_BLOCK_ROWS)
+constexpr int KC = 32;             // feature columns per shared-memory stage
+constexpr int THREADS = 256;
+constexpr int YS_STRIDE = BS + 4;  // keeps float4 alignment of each column
+
+template <bool BF16>
+__device__ __forceinline__ void widen(const uint4& v, float* out) {
+  if constexpr (BF16) {
+    // little-endian: element 2i is the low half of word i; a bf16 is the
+    // high 16 bits of the float32 with the same value
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else {
+    out[0] = __uint_as_float(v.x);
+    out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z);
+    out[3] = __uint_as_float(v.w);
+  }
+}
+
+template <bool BF16, int QT>
+struct Tile {
+  static constexpr int ES = BF16 ? 2 : 4;          // bytes per element
+  static constexpr int PV = 16 / ES;               // elements per uint4
+  static constexpr int VPR = KC / PV;              // uint4 per row per stage
+  static constexpr int YV = BS * VPR / THREADS;    // Y uint4 per thread
+  static constexpr int QVEC = QT * VPR;            // Q uint4 per stage
+  static constexpr int QV = (QVEC + THREADS - 1) / THREADS;
+  static constexpr int TN = QT >= 32 ? 4 : 1;      // queries per thread
+  static constexpr int QG = QT / TN;               // query groups
+  static constexpr int RG = THREADS / QG;          // row groups
+  static constexpr int TM = BS / RG;               // rows per thread
+  static_assert(RG * QG == THREADS, "thread layout");
+  static_assert(TM % 4 == 0, "rows per thread come in float4s");
+  static_assert(YV * THREADS == BS * VPR, "Y stage divides evenly");
+};
+
+template <bool BF16, int QT>
+__device__ __forceinline__ void load_stage(
+    const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
+    size_t row0, int q0, int B, size_t row_bytes, int k0, int tid,
+    uint4* yreg, uint4* qreg) {
+  using T = Tile<BF16, QT>;
+#pragma unroll
+  for (int i = 0; i < T::YV; ++i) {
+    const int v = tid + i * THREADS;
+    const int r = v / T::VPR, c = v % T::VPR;
+    yreg[i] = *reinterpret_cast<const uint4*>(
+        Y + (row0 + r) * row_bytes + (size_t)(k0 + c * T::PV) * T::ES);
+  }
+#pragma unroll
+  for (int i = 0; i < T::QV; ++i) {
+    const int v = tid + i * THREADS;
+    if (v < T::QVEC) {
+      const int qq = v / T::VPR, c = v % T::VPR;
+      qreg[i] = (q0 + qq < B)
+          ? *reinterpret_cast<const uint4*>(
+                Q + (size_t)(q0 + qq) * row_bytes
+                  + (size_t)(k0 + c * T::PV) * T::ES)
+          : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+template <bool BF16, int QT>
+__device__ __forceinline__ void store_stage(
+    const uint4* yreg, const uint4* qreg, int tid, float* ys, float* qs) {
+  using T = Tile<BF16, QT>;
+  float f[T::PV];
+#pragma unroll
+  for (int i = 0; i < T::YV; ++i) {
+    const int v = tid + i * THREADS;
+    const int r = v / T::VPR, c = v % T::VPR;
+    widen<BF16>(yreg[i], f);
+#pragma unroll
+    for (int e = 0; e < T::PV; ++e) ys[(c * T::PV + e) * YS_STRIDE + r] = f[e];
+  }
+#pragma unroll
+  for (int i = 0; i < T::QV; ++i) {
+    const int v = tid + i * THREADS;
+    if (v < T::QVEC) {
+      const int qq = v / T::VPR, c = v % T::VPR;
+      widen<BF16>(qreg[i], f);
+#pragma unroll
+      for (int e = 0; e < T::PV; ++e) qs[(c * T::PV + e) * QT + qq] = f[e];
+    }
+  }
+}
+
+template <bool BF16, bool LSH, int QT>
+__global__ void __launch_bounds__(THREADS, 2)
+phase_a_kernel(const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
+               const float* __restrict__ penalty,
+               const int32_t* __restrict__ buckets,
+               const int32_t* __restrict__ target, float* __restrict__ out,
+               int n_blocks, int F, int B, int max_bits) {
+  using T = Tile<BF16, QT>;
+  __shared__ __align__(16) float ys[KC * YS_STRIDE];
+  __shared__ __align__(16) float qs[KC * QT];
+
+  const int n_qt = (B + QT - 1) / QT;
+  const int blk = blockIdx.x / n_qt;
+  const int q0 = (blockIdx.x % n_qt) * QT;
+  const int tid = threadIdx.x;
+  const int rg = tid % T::RG;
+  const int qg = tid / T::RG;
+  const size_t row0 = (size_t)blk * BS;
+  const size_t row_bytes = (size_t)F * T::ES;
+
+  uint4 yreg[T::YV];
+  uint4 qreg[T::QV];
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
+
+  load_stage<BF16, QT>(Y, Q, row0, q0, B, row_bytes, 0, tid, yreg, qreg);
+  for (int k0 = 0; k0 < F; k0 += KC) {
+    store_stage<BF16, QT>(yreg, qreg, tid, ys, qs);
+    __syncthreads();
+    if (k0 + KC < F)  // next stage's loads are in flight during the FMAs
+      load_stage<BF16, QT>(Y, Q, row0, q0, B, row_bytes, k0 + KC, tid,
+                           yreg, qreg);
+#pragma unroll 4
+    for (int kk = 0; kk < KC; ++kk) {
+      float a[T::TM];
+      float b[T::TN];
+#pragma unroll
+      for (int j = 0; j < T::TM / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &ys[kk * YS_STRIDE + j * T::RG * 4 + rg * 4]);
+        a[4 * j] = v.x;
+        a[4 * j + 1] = v.y;
+        a[4 * j + 2] = v.z;
+        a[4 * j + 3] = v.w;
+      }
+      if constexpr (T::TN == 4) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            &qs[kk * QT + qg * 4]);
+        b[0] = w.x;
+        b[1] = w.y;
+        b[2] = w.z;
+        b[3] = w.w;
+      } else {
+        b[0] = qs[kk * QT + qg];
+      }
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: thread-local row i is block row (i/4)*RG*4 + rg*4 + i%4
+  float pen[T::TM];
+  int32_t bkt[T::TM];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const size_t r = row0 + (i / 4) * T::RG * 4 + rg * 4 + (i % 4);
+    pen[i] = penalty[r];
+    bkt[i] = LSH ? buckets[r] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < T::TN; ++j) {
+    const int q = q0 + qg * T::TN + j;
+    const int32_t tgt = (LSH && q < B) ? target[q] : 0;
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) {
+      float s = acc[i][j] + pen[i];
+      if (LSH && __popc(bkt[i] ^ tgt) > max_bits) s = -INFINITY;
+      m = fmaxf(m, s);
+    }
+    // the RG row groups of one query group are adjacent lanes of a warp
+#pragma unroll
+    for (int off = T::RG / 2; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (rg == 0 && q < B) out[(size_t)q * n_blocks + blk] = m;
+  }
+}
+
+template <bool BF16, bool LSH, int QT>
+void launch(const void* y, const void* q, const float* penalty,
+            const int32_t* buckets, const int32_t* target, float* out,
+            int n_blocks, int F, int B, int max_bits, cudaStream_t stream) {
+  const unsigned n_qt = (unsigned)((B + QT - 1) / QT);
+  const dim3 grid((unsigned)n_blocks * n_qt);
+  phase_a_kernel<BF16, LSH, QT><<<grid, THREADS, 0, stream>>>(
+      static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(q),
+      penalty, buckets, target, out, n_blocks, F, B, max_bits);
+}
+
+template <bool BF16, bool LSH>
+void launch_tile(const void* y, const void* q, const float* penalty,
+                 const int32_t* buckets, const int32_t* target, float* out,
+                 int n_blocks, int F, int B, int max_bits,
+                 cudaStream_t stream) {
+  if (B >= 64)
+    launch<BF16, LSH, 64>(y, q, penalty, buckets, target, out, n_blocks, F,
+                          B, max_bits, stream);
+  else if (B > 8)
+    launch<BF16, LSH, 32>(y, q, penalty, buckets, target, out, n_blocks, F,
+                          B, max_bits, stream);
+  else
+    launch<BF16, LSH, 8>(y, q, penalty, buckets, target, out, n_blocks, F,
+                         B, max_bits, stream);
+}
+
+}  // namespace
+
+// Y (n_rows, features) and Q (n_queries, features), both float32 or both
+// bfloat16 (bf16 != 0), row-major and 16-byte aligned; penalty (n_rows,)
+// float32; buckets (n_rows,) and target (n_queries,) int32, both null for
+// the exact body; out (n_queries, n_rows / 128) float32.  Returns the CUDA
+// error of the launch, 0 on success.
+extern "C" int oryx_phase_a(const void* y, const void* q,
+                            const float* penalty, const int32_t* buckets,
+                            const int32_t* target, float* out, int n_rows,
+                            int features, int n_queries, int max_bits,
+                            int bf16, void* stream) {
+  if (n_rows <= 0 || n_rows % BS || features <= 0 || features % KC
+      || n_queries <= 0 || (buckets == nullptr) != (target == nullptr))
+    return (int)cudaErrorInvalidValue;
+  (void)cudaGetLastError();  // clear a stale error of an earlier call
+  const int n_blocks = n_rows / BS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool lsh = buckets != nullptr;
+  if (bf16) {
+    if (lsh)
+      launch_tile<true, true>(y, q, penalty, buckets, target, out, n_blocks,
+                              features, n_queries, max_bits, s);
+    else
+      launch_tile<true, false>(y, q, penalty, buckets, target, out, n_blocks,
+                               features, n_queries, max_bits, s);
+  } else {
+    if (lsh)
+      launch_tile<false, true>(y, q, penalty, buckets, target, out, n_blocks,
+                               features, n_queries, max_bits, s);
+    else
+      launch_tile<false, false>(y, q, penalty, buckets, target, out,
+                                n_blocks, features, n_queries, max_bits, s);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,151 @@
+"""Phase A of the two-phase streaming top-k: per-128-row-block maxima of
+Q·Yᵀ, by a hand-written CUDA kernel (``csrc/phase_a.cu``).
+
+Counterpart of the Pallas kernel inside
+``oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas``,
+both bodies: exact, and LSH (rows outside the query's Hamming ball set
+to -inf first).  ``phase_a`` launches the kernel for CUDA tensors and
+raises if it cannot; for CPU tensors, and only for them, it computes the
+same function with ``phase_a_reference``, the plain PyTorch version.
+``LAUNCHES`` counts the kernel's launches.
+
+The output is (B, N // 128) float32 — the layout phase B reads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from ..app.als.lsh import _popcount
+from . import cuda_build
+
+__all__ = ["phase_a", "phase_a_reference", "build", "LAUNCHES",
+           "BLOCK_ROWS", "SOURCE"]
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a.cu"
+# rows per block maximum; the kernel's BS
+BLOCK_ROWS = 128
+# the kernel stages this many feature columns at a time: the store pads
+# its columns to a multiple of it
+_WIDTH_ALIGN = 32
+# rows per matmul in the plain version: bounds its (B, rows) score tile
+_REF_CHUNK_ROWS = 1 << 17
+
+# kernel launches since the process started (or a caller reset it)
+LAUNCHES = 0
+_count_lock = threading.Lock()
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> ctypes.CDLL:
+    """Build the kernel from its source if its library is not current,
+    and load it."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path = cuda_build.build([SOURCE])[0]
+            lib = ctypes.CDLL(str(path))
+            lib.oryx_phase_a.argtypes = ([ctypes.c_void_p] * 6
+                                         + [ctypes.c_int] * 5
+                                         + [ctypes.c_void_p])
+            lib.oryx_phase_a.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def phase_a_reference(Qc: torch.Tensor, Y: torch.Tensor,
+                      penalty: torch.Tensor,
+                      buckets: torch.Tensor | None = None,
+                      target: torch.Tensor | None = None,
+                      max_bits: int = 0,
+                      bs: int = BLOCK_ROWS) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: ``Qc @ Yᵀ`` in row
+    chunks, in float32 (a bf16 operand widens exactly, so its products
+    are the bf16 x bf16 products the kernel forms), plus the penalty and
+    the LSH mask, reshaped and max-reduced per ``bs``-row block."""
+    n = Y.shape[0]
+    b = Qc.shape[0]
+    q = Qc.to(torch.float32)
+    pen = penalty.reshape(-1)
+    out = torch.empty((b, n // bs), dtype=torch.float32, device=Y.device)
+    for start in range(0, n, _REF_CHUNK_ROWS):
+        stop = min(n, start + _REF_CHUNK_ROWS)
+        s = q @ Y[start:stop].to(torch.float32).T + pen[start:stop]
+        if buckets is not None:
+            ok = _popcount(torch.bitwise_xor(buckets[None, start:stop],
+                                             target[:, None])) <= max_bits
+            s = torch.where(ok, s, float("-inf"))
+        out[:, start // bs:stop // bs] = s.view(b, -1, bs).amax(-1)
+    return out
+
+
+def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
+    if t.device != device or t.dtype != dtype \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"phase_a: {name} must be a contiguous {dtype} tensor of shape "
+            f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
+            buckets: torch.Tensor | None = None,
+            target: torch.Tensor | None = None, max_bits: int = 0,
+            bs: int = BLOCK_ROWS) -> torch.Tensor:
+    """Block maxima (B, N // bs) float32 of ``Qc @ Yᵀ + penalty``, with
+    the LSH Hamming-ball mask when ``buckets``/``target`` are given.
+
+    ``Y`` is the (N, F) store snapshot, float32 or bfloat16; ``Qc`` the
+    (B, F) query in the same dtype; ``penalty`` the (N // bs, bs) float32
+    0/-inf live-row mask; ``buckets`` (N,) and ``target`` (B,) int32.
+    A CPU ``Y`` takes the plain version.  A CUDA ``Y`` launches the
+    kernel, which needs ``bs == 128``, N % 128 == 0 and F % 32 == 0;
+    anything it does not take raises."""
+    if Y.device.type == "cpu":
+        return phase_a_reference(Qc, Y, penalty, buckets, target, max_bits,
+                                 bs)
+    if Y.device.type != "cuda":
+        raise ValueError(f"phase_a: unsupported device {Y.device}")
+    if Y.dim() != 2 or Y.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("phase_a: Y must be a 2-D float32 or bfloat16 "
+                         f"tensor, got {Y.dtype} {tuple(Y.shape)}")
+    n, f = Y.shape
+    b = Qc.shape[0] if Qc.dim() == 2 else 0
+    if bs != BLOCK_ROWS or n % BLOCK_ROWS or f % _WIDTH_ALIGN or b == 0:
+        raise ValueError(
+            f"phase_a kernel needs bs == {BLOCK_ROWS}, N % {BLOCK_ROWS} == 0,"
+            f" F % {_WIDTH_ALIGN} == 0 and B > 0; got bs={bs}, Y {n}x{f}, "
+            f"B={b}")
+    dev = Y.device
+    _check(Y, "Y", Y.dtype, dev, (n, f))
+    _check(Qc, "Qc", Y.dtype, dev, (b, f))
+    _check(penalty, "penalty", torch.float32, dev, (n // bs, bs))
+    if (buckets is None) != (target is None):
+        raise ValueError("phase_a: buckets and target come together")
+    if buckets is not None:
+        _check(buckets, "buckets", torch.int32, dev, (n,))
+        _check(target, "target", torch.int32, dev, (b,))
+    if Y.data_ptr() % 16 or Qc.data_ptr() % 16:
+        raise ValueError("phase_a: Y and Qc must be 16-byte aligned for "
+                         "the kernel's vector loads")
+    out = torch.empty((b, n // bs), dtype=torch.float32, device=dev)
+    lib = build()
+    with torch.cuda.device(dev):
+        rc = lib.oryx_phase_a(
+            Y.data_ptr(), Qc.data_ptr(), penalty.data_ptr(),
+            buckets.data_ptr() if buckets is not None else None,
+            target.data_ptr() if target is not None else None,
+            out.data_ptr(), n, f, b, int(max_bits),
+            int(Y.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"phase_a kernel launch failed: CUDA error {rc}")
+    global LAUNCHES
+    with _count_lock:
+        LAUNCHES += 1
+    return out

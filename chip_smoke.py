@@ -7,29 +7,47 @@ Run from the repository root, with no arguments:
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero
 without a card, outside a checkout, or when any phase fails.  Phases:
 
-1. Build the hand-written kernels from the sources in the checkout
-   (timed), print the card's name and power limit, and check that float32
-   matmuls run without TF32.
-2. Hold the phase-A kernel against its plain PyTorch version at the
-   serving shapes: 5,111,808 rows (the store capacity of 5M items) x 250
-   features padded to 256, windows of 8, 32 and 256 queries, float32 and
-   bfloat16 stores, exact, and with LSH on a 1M-item store.  Each case
-   prints one JSON line with the kernel's time, the plain version's, a
-   PyTorch-library yardstick's, the bound and the error.  Block maxima
-   must agree within rtol 1e-5 (float32) or 1e-4 (bfloat16) plus the
-   same figure as an absolute tolerance in score units, for maxima near
-   0; the -inf pattern must be identical and no NaN may appear.
-3. Time one served window at each ladder size (``top_n_batch`` end to
-   end, its phase A and its phase B), then serve a 5M x 250 float32 model
-   over HTTP through the port's HttpApp + TopNBatcher +
-   StaticModelManager: one untimed round of concurrent /recommend,
-   /recommendToMany and considerKnownItems requests, then the same round
-   timed, every answer checked against the same model's two-phase top-k
-   computed here with the kernel's plain version in its place (and a few
-   against the exact scan).  The kernel's launch count, set to 0 before
-   the timed round, must rise during it.
-4. The same at 5M x 250 bfloat16 and at 1M x 250 float32 with LSH at
-   sample rate 0.3, with fewer requests.
+1. Build every hand-written kernel from the sources in the checkout (one
+   ``nvcc`` per source, started together; timed), print the card's name
+   and power limit, and check that float32 matmuls run without TF32.
+2. Hold each phase-A kernel against its plain PyTorch version on the
+   card, at the shapes its served path gives it.  Each case prints one
+   JSON line with the kernel's time, the plain version's, a PyTorch
+   library yardstick's (never called by the port), the bound and the
+   error:
+   - ``phase_a`` (the store, float32 and bfloat16) at 5,111,808 rows (the
+     store capacity of 5M items) x 250 features padded to 256, windows
+     of 8, 32 and 256 queries, exact, and with LSH on a 1M-item store:
+     block maxima within rtol 1e-5 (float32) or 1e-4 (bfloat16) plus the
+     same figure as an absolute tolerance, for maxima near 0;
+   - ``phase_a_i8`` (the int8 mirror) at 5,111,808 x 256 (250 features)
+     and x 64 (50 features), exact and LSH: int32 maxima bit-identical;
+   - ``phase_a_i8_fold`` (the folded int8 mirror) at 20,054,016 x 32 (10
+     features, fold 2), exact and LSH: bit-identical to its plain version
+     and to ``phase_a_i8`` on the unfolded mirror;
+   - ``phase_a_fold`` (the folded store, float32 and bfloat16) at the
+     same 10-feature shape, within the tolerances of ``phase_a``;
+   - a coverage case of both folded kernels at fold 4 (8 features,
+     1,048,576 rows, 8 queries), which runs their 8-column path; it is
+     labelled coverage, not a served configuration.
+   Float kernels must give the plain version's -inf pattern and no NaN.
+   The int8 quantizer on the card must equal the CPU's bit for bit on
+   the first 1,048,576 rows of each quantized store.
+3. Serve each configuration over HTTP through the port's HttpApp +
+   TopNBatcher + StaticModelManager: one untimed round of concurrent
+   /recommend, /recommendToMany and considerKnownItems requests (32
+   clients), then the same round timed, every answer checked against
+   the same model's top-k with every phase-A kernel swapped for its
+   plain version (and a few against the exact scan).  Every kernel's
+   launch count is set to 0 before the timed round: the kernel of the
+   configuration's phase-A kind must have launched, and no other
+   phase-A kernel.  One served window at each ladder size is timed
+   first.  Configurations (kind in brackets):
+   5M x 250 float32 [pallas], 5M x 250 float32 with
+   int8_selection="true" [i8], 5M x 250 bfloat16 [pallas], 1M x 250
+   float32 LSH 0.3 [pallas], 5M x 50 float32 [i8], 1M x 50 float32 LSH
+   0.3 [i8], 20M x 10 float32 [i8_fold], and the same with
+   int8_selection="false" [fold].
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +56,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import http.client
 import json
@@ -53,18 +72,37 @@ SEED = 20261017
 FEATURES = 250
 N_ITEMS = 5_000_000
 N_LSH_ITEMS = 1_000_000
+N_FOLD_ITEMS = 20_000_000
 LSH_RATE = 0.3
 N_USERS = 1000
 KNOWN_PER_USER = 9
 WINDOWS = (8, 32, 256)
+COVERAGE_ROWS = 1 << 20
+COVERAGE_FEATURES = 8
+QUANT_CHECK_ROWS = 1 << 20
+# rows per library call of the folded and int8 yardsticks: bounds their
+# (rows, B) score tiles
+LIBRARY_CHUNK_ROWS = 1 << 22
 REPS = 10
 DEVICE = "cuda"
 # float32: summation order only; bfloat16: the certificate's own margin
 RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
-# (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s),
-# NVIDIA's data sheets for the SXM parts
-PEAKS = {"H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
-PHASE_A_REPLACES = "oryx_tpu/app/als/serving_model.py:314"
+# (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s,
+# int8 dense tensor-core OP/s), NVIDIA's data sheets for the SXM parts
+PEAKS = {"H200": (4.8e12, 67e12, 989e12, 1979e12),
+         "H100": (3.35e12, 67e12, 989e12, 1979e12)}
+REFERENCE = "oryx_tpu/app/als/serving_model.py"
+KERNELS = {
+    # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
+    "phase_a": (f"{REFERENCE}:314", "oryx_tpu_torch/csrc/phase_a.cu",
+                "pallas"),
+    "phase_a_fold": (f"{REFERENCE}:433", "oryx_tpu_torch/csrc/phase_a.cu",
+                     "fold"),
+    "phase_a_i8_fold": (f"{REFERENCE}:702",
+                        "oryx_tpu_torch/csrc/phase_a_i8.cu", "i8_fold"),
+    "phase_a_i8": (f"{REFERENCE}:804", "oryx_tpu_torch/csrc/phase_a_i8.cu",
+                   "i8"),
+}
 
 
 def log(obj) -> None:
@@ -84,11 +122,50 @@ def gpu_line() -> str:
     return out[0]
 
 
-def peaks(name: str) -> tuple[float, float, float]:
+def peaks(name: str) -> tuple[float, float, float, float]:
     for key, val in PEAKS.items():
         if key in name:
             return val
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
+
+
+def wrappers() -> dict:
+    """Phase-A wrapper modules by kernel name; each counts its kernel's
+    launches in ``LAUNCHES``."""
+    from oryx_tpu_torch.ops import phase_a, phase_a_fold, phase_a_i8
+    from oryx_tpu_torch.ops import phase_a_i8_fold
+    return {"phase_a": phase_a, "phase_a_fold": phase_a_fold,
+            "phase_a_i8": phase_a_i8, "phase_a_i8_fold": phase_a_i8_fold}
+
+
+def reset_launches() -> None:
+    for mod in wrappers().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.LAUNCHES for name, mod in wrappers().items()}
+
+
+@contextlib.contextmanager
+def plain_phase_a():
+    """Swap every phase-A wrapper the serving model calls for its plain
+    version: the model's own path, with no kernel in it."""
+    from oryx_tpu_torch.app.als import serving_model as sm
+    mods = wrappers()
+    swaps = {"phase_a": mods["phase_a"].phase_a_reference,
+             "phase_a_fold": mods["phase_a_fold"].phase_a_fold_reference,
+             "phase_a_i8": mods["phase_a_i8"].phase_a_i8_reference,
+             "phase_a_i8_fold":
+                 mods["phase_a_i8_fold"].phase_a_i8_fold_reference}
+    saved = {name: getattr(sm, name) for name in swaps}
+    try:
+        for name, fn in swaps.items():
+            setattr(sm, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(sm, name, fn)
 
 
 def time_ms(torch, fn) -> float:
@@ -108,81 +185,157 @@ def time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def build_model(Y, X, known, dtype, sample_rate=1.0):
+def build_model(features, Y, X, known, dtype, sample_rate=1.0,
+                int8_selection="auto", y_ids=None):
+    import torch
     from oryx_tpu_torch.convert import serving_model_from_arrays
     t0 = time.perf_counter()
     model = serving_model_from_arrays(
-        FEATURES, True, x_ids=[f"u{u}" for u in range(len(X))], X=X,
-        y_ids=[f"i{j}" for j in range(len(Y))], Y=Y, known_items=known,
-        sample_rate=sample_rate, dtype=dtype, device=DEVICE)
+        features, True, x_ids=[f"u{u}" for u in range(len(X))], X=X,
+        y_ids=y_ids or [f"i{j}" for j in range(len(Y))], Y=Y,
+        known_items=known, sample_rate=sample_rate, dtype=dtype,
+        device=DEVICE, int8_selection=int8_selection)
     vecs, _ = model.Y.device_arrays()
     model.X.device_arrays()
-    import torch
     torch.cuda.synchronize()
-    log({"phase": "model", "items": len(Y), "dtype": dtype,
-         "sample_rate": sample_rate, "rows": int(vecs.shape[0]),
+    log({"phase": "model", "items": len(Y), "features": features,
+         "dtype": dtype, "sample_rate": sample_rate,
+         "int8_selection": int8_selection, "rows": int(vecs.shape[0]),
          "width": int(vecs.shape[1]),
          "load_s": time.perf_counter() - t0})
     return model
 
 
-# -- phase 2: the kernel against its plain version ---------------------------
+def free() -> None:
+    """Return the card memory of what the caller has dropped."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
-def kernel_cases(model, rng, gpu_name, lsh: bool, stores) -> list[dict]:
-    """Every (store dtype, window) case on this model's snapshot: the
-    store's own retired rows (its padding past the last item) plus every
-    11th row retired, and the last eighth of each window zero, as a
+
+# -- phase 2: each kernel against its plain version --------------------------
+
+def compare(kernel: str, info: str, M, R, exact: bool, rtol: float | None,
+            zero_rows: int) -> tuple[float, float]:
+    """Hold the kernel's maxima ``M`` against the plain version's ``R``:
+    bit for bit (integer kernels), or within ``rtol`` with the same -inf
+    pattern and no NaN (float kernels).  The last ``zero_rows`` queries
+    are zero: they score exactly 0 (or the retired-row penalty)."""
+    import torch
+    from oryx_tpu_torch.ops.phase_a_i8 import I8_PENALTY
+    what = f"{kernel} {info}"
+    b = M.shape[0]
+    if exact:
+        check(M.dtype == R.dtype == torch.int32, f"{what}: int32 maxima")
+        check(torch.equal(M, R), f"{what}: maxima differ from the plain "
+              "version")
+        z = M[b - zero_rows:]
+        check(bool(((z == 0) | (z <= I8_PENALTY // 2)).all()),
+              f"{what}: zero query != 0")
+        return 0.0, 0.0
+    fin = torch.isfinite(R)
+    check(bool((torch.isfinite(M) == fin).all()),
+          f"{what}: -inf pattern differs from the plain version")
+    check(not bool(torch.isnan(M).any()), f"{what}: NaN")
+    diff = (M[fin] - R[fin]).abs()
+    over = diff > rtol * R[fin].abs() + rtol
+    check(not bool(over.any()),
+          f"{what}: {int(over.sum())} block maxima beyond rtol {rtol}, "
+          f"largest difference {float(diff.max()) if diff.numel() else 0}")
+    z = M[b - zero_rows:]
+    check(bool((z[torch.isfinite(z)] == 0).all()), f"{what}: zero query != 0")
+    if not diff.numel():
+        return 0.0, 0.0
+    return (float(diff.max()),
+            float((diff / R[fin].abs().clamp_min(1e-30)).max()))
+
+
+def run_case(torch, kernel: str, fields: dict, kern, plain, library,
+             nbytes: float, ops: float, op_rate: float, bw: float,
+             exact: bool, rtol: float | None = None, also=None) -> dict:
+    """One kernel case: compare, then time the kernel, the plain version
+    and the library yardstick; ``also`` holds other results the kernel's
+    maxima must equal bit for bit."""
+    info = " ".join(f"{k}={v}" for k, v in fields.items())
+    M = kern()
+    R = plain()
+    torch.cuda.synchronize()
+    max_abs, max_rel = compare(kernel, info, M, R, exact, rtol,
+                               fields["B"] // 8)
+    for name, other in (also or {}).items():
+        check(torch.equal(M, other), f"{kernel} {info}: maxima differ from "
+              f"{name}")
+    del M, R
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain)
+    library_ms = time_ms(torch, library)
+    t_bytes = nbytes / bw * 1e3
+    t_ops = ops / op_rate * 1e3
+    case = {"phase": "kernel", "kernel": kernel, **fields,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops,
+            "max_abs_err": max_abs, "max_rel_err": max_rel}
+    log(case)
+    return case
+
+
+def queries(torch, rng, b: int, features: int):
+    """(B, features) queries on the card, the last eighth zero, as a
     window padded past its requests is."""
+    q = rng.standard_normal((b, features), dtype=np.float32)
+    q[b - b // 8:] = 0.0
+    return torch.from_numpy(q).to(DEVICE)
+
+
+def side_inputs(vecs, active, features: int, lsh: bool):
+    """The store's own retired rows plus every 11th row retired, and the
+    LSH buckets (sample rate 0.3) of the store when ``lsh``."""
+    live = active.clone()
+    live[::11] = False
+    if not lsh:
+        return live, None, None, 0
+    from oryx_tpu_torch.app.als.lsh import LocalitySensitiveHash
+    h = LocalitySensitiveHash(LSH_RATE, features, device=DEVICE)
+    return (live, h.device_buckets(vecs), h._device_hyperplanes(),
+            h.max_bits_differing)
+
+
+def lsh_ok(torch, buckets, target, max_bits):
+    from oryx_tpu_torch.app.als.lsh import _popcount
+    return _popcount(torch.bitwise_xor(buckets[:, None],
+                                       target[None, :])) <= max_bits
+
+
+def float_cases(model, rng, gpu_name, lsh: bool, stores) -> list[dict]:
+    """``phase_a`` on this model's snapshot, for every store dtype and
+    window."""
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
     from oryx_tpu_torch.app.als.lsh import _popcount
     from oryx_tpu_torch.ops import phase_a as pa
 
-    bw, fp32_rate, bf16_rate = peaks(gpu_name)
+    bw, fp32_rate, bf16_rate, _ = peaks(gpu_name)
     vecs, active, version = model.Y.device_arrays_versioned()
     n, width = vecs.shape
     live = active.clone()
     live[::11] = False
     pen = sm._penalty_kernel(live, pa.BLOCK_ROWS).contiguous()
-    buckets = target_of = None
+    buckets = hp = None
     mb = 0
     if lsh:
         buckets = model._cached_buckets(vecs, version)
         hp = model.lsh._device_hyperplanes()
         mb = model.lsh.max_bits_differing
-        target_of = lambda Q: sm._query_buckets(Q, hp)  # noqa: E731
     out = []
     for dtype in stores:
         Y = vecs if vecs.dtype == dtype else vecs.to(dtype)
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
         for b in WINDOWS:
-            q = rng.standard_normal((b, FEATURES), dtype=np.float32)
-            zero = b // 8
-            q[b - zero:] = 0.0
-            Q = torch.from_numpy(q).to(DEVICE)
+            Q = queries(torch, rng, b, FEATURES)
             Qc = sm._q_cast(Q, Y).contiguous()
-            tgt = target_of(Q) if lsh else None
-            M = pa.phase_a(Qc, Y, pen, buckets, tgt, mb)
-            R = pa.phase_a_reference(Qc, Y, pen, buckets, tgt, mb)
-            torch.cuda.synchronize()
-            fin = torch.isfinite(R)
-            check(bool((torch.isfinite(M) == fin).all()),
-                  f"{name} B={b}: -inf pattern differs from the plain "
-                  "version")
-            check(not bool(torch.isnan(M).any()), f"{name} B={b}: NaN")
-            diff = (M[fin] - R[fin]).abs()
-            rtol = RTOL[name]
-            check(bool((diff <= rtol * R[fin].abs() + rtol).all()),
-                  f"{name} B={b}: block maxima beyond rtol {rtol}")
-            check(bool((M[b - zero:][torch.isfinite(M[b - zero:])]
-                        == 0).all()), f"{name} B={b}: zero query != 0")
-            max_abs = float(diff.max()) if diff.numel() else 0.0
-            max_rel = float((diff / R[fin].abs().clamp_min(1e-30)).max()) \
-                if diff.numel() else 0.0
-            ms = time_ms(torch, lambda: pa.phase_a(Qc, Y, pen, buckets, tgt,
-                                                   mb))
-            plain_ms = time_ms(torch, lambda: pa.phase_a_reference(
-                Qc, Y, pen, buckets, tgt, mb))
+            tgt = sm._query_buckets(Q, hp) if lsh else None
             flat_pen = pen.view(-1)
 
             def library():
@@ -192,70 +345,221 @@ def kernel_cases(model, rng, gpu_name, lsh: bool, stores) -> list[dict]:
                     s = torch.where(ok, s, float("-inf"))
                 return s.view(b, -1, pa.BLOCK_ROWS).amax(-1)
 
-            library_ms = time_ms(torch, library)
             nbytes = (Y.numel() * Y.element_size()
                       + Qc.numel() * Qc.element_size() + pen.numel() * 4
                       + b * (n // pa.BLOCK_ROWS) * 4
                       + (buckets.numel() * 4 + b * 4 if lsh else 0))
-            ops = 2.0 * n * FEATURES * b
-            t_bytes = nbytes / bw * 1e3
-            t_ops = ops / (bf16_rate if name == "bfloat16"
-                           else fp32_rate) * 1e3
-            case = {"phase": "kernel", "kernel": "phase_a", "store": name,
-                    "lsh": lsh, "rows": n, "features": FEATURES,
-                    "width": width, "B": b, "zero_queries": zero,
-                    "retired_rows": int((~live).sum()),
-                    "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops
-                    else "operations",
-                    "bytes": nbytes, "ops": ops,
-                    "max_abs_err": max_abs, "max_rel_err": max_rel}
-            log(case)
-            out.append(case)
-            del M, R, diff
+            out.append(run_case(
+                torch, "phase_a",
+                {"store": name, "lsh": lsh, "rows": n,
+                 "features": FEATURES, "width": width, "B": b,
+                 "retired_rows": int((~live).sum())},
+                lambda: pa.phase_a(Qc, Y, pen, buckets, tgt, mb),
+                lambda: pa.phase_a_reference(Qc, Y, pen, buckets, tgt, mb),
+                library, nbytes, 2.0 * n * FEATURES * b,
+                bf16_rate if name == "bfloat16" else fp32_rate, bw,
+                exact=False, rtol=RTOL[name]))
         del Y
-    torch.cuda.empty_cache()
+    free()
     return out
 
 
-# -- phases 3 and 4: the served path -----------------------------------------
+def check_quantizer(vecs, label: str) -> None:
+    """The quantizer on the card equals the CPU's bit for bit on the
+    first QUANT_CHECK_ROWS rows."""
+    import torch
+    from oryx_tpu_torch.app.als import serving_model as sm
+    part = vecs[:QUANT_CHECK_ROWS]
+    got = sm._quantize_items_kernel(part, sm._BLOCK_ROWS)
+    want = sm._quantize_items_kernel(part.cpu(), sm._BLOCK_ROWS)
+    for g, w, name in zip(got, want, ("y8", "scale", "l1")):
+        check(torch.equal(g.cpu(), w), f"{label}: quantizer {name} on the "
+              "card differs from the CPU's")
+    log({"phase": "quantizer", "store": label, "rows": int(part.shape[0]),
+         "width": int(part.shape[1]), "bit_identical": True})
+
+
+def int_mm_block_max(torch, y8_rows, q8_cols, pen_rows, buckets, target,
+                     max_bits):
+    """The library yardstick of the int8 kernels: ``torch._int_mm`` over
+    row chunks, plus the penalty, the LSH replacement and the block max.
+    ``y8_rows`` (N, w) int8, ``q8_cols`` (w, B) int8, ``pen_rows`` (N,)
+    int32 in row order."""
+    from oryx_tpu_torch.ops.phase_a_i8 import I8_PENALTY
+    n = y8_rows.shape[0]
+    outs = []
+    for s0 in range(0, n, LIBRARY_CHUNK_ROWS):
+        s1 = min(n, s0 + LIBRARY_CHUNK_ROWS)
+        s = torch._int_mm(y8_rows[s0:s1], q8_cols)
+        s += pen_rows[s0:s1, None]
+        if buckets is not None:
+            s.masked_fill_(~lsh_ok(torch, buckets[s0:s1], target, max_bits),
+                           I8_PENALTY)
+        outs.append(s.view(-1, 128, s.shape[1]).amax(1))
+    return torch.cat(outs).T
+
+
+def matmul_block_max(torch, y_rows, q_cols, pen_rows, buckets, target,
+                     max_bits):
+    """The library yardstick of the folded float kernel: one
+    ``torch.matmul`` over the (N, w) view per row chunk, plus the
+    penalty, the LSH mask and the block max."""
+    n = y_rows.shape[0]
+    outs = []
+    for s0 in range(0, n, LIBRARY_CHUNK_ROWS):
+        s1 = min(n, s0 + LIBRARY_CHUNK_ROWS)
+        s = torch.matmul(y_rows[s0:s1], q_cols).float()
+        s += pen_rows[s0:s1, None]
+        if buckets is not None:
+            s.masked_fill_(~lsh_ok(torch, buckets[s0:s1], target, max_bits),
+                           float("-inf"))
+        outs.append(s.view(-1, 128, s.shape[1]).amax(1))
+    return torch.cat(outs).T
+
+
+def i8_cases(vecs, active, rng, gpu_name, features: int,
+             windows) -> list[dict]:
+    """``phase_a_i8`` on the int8 mirror of ``vecs``, exact and LSH."""
+    import torch
+    from oryx_tpu_torch.app.als import serving_model as sm
+    from oryx_tpu_torch.ops import phase_a_i8 as pi8
+
+    bw, _, _, i8_rate = peaks(gpu_name)
+    n, width = vecs.shape
+    check_quantizer(vecs, f"{n}x{width}")
+    y8, _, _ = sm._quantize_items_kernel(vecs, 128)
+    out = []
+    for lsh in (False, True):
+        live, buckets, hp, mb = side_inputs(vecs, active, features, lsh)
+        pen_i = sm._penalty_kernel_i32(live, 128)
+        for b in windows:
+            Q = queries(torch, rng, b, features)
+            Qc = sm._q_cast(Q, vecs).contiguous()
+            q8, _, _ = sm._quantize_queries(Qc)
+            tgt = sm._query_buckets(Q, hp) if lsh else None
+            q8_cols = q8.T
+            nbytes = (y8.numel() + q8.numel() + pen_i.numel() * 4
+                      + b * (n // 128) * 4
+                      + (buckets.numel() * 4 + b * 4 if lsh else 0))
+            out.append(run_case(
+                torch, "phase_a_i8",
+                {"store": "int8", "lsh": lsh, "rows": n,
+                 "features": features, "width": width, "B": b,
+                 "retired_rows": int((~live).sum())},
+                lambda: pi8.phase_a_i8(q8, y8, pen_i, buckets, tgt, mb),
+                lambda: pi8.phase_a_i8_reference(q8, y8, pen_i, buckets, tgt,
+                                                 mb),
+                lambda: int_mm_block_max(torch, y8, q8_cols, pen_i.view(-1),
+                                         buckets, tgt, mb),
+                nbytes, 2.0 * n * features * b, i8_rate, bw, exact=True))
+    del y8
+    free()
+    return out
+
+
+def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
+               label: str) -> list[dict]:
+    """``phase_a_i8_fold`` and ``phase_a_fold`` (float32 and bfloat16
+    stores) on the folded mirrors of ``vecs``, exact and LSH.  The int8
+    maxima must also equal ``phase_a_i8`` on the unfolded mirror."""
+    import torch
+    from oryx_tpu_torch.app.als import serving_model as sm
+    from oryx_tpu_torch.ops import phase_a_fold as pf
+    from oryx_tpu_torch.ops import phase_a_i8 as pi8
+    from oryx_tpu_torch.ops import phase_a_i8_fold as pi8f
+
+    bw, fp32_rate, bf16_rate, i8_rate = peaks(gpu_name)
+    n, width = vecs.shape
+    fold = sm._fold_eligible(width, features, 128)
+    check(fold > 1, f"{label}: {features} features in {width} columns fold")
+    w = width // fold
+    check_quantizer(vecs, f"{n}x{width}")
+    y8, _, _ = sm._quantize_items_kernel(vecs, 128)
+    out = []
+    for lsh in (False, True):
+        live, buckets, hp, mb = side_inputs(vecs, active, features, lsh)
+        bkt_f = sm._fold_buckets_kernel(buckets, fold, 128) if lsh else None
+        pen_i = sm._penalty_kernel_i32(live, 128)
+        y8f, pen_i_f = sm._fold_items_i8_kernel(y8, live, fold, 128)
+        base = {"lsh": lsh, "rows": n, "features": features, "width": width,
+                "fold": fold, "retired_rows": int((~live).sum()),
+                "label": label}
+        for b in windows:
+            Q = queries(torch, rng, b, features)
+            Qc = sm._q_cast(Q, vecs).contiguous()
+            q8, _, _ = sm._quantize_queries(Qc)
+            tgt = sm._query_buckets(Q, hp) if lsh else None
+            unfolded = pi8.phase_a_i8(q8, y8, pen_i, buckets, tgt, mb)
+            q8_cols = q8[:, :w].contiguous().T
+            nbytes = (y8f.numel() + q8.numel() + pen_i_f.numel() * 4
+                      + b * (n // 128) * 4
+                      + (bkt_f.numel() * 4 + b * 4 if lsh else 0))
+            out.append(run_case(
+                torch, "phase_a_i8_fold", {"store": "int8", **base, "B": b},
+                lambda: pi8f.phase_a_i8_fold(q8, y8f, pen_i_f, bkt_f, tgt,
+                                             mb, fold),
+                lambda: pi8f.phase_a_i8_fold_reference(
+                    q8, y8f, pen_i_f, bkt_f, tgt, mb, fold),
+                lambda: int_mm_block_max(torch, y8f.view(n, w), q8_cols,
+                                         pen_i.view(-1), buckets, tgt, mb),
+                nbytes, 2.0 * n * features * b, i8_rate, bw, exact=True,
+                also={"phase_a_i8 on the unfolded mirror": unfolded}))
+            del unfolded
+        del y8f, pen_i_f
+        pen = sm._penalty_kernel(live, 128)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            Y = vecs if vecs.dtype == dtype else vecs.to(dtype)
+            yf, pen_f = sm._fold_items_kernel(Y, live, fold, 128)
+            for b in windows:
+                Q = queries(torch, rng, b, features)
+                Qc = sm._q_cast(Q, Y).contiguous()
+                tgt = sm._query_buckets(Q, hp) if lsh else None
+                q_cols = Qc[:, :w].contiguous().T
+                nbytes = (yf.numel() * yf.element_size()
+                          + Qc.numel() * Qc.element_size()
+                          + pen_f.numel() * 4 + b * (n // 128) * 4
+                          + (bkt_f.numel() * 4 + b * 4 if lsh else 0))
+                out.append(run_case(
+                    torch, "phase_a_fold", {"store": name, **base, "B": b},
+                    lambda: pf.phase_a_fold(Qc, yf, pen_f, bkt_f, tgt, mb,
+                                            fold),
+                    lambda: pf.phase_a_fold_reference(Qc, yf, pen_f, bkt_f,
+                                                      tgt, mb, fold),
+                    lambda: matmul_block_max(torch, yf.view(n, w), q_cols,
+                                             pen.view(-1), buckets, tgt, mb),
+                    nbytes, 2.0 * n * features * b,
+                    bf16_rate if name == "bfloat16" else fp32_rate, bw,
+                    exact=False, rtol=RTOL[name]))
+            del Y, yf, pen_f
+    del y8
+    free()
+    return out
+
+
+# -- phase 3: the served path ------------------------------------------------
+
+def served_kind(model) -> str:
+    vecs, _ = model.Y.device_arrays()
+    from oryx_tpu_torch.app.als import serving_model as sm
+    return model._phase_a_kinds(int(vecs.shape[0]), int(vecs.shape[1]),
+                                sm._BLOCK_ROWS)[0][0]
+
 
 def reference_top_n_batch(model, how_many: int, Q: np.ndarray,
                           excl: list[set[str]]):
-    """The model's streaming two-phase top-k with the phase-A kernel's
-    plain version in its place: same windows' worth of queries, same
-    phase B, same certificate fallback, same decode."""
-    import torch
+    """The model's own streaming two-phase top-k (same kind, phase B,
+    certificate fallback and decode) with every phase-A kernel swapped
+    for its plain version, over the whole request set at once."""
     from oryx_tpu_torch.app.als import serving_model as sm
-    from oryx_tpu_torch.ops.phase_a import phase_a_reference
-
-    vecs, active, version = model.Y.device_arrays_versioned()
-    n_rows = int(vecs.shape[0])
-    hm = [how_many] * len(Q)
-    k = min(sm._pad_k(max(h + len(e) for h, e in zip(hm, excl))), n_rows)
-    big, chunk = sm._stream_plan(n_rows, 8)
-    check(big and n_rows % chunk == 0, "model is on the streaming path")
-    bs = sm._BLOCK_ROWS
-    ksel = min(sm._BLOCK_KSEL, n_rows // bs)
-    lsh_on = model._lsh_active()
-    buckets = model._cached_buckets(vecs, version) if lsh_on else None
-    hp = model.lsh._device_hyperplanes() if lsh_on else None
-    mb = model.lsh.max_bits_differing if lsh_on else 0
-    pen = sm._penalty_kernel(active, bs)
-    Qd = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(DEVICE)
-    Qc = sm._q_cast(Qd, vecs).contiguous()
-    target = sm._query_buckets(Qd, hp) if lsh_on else None
-    M = phase_a_reference(Qc, vecs, pen, buckets, target, mb, bs)
-    ts, ti, cert = sm._phase_b(vecs, Qc, active, buckets, target, M, k, bs,
-                               ksel, mb)
-    fallbacks = int((~cert).sum())
-    if fallbacks:
-        ts, ti = sm._batch_top_n_chunked_kernel(vecs, Qd, active, buckets,
-                                                hp, k, chunk, mb)
-    return model._decode_top_n(ts.cpu().numpy(), ti.cpu().numpy(), hm, excl,
-                               len(Q), k < n_rows, Q, True), fallbacks
+    vecs, _ = model.Y.device_arrays()
+    big, chunk = sm._stream_plan(int(vecs.shape[0]), 8)
+    check(big and int(vecs.shape[0]) % chunk == 0,
+          "model is on the streaming path")
+    fb0 = model.twophase_fallbacks
+    with plain_phase_a():
+        out = model.top_n_batch(how_many, Q, excl)
+    return out, model.twophase_fallbacks - fb0
 
 
 def exact_top_n(model, how_many: int, Q: np.ndarray, excl):
@@ -285,15 +589,19 @@ def same_answers(got, want, rtol: float, what: str) -> None:
                                rtol=rtol, err_msg=what)
 
 
-def serve_and_check(model, label: str, n_recommend: int, n_many: int,
-                    n_consider: int, rtol: float, n_exact: int) -> dict:
+def serve_and_check(model, label: str, kind: str, n_recommend: int,
+                    n_many: int, n_consider: int, rtol: float,
+                    n_exact: int) -> dict:
     import torch
     from oryx_tpu_torch.bench.load import StaticModelManager
     from oryx_tpu_torch.lambda_rt.http import HttpApp, make_server
-    from oryx_tpu_torch.ops import phase_a as pa
     from oryx_tpu_torch.serving import als as als_routes
     from oryx_tpu_torch.serving import framework
     from oryx_tpu_torch.serving.batcher import TopNBatcher
+
+    check(served_kind(model) == kind,
+          f"{label}: serves {served_kind(model)!r}, expected {kind!r}")
+    expected = next(k for k, v in KERNELS.items() if v[2] == kind)
 
     class Manager(StaticModelManager):
         pass
@@ -344,11 +652,13 @@ def serve_and_check(model, label: str, n_recommend: int, n_many: int,
                       f"{status}: {body[:300]}")
             torch.cuda.synchronize()
             drains0 = len(batcher.batch_sizes)
-            pa.LAUNCHES = 0
+            fallbacks0 = model.twophase_fallbacks
+            reset_launches()
             t0 = time.perf_counter()
             results = list(pool.map(fetch, [r[0] for r in requests]))
             wall = time.perf_counter() - t0
-            launches = pa.LAUNCHES
+            launches = read_launches()
+            fallbacks = model.twophase_fallbacks - fallbacks0
         sizes = batcher.batch_sizes[drains0:]
         stats = batcher.stats()
         status, _, _ = fetch("/recommend/nobody")
@@ -361,9 +671,13 @@ def serve_and_check(model, label: str, n_recommend: int, n_many: int,
 
     for (path, _, _), (status, body, _) in zip(requests, results):
         check(status == 200, f"{label}: {path} gave {status}: {body[:300]}")
-    check(launches > 0, f"{label}: phase-A kernel launched no time")
+    check(launches[expected] > 0,
+          f"{label}: {expected} launched no time: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k != expected),
+          f"{label}: another phase-A kernel than {expected} launched: "
+          f"{launches}")
 
-    # the answers the same model gives with the kernel's plain version
+    # the answers the same model gives with every kernel's plain version
     Q, excl = [], []
     for _, users, consider in requests:
         Q.append(np.mean([model.get_user_vector(u) for u in users], axis=0))
@@ -381,14 +695,14 @@ def serve_and_check(model, label: str, n_recommend: int, n_many: int,
         same_answers(w, e, 1e-5, f"{label} exact scan")
 
     lat = sorted(r[2] for r in results)
-    summary = {"phase": "serve", "config": label,
+    summary = {"phase": "serve", "config": label, "kind": kind,
                "requests": len(requests), "concurrency": 32,
-               "phase_a_launches": launches,
+               "launches": launches,
                "batcher_dispatches": len(sizes),
                "mean_batch": float(np.mean(sizes)),
                "queue_wait_ms": stats["queue_wait_ms"],
                "service_time_ms": stats["service_time_ms"],
-               "twophase_fallbacks": model.twophase_fallbacks,
+               "twophase_fallbacks": fallbacks,
                "reference_fallbacks": ref_fallbacks,
                "qps": len(requests) / wall,
                "p50_ms": lat[len(lat) // 2],
@@ -398,26 +712,62 @@ def serve_and_check(model, label: str, n_recommend: int, n_many: int,
     return summary
 
 
-def window_times(model, rng, label: str) -> list[dict]:
-    """One served window at each ladder size: ``top_n_batch`` end to
-    end (host clock around a synchronised call), and its phase A
-    (kernel) and phase B alone (CUDA events) on the same queries."""
-    import torch
+def phase_a_program(model, kind: str, Q):
+    """(phase A, phase B) of one window of the model's kind on its own
+    cached mirrors, as zero-argument callables; phase B's input is the
+    first call's output."""
     from oryx_tpu_torch.app.als import serving_model as sm
-    from oryx_tpu_torch.ops import phase_a as pa
-
+    mods = wrappers()
     vecs, active, version = model.Y.device_arrays_versioned()
-    n_rows = int(vecs.shape[0])
+    n_rows, width = int(vecs.shape[0]), int(vecs.shape[1])
+    bs = sm._BLOCK_ROWS
     lsh_on = model._lsh_active()
     buckets = model._cached_buckets(vecs, version) if lsh_on else None
     hp = model.lsh._device_hyperplanes() if lsh_on else None
     mb = model.lsh.max_bits_differing if lsh_on else 0
-    pen = model._cached_penalty(active, version)
-    bs, k = sm._BLOCK_ROWS, sm._pad_k(10)
+    _, fold = model._phase_a_kinds(n_rows, width, bs)
     ksel = min(sm._BLOCK_KSEL, n_rows // bs)
+    k = sm._pad_k(10)
+    Qc = sm._q_cast(Q, vecs).contiguous()
+    tgt = sm._query_buckets(Q, hp) if lsh_on else None
+    if kind in ("i8", "i8_fold"):
+        q8, sq, l1q = sm._quantize_queries(Qc)
+        ksel = sm._i8_ksel(ksel, n_rows, bs)
+        if kind == "i8":
+            (y8, sy, l1y), pen_i = (model._cached_i8(vecs, version),
+                                    model._cached_penalty_i(active, version))
+            run_a = lambda: mods["phase_a_i8"].phase_a_i8(  # noqa: E731
+                q8, y8, pen_i, buckets, tgt, mb)
+        else:
+            y8f, pen_i_f, bkt_f, sy, l1y = model._cached_i8_fold(
+                vecs, active, buckets, version, fold, bs)
+            y8 = y8f
+            run_a = lambda: mods["phase_a_i8_fold"].phase_a_i8_fold(  # noqa
+                q8, y8f, pen_i_f, bkt_f, tgt, mb, fold)
+        M = sm._i8_bounds(run_a(), sy, l1y, sq, l1q, int(y8.shape[1]))
+    elif kind == "fold":
+        yf, pen_f, bkt_f = model._cached_fold(vecs, active, buckets, version,
+                                              fold, bs)
+        run_a = lambda: mods["phase_a_fold"].phase_a_fold(  # noqa: E731
+            Qc, yf, pen_f, bkt_f, tgt, mb, fold)
+        M = run_a()
+    else:
+        pen = model._cached_penalty(active, version)
+        run_a = lambda: mods["phase_a"].phase_a(  # noqa: E731
+            Qc, vecs, pen, buckets, tgt, mb)
+        M = run_a()
+    return run_a, lambda: sm._phase_b(vecs, Qc, active, buckets, tgt, M, k,
+                                      bs, ksel, mb)
+
+
+def window_times(model, rng, label: str, kind: str) -> list[dict]:
+    """One served window at each ladder size: ``top_n_batch`` end to
+    end (host clock around a synchronised call), and its phase A
+    (kernel) and phase B alone (CUDA events) on the same queries."""
+    import torch
     out = []
     for b in WINDOWS:
-        q = rng.standard_normal((b, FEATURES), dtype=np.float32)
+        q = rng.standard_normal((b, model.features), dtype=np.float32)
         fb0 = model.twophase_fallbacks
 
         def served():
@@ -431,20 +781,32 @@ def window_times(model, rng, label: str) -> list[dict]:
             t0 = time.perf_counter()
             served()
             walls.append((time.perf_counter() - t0) * 1e3)
-        Q = torch.from_numpy(q).to(DEVICE)
-        Qc = sm._q_cast(Q, vecs).contiguous()
-        tgt = sm._query_buckets(Q, hp) if lsh_on else None
-        M = pa.phase_a(Qc, vecs, pen, buckets, tgt, mb)
-        row = {"phase": "window", "config": label, "B": b,
+        run_a, run_b = phase_a_program(model, kind,
+                                       torch.from_numpy(q).to(DEVICE))
+        row = {"phase": "window", "config": label, "kind": kind, "B": b,
                "top_n_batch_ms": statistics.median(walls),
-               "phase_a_ms": time_ms(torch, lambda: pa.phase_a(
-                   Qc, vecs, pen, buckets, tgt, mb)),
-               "phase_b_ms": time_ms(torch, lambda: sm._phase_b(
-                   vecs, Qc, active, buckets, tgt, M, k, bs, ksel, mb)),
+               "phase_a_ms": time_ms(torch, run_a),
+               "phase_b_ms": time_ms(torch, run_b),
                "fallback_rows": model.twophase_fallbacks - fb0}
         log(row)
         out.append(row)
     return out
+
+
+def serve_config(features, Y, X, known, label: str, kind: str, dtype,
+                 sample_rate, int8_selection, counts, rng, y_ids=None):
+    model = build_model(features, Y, X, known, dtype, sample_rate,
+                        int8_selection, y_ids)
+    window_times(model, rng, label, kind)
+    summary = serve_and_check(model, label, kind, *counts, RTOL[dtype],
+                              counts[0] // 8)
+    return model, summary
+
+
+def known_items(rng, n_items: int) -> dict:
+    return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
+                                                    KNOWN_PER_USER)]
+            for u in range(N_USERS)}
 
 
 def main() -> int:
@@ -453,16 +815,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from oryx_tpu_torch.ops import cuda_build
-    from oryx_tpu_torch.ops import phase_a as pa
 
+    t_start = time.perf_counter()
     # phase 1: environment and build
     log(gpu_line())
     gpu_name = torch.cuda.get_device_name(0)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
+    mods = wrappers()
     t0 = time.perf_counter()
-    pa.build()
-    log({"phase": "build", "kernels": ["phase_a"],
+    cuda_build.build(sorted({m.SOURCE for m in mods.values()}))
+    for mod in mods.values():
+        if hasattr(mod, "build"):
+            mod.build()
+    log({"phase": "build", "kernels": sorted(mods),
          "build_s": time.perf_counter() - t0,
          "python": sys.version.split()[0], "torch": torch.__version__,
          "cuda": torch.version.cuda})
@@ -470,62 +836,119 @@ def main() -> int:
         print(f"--- {name}\n{text}", file=sys.stderr)
 
     rng = np.random.default_rng(SEED)
-    Y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
-    X = rng.standard_normal((N_USERS, FEATURES), dtype=np.float32)
-    known = {f"u{u}": [f"i{j}" for j in rng.integers(0, N_ITEMS,
-                                                     KNOWN_PER_USER)]
-             for u in range(N_USERS)}
     cases = []
     serves = {}
 
-    # 5M x 250 float32: kernel cases, then the main served path
-    model = build_model(Y, X, known, "float32")
-    cases += kernel_cases(model, rng, gpu_name, False, [torch.float32])
-    window_times(model, rng, "5M_f32_exact")
-    serves["5M_f32_exact"] = serve_and_check(model, "5M_f32_exact", 64, 8,
-                                             8, RTOL["float32"], 8)
+    # slice 1: 5M x 250 float32, bfloat16, and 1M x 250 LSH on "pallas";
+    # 5M x 250 float32 with int8 selection forced on, on "i8"
+    Y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
+    X = rng.standard_normal((N_USERS, FEATURES), dtype=np.float32)
+    known = known_items(rng, N_ITEMS)
+    model = build_model(FEATURES, Y, X, known, "float32")
+    cases += float_cases(model, rng, gpu_name, False, [torch.float32])
+    window_times(model, rng, "5M_f32_exact", "pallas")
+    serves["5M_f32_exact"] = serve_and_check(
+        model, "5M_f32_exact", "pallas", 64, 8, 8, RTOL["float32"], 8)
+    vecs, active = model.Y.device_arrays()
+    cases += i8_cases(vecs, active, rng, gpu_name, FEATURES, WINDOWS)
+    del model, vecs, active
+    free()
+    model, serves["5M_250f_f32_int8"] = serve_config(
+        FEATURES, Y, X, known, "5M_250f_f32_int8", "i8", "float32", 1.0,
+        "true", (32, 4, 4), rng)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # 5M x 250 bfloat16
-    model = build_model(Y, X, known, "bfloat16")
-    cases += kernel_cases(model, rng, gpu_name, False, [torch.bfloat16])
-    window_times(model, rng, "5M_bf16_exact")
-    serves["5M_bf16_exact"] = serve_and_check(model, "5M_bf16_exact", 32, 4,
-                                              4, RTOL["bfloat16"], 4)
+    free()
+    model = build_model(FEATURES, Y, X, known, "bfloat16")
+    cases += float_cases(model, rng, gpu_name, False, [torch.bfloat16])
+    window_times(model, rng, "5M_bf16_exact", "pallas")
+    serves["5M_bf16_exact"] = serve_and_check(
+        model, "5M_bf16_exact", "pallas", 32, 4, 4, RTOL["bfloat16"], 4)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # 1M x 250 float32 with LSH at 0.3; kernel cases for both stores
+    free()
     known_lsh = {u: [f"i{int(i[1:]) % N_LSH_ITEMS}" for i in items]
                  for u, items in known.items()}
-    model = build_model(Y[:N_LSH_ITEMS], X, known_lsh, "float32",
+    model = build_model(FEATURES, Y[:N_LSH_ITEMS], X, known_lsh, "float32",
                         sample_rate=LSH_RATE)
-    cases += kernel_cases(model, rng, gpu_name, True,
-                          [torch.float32, torch.bfloat16])
-    window_times(model, rng, "1M_f32_lsh0.3")
-    serves["1M_f32_lsh0.3"] = serve_and_check(model, "1M_f32_lsh0.3", 32, 4,
-                                              4, RTOL["float32"], 4)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    cases += float_cases(model, rng, gpu_name, True,
+                         [torch.float32, torch.bfloat16])
+    window_times(model, rng, "1M_f32_lsh0.3", "pallas")
+    serves["1M_f32_lsh0.3"] = serve_and_check(
+        model, "1M_f32_lsh0.3", "pallas", 32, 4, 4, RTOL["float32"], 4)
+    del model, Y
+    free()
 
-    head = next(c for c in cases if c["store"] == "float32"
-                and not c["lsh"] and c["B"] == 256)
+    # 50 features (BASELINE.md:37, :50): "i8" by default
+    Y = rng.standard_normal((N_ITEMS, 50), dtype=np.float32)
+    X = rng.standard_normal((N_USERS, 50), dtype=np.float32)
+    model, serves["5M_50f_f32_auto"] = serve_config(
+        50, Y, X, known, "5M_50f_f32_auto", "i8", "float32", 1.0, "auto",
+        (32, 4, 4), rng)
+    vecs, active = model.Y.device_arrays()
+    cases += i8_cases(vecs, active, rng, gpu_name, 50, (8, 256))
+    del model, vecs, active
+    free()
+    model, serves["1M_50f_f32_lsh0.3"] = serve_config(
+        50, Y[:N_LSH_ITEMS], X, known_lsh, "1M_50f_f32_lsh0.3", "i8",
+        "float32", LSH_RATE, "auto", (32, 4, 4), rng)
+    del model, Y
+    free()
+
+    # 10 features (reference.conf:741): "i8_fold" by default, "fold"
+    # with int8 selection off
+    Y = rng.standard_normal((N_FOLD_ITEMS, 10), dtype=np.float32)
+    X = rng.standard_normal((N_USERS, 10), dtype=np.float32)
+    known_20m = known_items(rng, N_FOLD_ITEMS)
+    y_ids = [f"i{j}" for j in range(N_FOLD_ITEMS)]
+    model, serves["20M_10f_f32_auto"] = serve_config(
+        10, Y, X, known_20m, "20M_10f_f32_auto", "i8_fold", "float32", 1.0,
+        "auto", (32, 4, 4), rng, y_ids)
+    vecs, active = model.Y.device_arrays()
+    cases += fold_cases(vecs, active, rng, gpu_name, 10, (8, 256),
+                        "20M_10f")
+    del model, vecs, active
+    free()
+    model, serves["20M_10f_f32_noint8"] = serve_config(
+        10, Y, X, known_20m, "20M_10f_f32_noint8", "fold", "float32", 1.0,
+        "false", (32, 4, 4), rng, y_ids)
+    del model, Y, y_ids
+    free()
+
+    # coverage, not a configuration: fold 4 runs the 8-column path
+    vecs = torch.zeros((COVERAGE_ROWS, 32), device=DEVICE)
+    vecs[:, :COVERAGE_FEATURES] = torch.from_numpy(rng.standard_normal(
+        (COVERAGE_ROWS, COVERAGE_FEATURES), dtype=np.float32)).to(DEVICE)
+    cases += fold_cases(vecs, torch.ones(COVERAGE_ROWS, dtype=torch.bool,
+                                         device=DEVICE),
+                        rng, gpu_name, COVERAGE_FEATURES, (8,), "coverage")
+    del vecs
+    free()
+
+    def head(kernel, **want):
+        return next(c for c in cases if c["kernel"] == kernel
+                    and not c["lsh"] and c["B"] == 256
+                    and all(c[k] == v for k, v in want.items()))
+
+    heads = {"phase_a": (head("phase_a", store="float32"), "5M_f32_exact"),
+             "phase_a_i8": (head("phase_a_i8", features=50),
+                            "5M_50f_f32_auto"),
+             "phase_a_fold": (head("phase_a_fold", store="float32"),
+                              "20M_10f_f32_noint8"),
+             "phase_a_i8_fold": (head("phase_a_i8_fold"),
+                                 "20M_10f_f32_auto")}
+    log({"phase": "total", "seconds": time.perf_counter() - t_start})
     log({"kernels": [{
-        "name": "phase_a", "route": "cuda",
-        "source": "oryx_tpu_torch/csrc/phase_a.cu",
-        "replaces": PHASE_A_REPLACES,
-        "launches": serves["5M_f32_exact"]["phase_a_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": {"rows": head["rows"], "width": head["width"],
-                  "features": FEATURES, "B": head["B"],
-                  "store": "float32"}}]})
+        "name": name, "route": "cuda", "source": KERNELS[name][1],
+        "replaces": KERNELS[name][0],
+        "launches": serves[config]["launches"][name],
+        "max_abs_err": max(c["max_abs_err"] for c in cases
+                           if c["kernel"] == name),
+        "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"], "served_config": config,
+        "shape": {"rows": h["rows"], "width": h["width"],
+                  "features": h["features"], "B": h["B"],
+                  "store": h["store"]}}
+        for name, (h, config) in heads.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
                                 "count": torch.cuda.device_count()}})
     return 0

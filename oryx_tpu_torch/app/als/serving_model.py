@@ -9,10 +9,16 @@ over a small catalogue is
     scores = Q @ Yᵀ;  scores = where(active & lsh_mask, scores, -inf);  top_k
 
 and over a large one the two-phase streaming top-k: phase A reduces
-Q·Yᵀ to the maximum of every 128-row block (the hand-written kernel of
-``ops/phase_a.py``), phase B rescores the best blocks exactly and emits
-an exactness certificate, and a row whose certificate fails is
-recomputed on the exact chunked scan.
+Q·Yᵀ to the maximum of every 128-row block, phase B rescores the best
+blocks exactly and emits an exactness certificate, and a row whose
+certificate fails is recomputed on the exact chunked scan.  Phase A has
+the reference's kinds, each a hand-written kernel: "pallas" over the
+store (``ops/phase_a.py``), "fold" over a folded mirror of a narrow store
+(``ops/phase_a_fold.py``), "i8" over an int8 mirror with one scale per
+block (``ops/phase_a_i8.py``) and "i8_fold" over the folded int8 mirror
+(``ops/phase_a_i8_fold.py``); the int8 kinds turn their integer maxima
+into sound float32 upper bounds before phase B.  "scan" is the plain
+PyTorch build.
 
 Every top-k here has ``jax.lax.top_k``'s contract — descending, equal
 values in ascending index order — so ids come out in the reference's
@@ -37,6 +43,10 @@ import torch
 from ...api.serving import ServingModel
 from ...common.lang import AutoReadWriteLock
 from ...ops.phase_a import phase_a
+from ...ops.phase_a_fold import phase_a_fold
+from ...ops.phase_a_i8 import I8_PENALTY as _I8_PENALTY
+from ...ops.phase_a_i8 import phase_a_i8
+from ...ops.phase_a_i8_fold import phase_a_i8_fold
 from .factor_model import FactorModelBase
 from .lsh import LocalitySensitiveHash, _bucket_kernel, _popcount
 from .rescorer import Rescorer
@@ -249,6 +259,227 @@ def _batch_top_n_twophase_cuda(Y, Q, penalty, active, buckets,
                     max_bits)
 
 
+def _fold_factor(width: int, features: int) -> int:
+    """Rows-per-physical-row folding for the phase-A scan: the largest
+    fold in {4, 2} whose per-slot width w = width // fold still holds a
+    full feature vector (and is a multiple of 8), else 1.  The store pads
+    features to a multiple of 32 columns, so at 32-column padding fold 2
+    needs features <= 16 and fold 4 features <= 8."""
+    for fold in (4, 2):
+        w = width // fold
+        if width % fold == 0 and w >= features and w % 8 == 0:
+            return fold
+    return 1
+
+
+def _fold_eligible(width: int, features: int, bs: int) -> int:
+    """Fold factor the serving dispatch uses for this shape (1 = no
+    folding): ``_fold_factor`` gated by the block and tile divisibility
+    the folded layout needs."""
+    fold = _fold_factor(width, features)
+    if fold > 1 and bs % fold == 0 and _PA_TILE % fold == 0:
+        return fold
+    return 1
+
+
+def _fold_items_kernel(vecs, active, fold: int, bs: int):
+    """The folded phase-A mirror: logical row ``i*fold + j`` occupies
+    columns ``[j*w, j*w + w)`` of folded row ``i`` (w = width // fold),
+    so folded rows ``[b*bs//fold, (b+1)*bs//fold)`` over all slots are
+    logical block ``b``.  Returns (Yf, penalty_fold) with the 0/-inf
+    penalty in the (fold, N // bs, bs // fold) slot-major layout; the
+    LSH buckets fold separately (``_fold_buckets_kernel``) so LSH and
+    exact drains share this mirror."""
+    n, width = vecs.shape
+    w = width // fold
+    yf = vecs[:, :w].reshape(n // fold, width)
+    pen = torch.where(active, 0.0, _NEG_INF).to(torch.float32)
+    return yf.contiguous(), _slot_major(pen, fold, bs)
+
+
+def _slot_major(per_row, fold: int, bs: int):
+    """(N,) per-row values in the folded mirror's (fold, N // bs,
+    bs // fold) layout: [j, b, r] is logical row b*bs + r*fold + j."""
+    return per_row.reshape(-1, fold).T.reshape(fold, -1,
+                                               bs // fold).contiguous()
+
+
+def _fold_buckets_kernel(buckets, fold: int, bs: int):
+    """Per-slot LSH bucket ids in the folded kernels' side-input
+    layout."""
+    return _slot_major(buckets, fold, bs)
+
+
+def _i8_ksel(ksel: int, n_rows: int, bs: int) -> int:
+    """Block-selection width for the int8 phase A: selection runs on
+    margin-inflated bounds, so gather twice the blocks — the wider
+    window buys back the margin's false certificate failures."""
+    return min(ksel * 2, max(1, n_rows // bs - 1))
+
+
+def _penalty_kernel_i32(active, bs: int):
+    """(N // bs, bs) int32 additive mask for the int8 phase A: 0 for
+    live rows, ``_I8_PENALTY`` for retired ones."""
+    return torch.where(active, 0, _I8_PENALTY).to(torch.int32).reshape(
+        -1, bs)
+
+
+# rows per pass of the quantizer: bounds its float32 temporaries
+_QUANT_CHUNK_ROWS = 1 << 20
+# the reference's f32 reciprocal of 127: its compiler turns the division
+# of a scale by the constant 127 into this product, and the port forms
+# the same product so that scales agree bit for bit
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _l1_rows(a):
+    """Sum over the last axis of the non-negative float32 ``a``, in the
+    reference's order: each 32-column chunk summed left to right, then
+    the chunk sums left to right.  A fixed order makes the sum bit-equal
+    on every device and to the reference's on the CPU."""
+    width = a.shape[-1]
+    total = None
+    for c0 in range(0, width, 32):
+        part = a[..., c0]
+        for c in range(c0 + 1, min(width, c0 + 32)):
+            part = part + a[..., c]
+        total = part if total is None else total + part
+    return total
+
+
+def _quantize_items_kernel(vecs, bs: int):
+    """Per-``bs``-row-block int8 quantization of the item matrix:
+    (Y8, per-block scale, per-block max row L1 norm).
+
+    One scale per block makes ``max(s_int) * scale`` a sound transform
+    of the block's quantized maxima; the L1 norms feed the quantization
+    error margin that turns them into upper bounds on the exact block
+    maxima.  ``blocks / safe`` is a true float32 division and rounds half
+    to even, as the reference's does."""
+    n, width = vecs.shape
+    y8 = torch.empty((n, width), dtype=torch.int8, device=vecs.device)
+    scale = torch.empty(n // bs, dtype=torch.float32, device=vecs.device)
+    l1 = torch.empty(n // bs, dtype=torch.float32, device=vecs.device)
+    step = max(bs, _QUANT_CHUNK_ROWS // bs * bs)
+    for start in range(0, n, step):
+        stop = min(n, start + step)
+        blocks = vecs[start:stop].to(torch.float32).reshape(-1, bs, width)
+        mag = blocks.abs()
+        s = mag.amax(dim=(1, 2)) * _INV_127
+        safe = s.clamp_min(1e-30)
+        y8[start:stop] = torch.clamp(torch.round(blocks / safe[:, None, None]),
+                                     -127, 127).to(torch.int8).reshape(
+                                         -1, width)
+        scale[start // bs:stop // bs] = s
+        l1[start // bs:stop // bs] = _l1_rows(mag).amax(1)
+    return y8, scale, l1
+
+
+def _fold_items_i8_kernel(y8, active, fold: int, bs: int):
+    """Fold the int8 mirror as ``_fold_items_kernel`` folds the store:
+    sound because quantized lanes at or past the feature count are exact
+    zeros, so the folded integer products equal the unfolded ones and
+    the canonical scales and L1 norms apply unchanged.  Returns (Y8f,
+    penalty_i_fold) with the int32 penalty slot-major."""
+    n, width = y8.shape
+    w = width // fold
+    y8f = y8[:, :w].reshape(n // fold, width)
+    pen = torch.where(active, 0, _I8_PENALTY).to(torch.int32)
+    return y8f.contiguous(), _slot_major(pen, fold, bs)
+
+
+def _quantize_queries(Qc):
+    """(q8, sq, l1q): the per-row symmetric int8 quantization of the
+    query, its scale and the query's L1 norms.  It quantizes the operand
+    phase B reduces (padded, and bf16 for a bf16 store), so the error
+    bound covers the scores the certificate checks."""
+    Qf = Qc.to(torch.float32)
+    mag = Qf.abs()
+    sq = mag.amax(1).clamp_min(1e-30) * _INV_127
+    q8 = torch.clamp(torch.round(Qf / sq[:, None]), -127, 127).to(
+        torch.int8)
+    return q8.contiguous(), sq, _l1_rows(mag)
+
+
+def _i8_bounds(M_int, sy_b, l1y_b, sq, l1q, width: int):
+    """Sound upper bounds (B, N // bs) on the exact block maxima from the
+    int8 maxima ``M_int`` (B, N // bs):
+
+        s = sy*sq*s_int + err,  |err| <= sq/2*L1(y) + sy/2*L1(q) + W*sy*sq/4
+
+    over the ``width`` columns both operands were quantized at (any width
+    >= the features is sound: padding lanes quantize to exact zeros).
+    Masked blocks and zero query rows (window padding, exactly 0 on both
+    phases) bound to -inf, so they can never fail a certificate."""
+    sy = sy_b[None, :]
+    s = sq[:, None]
+    masked = M_int <= _I8_PENALTY // 2
+    bound = (M_int.to(torch.float32) * sy * s
+             + 0.5 * s * l1y_b[None, :]
+             + 0.5 * sy * l1q[:, None]
+             + 0.25 * width * sy * s)
+    return torch.where(masked | (l1q[:, None] == 0.0), _NEG_INF, bound)
+
+
+def _batch_top_n_twophase_cuda_i8(Y, Y8, sy_b, l1y_b, Q, penalty_i,
+                                  active, buckets, hyperplanes, k: int,
+                                  bs: int, ksel: int, max_bits: int):
+    """Two-phase streaming top-k with an int8 phase A: block selection
+    runs on the quantized mirror (``ops/phase_a_i8.py``), its integer
+    maxima inflated into sound upper bounds; phase B rescores the
+    winners from the exact store as always, and the kth >= max(unselected
+    bound) certificate catches any quantization-induced miss.
+    Counterpart of the reference's ``_batch_top_n_twophase_pallas_i8``;
+    ``penalty_i`` is the int32 retired-row mask."""
+    Qc = _q_cast(Q, Y).contiguous()
+    q8, sq, l1q = _quantize_queries(Qc)
+    target = None
+    if buckets is not None:
+        target = _query_buckets(Q, hyperplanes)
+    M = phase_a_i8(q8, Y8, penalty_i, buckets, target, max_bits, bs)
+    bound = _i8_bounds(M, sy_b, l1y_b, sq, l1q, int(Y8.shape[1]))
+    return _phase_b(Y, Qc, active, buckets, target, bound, k, bs, ksel,
+                    max_bits)
+
+
+def _batch_top_n_twophase_cuda_fold(Y, Yf, Q, pen_f, active, bkt_f,
+                                    buckets, hyperplanes, k: int, bs: int,
+                                    ksel: int, max_bits: int, fold: int):
+    """Two-phase streaming top-k whose phase A scans the folded mirror
+    (``ops/phase_a_fold.py``).  Phase B and the certificate run on the
+    store as always (the folded products are summed in another order,
+    within the certificate's relative margin).  Counterpart of the
+    reference's ``_batch_top_n_twophase_pallas_fold``."""
+    Qc = _q_cast(Q, Y).contiguous()
+    target = None
+    if buckets is not None:
+        target = _query_buckets(Q, hyperplanes)
+    M = phase_a_fold(Qc, Yf, pen_f, bkt_f, target, max_bits, fold, bs)
+    return _phase_b(Y, Qc, active, buckets, target, M, k, bs, ksel,
+                    max_bits)
+
+
+def _batch_top_n_twophase_cuda_i8_fold(Y, Y8f, sy_b, l1y_b, Q, pen_i_f,
+                                       active, bkt_f, buckets, hyperplanes,
+                                       k: int, bs: int, ksel: int,
+                                       max_bits: int, fold: int):
+    """The int8 phase A over the folded int8 mirror
+    (``ops/phase_a_i8_fold.py``): its integer maxima are the unfolded
+    ones, so the bounds, the selection and phase B are those of
+    ``_batch_top_n_twophase_cuda_i8``.  Counterpart of the reference's
+    ``_batch_top_n_twophase_pallas_i8_fold``."""
+    Qc = _q_cast(Q, Y).contiguous()
+    q8, sq, l1q = _quantize_queries(Qc)
+    target = None
+    if buckets is not None:
+        target = _query_buckets(Q, hyperplanes)
+    M = phase_a_i8_fold(q8, Y8f, pen_i_f, bkt_f, target, max_bits, fold,
+                        bs)
+    bound = _i8_bounds(M, sy_b, l1y_b, sq, l1q, int(Y8f.shape[1]))
+    return _phase_b(Y, Qc, active, buckets, target, bound, k, bs, ksel,
+                    max_bits)
+
+
 def _batch_top_n_twophase_kernel(Y, Q, active, buckets, hyperplanes,
                                  k: int, chunk: int, bs: int, ksel: int,
                                  max_bits: int):
@@ -322,7 +553,15 @@ class ALSServingModel(FactorModelBase, ServingModel):
 
     def __init__(self, features: int, implicit: bool,
                  sample_rate: float = 1.0, rescorer_provider=None,
-                 dtype="float32", device=None):
+                 dtype="float32", device=None,
+                 int8_selection: str | bool = "auto",
+                 fold_scan: str | bool = "auto"):
+        """``int8_selection`` ("auto", "true", "false"; the reference's
+        ``oryx.serving.api.int8-selection``) selects phase A on an int8
+        mirror: "auto" turns it on at features <= 64 where the store pads
+        its columns.  ``fold_scan`` (``fold-scan``) lets phase A scan a
+        folded mirror where the features fit 1/2 or 1/4 of the padded
+        width.  ``device=None`` means ``cuda``."""
         super().__init__(features, implicit, dtype=dtype, device=device)
         self.rescorer_provider = rescorer_provider
         self._known_items: dict[str, set[str]] = {}
@@ -334,6 +573,27 @@ class ALSServingModel(FactorModelBase, ServingModel):
         self._item_buckets_version: int = -1
         self._penalty: torch.Tensor | None = None
         self._penalty_version: int = -1
+        # a bool normalises to the canonical string, so True gets the
+        # explicit opt-in's place in the kind chain (which compares
+        # strings)
+        if isinstance(int8_selection, bool):
+            int8_selection = "true" if int8_selection else "false"
+        self._int8_selection = int8_selection
+        self._fold_scan = fold_scan
+        # phase-A mirrors, each rebuilt when the Y snapshot version
+        # changes: int8 (Y8, scale, L1), its int32 penalty, the folded
+        # store (Yf, penalty), the folded int8 mirror (Y8f, penalty,
+        # scale, L1) and the folded buckets
+        self._i8: tuple | None = None
+        self._i8_version: int = -1
+        self._penalty_i: torch.Tensor | None = None
+        self._penalty_i_version: int = -1
+        self._fold: tuple | None = None
+        self._fold_version: int = -1
+        self._i8_fold: tuple | None = None
+        self._i8_fold_version: int = -1
+        self._fold_bkt: torch.Tensor | None = None
+        self._fold_bkt_version: int = -1
         self._bucket_lock = threading.Lock()
         # exact-scan recomputes forced by a failed two-phase certificate
         self.twophase_fallbacks = 0
@@ -379,6 +639,76 @@ class ALSServingModel(FactorModelBase, ServingModel):
                 self._penalty = _penalty_kernel(active, _BLOCK_ROWS)
                 self._penalty_version = version
             return self._penalty
+
+    def _int8_enabled(self) -> bool:
+        if self._int8_selection == "auto":
+            # on at f <= 64 where the store pads its columns: there the
+            # int8 (and folded int8) mirror reads the fewest bytes
+            return (self.features <= 64
+                    and self.Y.device_features != self.features)
+        return bool(self._int8_selection) and self._int8_selection != "false"
+
+    def _fold_enabled(self) -> bool:
+        return bool(self._fold_scan) and self._fold_scan != "false"
+
+    def _cached_fold(self, vecs, active, buckets, version, fold: int,
+                     bs: int) -> tuple:
+        """(Yf, penalty_fold, buckets_fold|None) folded phase-A mirror,
+        rebuilt on the device when the Y snapshot version changes.  LSH
+        and exact drains share it; the buckets fold on first LSH use per
+        version."""
+        with self._bucket_lock:
+            if self._fold is None or self._fold_version != version:
+                self._fold = _fold_items_kernel(vecs, active, fold, bs)
+                self._fold_version = version
+            yf, pen_f = self._fold
+            bkt_f = self._fold_bkt_locked(buckets, version, fold, bs) \
+                if buckets is not None else None
+            return yf, pen_f, bkt_f
+
+    def _cached_i8(self, vecs, version):
+        """(Y8, per-block scale, per-block L1) quantization mirror,
+        rebuilt on the device when the Y snapshot version changes."""
+        with self._bucket_lock:
+            if self._i8 is None or self._i8_version != version:
+                self._i8 = _quantize_items_kernel(vecs, _BLOCK_ROWS)
+                self._i8_version = version
+            return self._i8
+
+    def _cached_i8_fold(self, vecs, active, buckets, version, fold: int,
+                        bs: int) -> tuple:
+        """(Y8f, penalty_i_fold, buckets_fold|None, scale, L1) folded int8
+        mirror.  It quantizes with the unfolded path's quantizer (the
+        same scales and L1 norms, so the same bounds) but not through
+        ``_cached_i8``: the unfolded Y8 is only an intermediate here and
+        is not kept on the model beside the folded mirror that serves."""
+        with self._bucket_lock:
+            if self._i8_fold is None or self._i8_fold_version != version:
+                y8, sy_b, l1y_b = _quantize_items_kernel(vecs, bs)
+                y8f, pen_i_f = _fold_items_i8_kernel(y8, active, fold, bs)
+                self._i8_fold = (y8f, pen_i_f, sy_b, l1y_b)
+                self._i8_fold_version = version
+            y8f, pen_i_f, sy_b, l1y_b = self._i8_fold
+            bkt_f = self._fold_bkt_locked(buckets, version, fold, bs) \
+                if buckets is not None else None
+            return y8f, pen_i_f, bkt_f, sy_b, l1y_b
+
+    def _fold_bkt_locked(self, buckets, version, fold: int,
+                         bs: int) -> torch.Tensor:
+        """Folded LSH bucket side input, shared by the folded store and
+        the folded int8 mirror (the caller holds ``_bucket_lock``)."""
+        if self._fold_bkt is None or self._fold_bkt_version != version:
+            self._fold_bkt = _fold_buckets_kernel(buckets, fold, bs)
+            self._fold_bkt_version = version
+        return self._fold_bkt
+
+    def _cached_penalty_i(self, active, version) -> torch.Tensor:
+        with self._bucket_lock:
+            if self._penalty_i is None \
+                    or self._penalty_i_version != version:
+                self._penalty_i = _penalty_kernel_i32(active, _BLOCK_ROWS)
+                self._penalty_i_version = version
+            return self._penalty_i
 
     def _cached_buckets(self, vecs, version) -> torch.Tensor:
         """Per-item LSH bucket ids on the device, recomputed only when
@@ -546,20 +876,46 @@ class ALSServingModel(FactorModelBase, ServingModel):
         phase-A chain and fetch the results together.  There is no
         fallback to another kind: a kernel that fails to build or launch
         raises, and the batcher surfaces it per request."""
-        kind = self._phase_a_kinds(int(vecs.shape[0]))[0]
+        kinds, fold = self._phase_a_kinds(int(vecs.shape[0]),
+                                          int(vecs.shape[1]), bs)
         ctx: dict = {}
-        handles = [self._dispatch_kind(kind, qw, vecs, active, version,
-                                       buckets, hp, k, bs, ksel, mb, ctx,
-                                       chunk=chunk)
+        handles = [self._dispatch_kind(kinds[0], qw, vecs, active, version,
+                                       buckets, hp, k, bs, ksel, mb, fold,
+                                       ctx, chunk=chunk)
                    for qw in windows]
         return [_fetch(*h) for h in handles]
 
     def _dispatch_kind(self, kind: str, qw, vecs, active, version,
                        buckets, hp, k: int, bs: int, ksel: int, mb: int,
-                       ctx: dict, chunk: int = 0):
+                       fold: int, ctx: dict, chunk: int = 0):
         """Run ONE window's two-phase program with the given phase-A
-        kind; ``ctx`` caches the phase-A side inputs across the windows
-        of a drain."""
+        kind; ``ctx`` caches the phase-A mirrors across the windows of a
+        drain."""
+        n_rows = int(vecs.shape[0])
+        if kind == "i8_fold":
+            if "i8_fold" not in ctx:
+                ctx["i8_fold"] = self._cached_i8_fold(
+                    vecs, active, buckets, version, fold, bs)
+            y8f, pen_i_f, bkt_f, sy_b, l1y_b = ctx["i8_fold"]
+            return _batch_top_n_twophase_cuda_i8_fold(
+                vecs, y8f, sy_b, l1y_b, qw, pen_i_f, active, bkt_f,
+                buckets, hp, k, bs, _i8_ksel(ksel, n_rows, bs), mb, fold)
+        if kind == "fold":
+            if "fold" not in ctx:
+                ctx["fold"] = self._cached_fold(
+                    vecs, active, buckets, version, fold, bs)
+            yf, pen_f, bkt_f = ctx["fold"]
+            return _batch_top_n_twophase_cuda_fold(
+                vecs, yf, qw, pen_f, active, bkt_f, buckets, hp, k, bs,
+                ksel, mb, fold)
+        if kind == "i8":
+            if "i8" not in ctx:
+                ctx["i8"] = (self._cached_i8(vecs, version),
+                             self._cached_penalty_i(active, version))
+            (y8, sy_b, l1y_b), penalty_i = ctx["i8"]
+            return _batch_top_n_twophase_cuda_i8(
+                vecs, y8, sy_b, l1y_b, qw, penalty_i, active, buckets, hp,
+                k, bs, _i8_ksel(ksel, n_rows, bs), mb)
         if kind == "pallas":
             if "penalty" not in ctx:
                 ctx["penalty"] = self._cached_penalty(active, version)
@@ -571,15 +927,32 @@ class ALSServingModel(FactorModelBase, ServingModel):
                 vecs, qw, active, buckets, hp, k, chunk, bs, ksel, mb)
         raise ValueError(f"unknown phase-A kind {kind!r}")
 
-    def _phase_a_kinds(self, n_rows: int) -> list[str]:
-        """Phase-A kinds for a streaming shape, best first.  The kind
-        names are the reference's: "pallas" is the hand-written CUDA
-        kernel, "scan" the plain-PyTorch chunked build.  The reference's
-        "fold", "i8", "i8_fold" and "ivf" kinds come with their kernels
-        in later slices."""
-        kinds = ["pallas"] if n_rows % _PA_TILE == 0 else []
+    def _phase_a_kinds(self, n_rows: int, width: int,
+                       bs: int) -> tuple[list[str], int]:
+        """(phase-A kinds for a streaming shape, best first; fold factor).
+        The kind names are the reference's, each a hand-written kernel
+        but "scan", the plain-PyTorch chunked build.  The order is the
+        reference's, fewest phase-A bytes first: int8+fold, then fold and
+        int8 (an explicit ``int8_selection="true"`` ahead of fold), then
+        the store's own kernel, then the scan.  The reference's "ivf"
+        kind comes with the IVF slice."""
+        eligible = n_rows % _PA_TILE == 0
+        want_i8 = self._int8_enabled()
+        fold = _fold_eligible(width, self.features, bs) \
+            if self._fold_enabled() else 1
+        kinds: list[str] = []
+        if eligible:
+            if want_i8 and fold > 1:
+                kinds.append("i8_fold")
+            if want_i8 and self._int8_selection == "true":
+                kinds.append("i8")
+            if fold > 1:
+                kinds.append("fold")
+            if want_i8 and "i8" not in kinds:
+                kinds.append("i8")
+            kinds.append("pallas")
         kinds.append("scan")
-        return kinds
+        return kinds, fold
 
     def _decode_top_n(self, top_scores, top_idx, hm: list[int],
                       excl: list[set[str]], n_req: int, window_partial: bool,

@@ -26,14 +26,18 @@ def serving_model_from_arrays(
         known_items: Mapping[str, Iterable[str]],
         lsh_hyperplanes: np.ndarray | None = None,
         sample_rate: float = 1.0, dtype="float32",
-        device=None) -> ALSServingModel:
+        device=None, int8_selection: str | bool = "auto",
+        fold_scan: str | bool = "auto") -> ALSServingModel:
     """An ``ALSServingModel`` holding ``X``/``Y`` (one row per entry of
     ``x_ids``/``y_ids``; None marks a free row), ``known_items``
     (user -> items) and, on an LSH model (``sample_rate`` < 1), the
-    given hyperplanes in place of freshly drawn ones.  ``device=None``
-    means ``cuda``."""
+    given hyperplanes in place of freshly drawn ones.  ``int8_selection``
+    and ``fold_scan`` choose the phase-A mirrors as on
+    ``ALSServingModel``.  ``device=None`` means ``cuda``."""
     model = ALSServingModel(features, implicit, sample_rate=sample_rate,
-                            dtype=dtype, device=device)
+                            dtype=dtype, device=device,
+                            int8_selection=int8_selection,
+                            fold_scan=fold_scan)
     if lsh_hyperplanes is not None:
         if model.lsh is None:
             raise ValueError("lsh_hyperplanes given for a model without "

@@ -1,7 +1,11 @@
 // Phase A of the two-phase streaming top-k: per-block maxima of Q . Y^T.
 //
-// Replaces oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas,
-// both of its bodies.  For every 128-row item block `blk` and query `q`:
+// Replaces two Pallas kernels of oryx_tpu/app/als/serving_model.py, both
+// with both of their bodies:
+//   - _batch_top_n_twophase_pallas (the "pallas" kind), over the store;
+//   - _batch_top_n_twophase_pallas_fold (the "fold" kind), over the
+//     folded mirror of a narrow store (see "Folded mirror" below).
+// For every 128-row item block `blk` and query `q`:
 //
 //   M[q, blk] = max over rows r of block blk of (Y[r] . Q[q] + penalty[r])
 //
@@ -17,31 +21,48 @@
 // exactness certificate holds only if phase A's maxima and phase B's exact
 // rescore agree within its 1e-4 relative margin, and TF32 keeps ~3 digits.
 //
+// Folded mirror.  The reference folds `fold` logical rows into one
+// physical row of a W-column mirror: logical row i*fold + j occupies
+// columns [j*w, j*w + w), w = W / fold, and it scores each slot against a
+// slot-shifted copy of the query.  In row-major memory that mirror is the
+// store narrowed to its first w columns and packed, so logical row r sits
+// at element offset r*w: this kernel reads it as N rows of w columns
+// (`features` = w) against the first w columns of each query (`q_stride`
+// = W), and only the penalty and the buckets are read in the mirror's
+// slot-major order, penalty_f[j, blk, r'] for block row r'*fold + j.
+// Columns w.. of the store are zero (w >= features), so the maxima are
+// those of the unfolded store, summed over w columns instead of W.
+//
 // What bounds it on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s FP32 on CUDA
-// cores, 989 TFLOP/s bf16 dense on tensor cores), at the serving shape of
-// 5,111,808 rows x 256 columns (250 features padded to a multiple of 32):
-//   - float32 store: 5.23 GB to read, 1.56 ms; at B = 8 that is the bound.
-//     The product is 2 x 5,111,808 x 250 x B flops: at B = 256, 654 GFLOP,
-//     9.8 ms on the CUDA cores, so the large window is bound by operations.
-//   - bfloat16 store: 2.62 GB, 0.78 ms; memory-bound at every window
-//     against the tensor cores' rate.  This kernel multiplies on the CUDA
-//     cores, so at B = 256 it is bound by FFMA throughput, not by bytes.
+// cores, 989 TFLOP/s bf16 dense on tensor cores):
+//   - store, 5,111,808 rows x 256 columns (250 features padded to a
+//     multiple of 32), float32: 5.23 GB to read, 1.56 ms; at B = 8 that is
+//     the bound.  The product is 2 x 5,111,808 x 250 x B flops: at B = 256,
+//     654 GFLOP, 9.8 ms on the CUDA cores, so the large window is bound by
+//     operations.  bfloat16: 2.62 GB, 0.78 ms; memory-bound at every window
+//     against the tensor cores' rate, but this kernel multiplies on the
+//     CUDA cores, so at B = 256 it is bound by FFMA throughput.
+//   - folded mirror, 20,054,016 logical rows x 16 columns (10 features,
+//     fold 2), float32: 1.28 GB, 0.38 ms; 2 x 20M x 10 x 256 = 103 GFLOP,
+//     1.5 ms at B = 256.  The mirror reads 1/fold of the store's bytes.
 //
 // Design: one thread block per (128-row item block, tile of QT queries),
 // QT in {8, 32, 64}.  Blocks of one item block are adjacent in the launch
 // order, so the tiles of a wide window read their rows from L2, not HBM.
-// The block walks the features in stages of 32 columns: each stage's rows
-// and queries are loaded from device memory into registers one stage
-// ahead (16-byte loads), then stored transposed into shared memory as
-// float32, so a thread reads its rows and queries as float4.  Each of the
-// 256 threads holds a TM x TN register tile of dot products (8 x 4 at
-// QT = 64), so the FMA loop issues one shared-memory load for ~10 FMAs.
-// The epilogue adds the penalty, applies the LSH mask with __popc, takes
-// the max over the thread's rows, and finishes the max over the block's
-// 128 rows with warp shuffles.  A fully masked block gives exactly -inf
-// (never NaN), and a zero query row scores exactly 0 before the penalty.
+// The block walks the columns in stages of KC columns (32, or the whole
+// row of a folded mirror: 8 or 16): each stage's rows and queries are
+// loaded from device memory into registers one stage ahead (16-byte
+// loads), then stored transposed into shared memory as float32, so a
+// thread reads its rows and queries as float4.  Each of the 256 threads
+// holds a TM x TN register tile of dot products (8 x 4 at QT = 64), so the
+// FMA loop issues one shared-memory load for ~10 FMAs.  The epilogue adds
+// the penalty, applies the LSH mask with __popc, takes the max over the
+// thread's rows, and finishes the max over the block's 128 rows with warp
+// shuffles.  A fully masked block gives exactly -inf (never NaN), and a
+// zero query row scores exactly 0 before the penalty.
 //
-// The kernel needs N % 128 == 0 and F % 32 == 0, launches on the caller's
+// The kernel needs N % 128 == 0 and a row width that is a multiple of 32
+// columns, or 8 or 16 for a folded mirror; it launches on the caller's
 // stream, allocates nothing and does not synchronise.  wgmma, TMA and a
 // deeper pipeline are later work.
 
@@ -52,7 +73,6 @@
 namespace {
 
 constexpr int BS = 128;            // rows per item block (_BLOCK_ROWS)
-constexpr int KC = 32;             // feature columns per shared-memory stage
 constexpr int THREADS = 256;
 constexpr int YS_STRIDE = BS + 4;  // keeps float4 alignment of each column
 
@@ -75,12 +95,14 @@ __device__ __forceinline__ void widen(const uint4& v, float* out) {
   }
 }
 
-template <bool BF16, int QT>
+// KC: columns per shared-memory stage
+template <bool BF16, int QT, int KC>
 struct Tile {
   static constexpr int ES = BF16 ? 2 : 4;          // bytes per element
   static constexpr int PV = 16 / ES;               // elements per uint4
   static constexpr int VPR = KC / PV;              // uint4 per row per stage
-  static constexpr int YV = BS * VPR / THREADS;    // Y uint4 per thread
+  static constexpr int YVEC = BS * VPR;            // Y uint4 per stage
+  static constexpr int YV = (YVEC + THREADS - 1) / THREADS;
   static constexpr int QVEC = QT * VPR;            // Q uint4 per stage
   static constexpr int QV = (QVEC + THREADS - 1) / THREADS;
   static constexpr int TN = QT >= 32 ? 4 : 1;      // queries per thread
@@ -89,21 +111,23 @@ struct Tile {
   static constexpr int TM = BS / RG;               // rows per thread
   static_assert(RG * QG == THREADS, "thread layout");
   static_assert(TM % 4 == 0, "rows per thread come in float4s");
-  static_assert(YV * THREADS == BS * VPR, "Y stage divides evenly");
+  static_assert(VPR >= 1 && VPR * PV == KC, "a stage is whole uint4s");
 };
 
-template <bool BF16, int QT>
+template <bool BF16, int QT, int KC>
 __device__ __forceinline__ void load_stage(
     const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
-    size_t row0, int q0, int B, size_t row_bytes, int k0, int tid,
-    uint4* yreg, uint4* qreg) {
-  using T = Tile<BF16, QT>;
+    size_t row0, int q0, int B, size_t y_row_bytes, size_t q_row_bytes,
+    int k0, int tid, uint4* yreg, uint4* qreg) {
+  using T = Tile<BF16, QT, KC>;
 #pragma unroll
   for (int i = 0; i < T::YV; ++i) {
     const int v = tid + i * THREADS;
-    const int r = v / T::VPR, c = v % T::VPR;
-    yreg[i] = *reinterpret_cast<const uint4*>(
-        Y + (row0 + r) * row_bytes + (size_t)(k0 + c * T::PV) * T::ES);
+    if (T::YVEC % THREADS == 0 || v < T::YVEC) {
+      const int r = v / T::VPR, c = v % T::VPR;
+      yreg[i] = *reinterpret_cast<const uint4*>(
+          Y + (row0 + r) * y_row_bytes + (size_t)(k0 + c * T::PV) * T::ES);
+    }
   }
 #pragma unroll
   for (int i = 0; i < T::QV; ++i) {
@@ -112,21 +136,22 @@ __device__ __forceinline__ void load_stage(
       const int qq = v / T::VPR, c = v % T::VPR;
       qreg[i] = (q0 + qq < B)
           ? *reinterpret_cast<const uint4*>(
-                Q + (size_t)(q0 + qq) * row_bytes
+                Q + (size_t)(q0 + qq) * q_row_bytes
                   + (size_t)(k0 + c * T::PV) * T::ES)
           : make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-template <bool BF16, int QT>
+template <bool BF16, int QT, int KC>
 __device__ __forceinline__ void store_stage(
     const uint4* yreg, const uint4* qreg, int tid, float* ys, float* qs) {
-  using T = Tile<BF16, QT>;
+  using T = Tile<BF16, QT, KC>;
   float f[T::PV];
 #pragma unroll
   for (int i = 0; i < T::YV; ++i) {
     const int v = tid + i * THREADS;
+    if (T::YVEC % THREADS != 0 && v >= T::YVEC) continue;
     const int r = v / T::VPR, c = v % T::VPR;
     widen<BF16>(yreg[i], f);
 #pragma unroll
@@ -144,14 +169,18 @@ __device__ __forceinline__ void store_stage(
   }
 }
 
-template <bool BF16, bool LSH, int QT>
+// F: columns per Y row (the whole row is reduced); q_stride: columns per
+// Q row, of which the first F are read; fold: logical rows per physical
+// row of the penalty's and buckets' slot-major layout (1: row order)
+template <bool BF16, bool LSH, int QT, int KC>
 __global__ void __launch_bounds__(THREADS, 2)
 phase_a_kernel(const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
                const float* __restrict__ penalty,
                const int32_t* __restrict__ buckets,
                const int32_t* __restrict__ target, float* __restrict__ out,
-               int n_blocks, int F, int B, int max_bits) {
-  using T = Tile<BF16, QT>;
+               int n_blocks, int F, int q_stride, int B, int max_bits,
+               int fold) {
+  using T = Tile<BF16, QT, KC>;
   __shared__ __align__(16) float ys[KC * YS_STRIDE];
   __shared__ __align__(16) float qs[KC * QT];
 
@@ -162,7 +191,8 @@ phase_a_kernel(const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
   const int rg = tid % T::RG;
   const int qg = tid / T::RG;
   const size_t row0 = (size_t)blk * BS;
-  const size_t row_bytes = (size_t)F * T::ES;
+  const size_t y_row_bytes = (size_t)F * T::ES;
+  const size_t q_row_bytes = (size_t)q_stride * T::ES;
 
   uint4 yreg[T::YV];
   uint4 qreg[T::QV];
@@ -172,13 +202,14 @@ phase_a_kernel(const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
 #pragma unroll
     for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
 
-  load_stage<BF16, QT>(Y, Q, row0, q0, B, row_bytes, 0, tid, yreg, qreg);
+  load_stage<BF16, QT, KC>(Y, Q, row0, q0, B, y_row_bytes, q_row_bytes, 0,
+                           tid, yreg, qreg);
   for (int k0 = 0; k0 < F; k0 += KC) {
-    store_stage<BF16, QT>(yreg, qreg, tid, ys, qs);
+    store_stage<BF16, QT, KC>(yreg, qreg, tid, ys, qs);
     __syncthreads();
     if (k0 + KC < F)  // next stage's loads are in flight during the FMAs
-      load_stage<BF16, QT>(Y, Q, row0, q0, B, row_bytes, k0 + KC, tid,
-                           yreg, qreg);
+      load_stage<BF16, QT, KC>(Y, Q, row0, q0, B, y_row_bytes, q_row_bytes,
+                               k0 + KC, tid, yreg, qreg);
 #pragma unroll 4
     for (int kk = 0; kk < KC; ++kk) {
       float a[T::TM];
@@ -210,12 +241,17 @@ phase_a_kernel(const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
     __syncthreads();
   }
 
-  // epilogue: thread-local row i is block row (i/4)*RG*4 + rg*4 + i%4
+  // epilogue: thread-local row i is block row t = (i/4)*RG*4 + rg*4 + i%4,
+  // whose penalty and bucket sit at [t % fold, blk, t / fold] of the
+  // (fold, n_blocks, BS / fold) side inputs (at row0 + t for fold 1)
+  const int bsf = BS / fold;
   float pen[T::TM];
   int32_t bkt[T::TM];
 #pragma unroll
   for (int i = 0; i < T::TM; ++i) {
-    const size_t r = row0 + (i / 4) * T::RG * 4 + rg * 4 + (i % 4);
+    const int t = (i / 4) * T::RG * 4 + rg * 4 + (i % 4);
+    const size_t r = (size_t)(t % fold) * n_blocks * bsf
+        + (size_t)blk * bsf + t / fold;
     pen[i] = penalty[r];
     bkt[i] = LSH ? buckets[r] : 0;
   }
@@ -238,47 +274,73 @@ phase_a_kernel(const uint8_t* __restrict__ Y, const uint8_t* __restrict__ Q,
   }
 }
 
-template <bool BF16, bool LSH, int QT>
+template <bool BF16, bool LSH, int QT, int KC>
 void launch(const void* y, const void* q, const float* penalty,
             const int32_t* buckets, const int32_t* target, float* out,
-            int n_blocks, int F, int B, int max_bits, cudaStream_t stream) {
+            int n_blocks, int F, int q_stride, int B, int max_bits, int fold,
+            cudaStream_t stream) {
   const unsigned n_qt = (unsigned)((B + QT - 1) / QT);
   const dim3 grid((unsigned)n_blocks * n_qt);
-  phase_a_kernel<BF16, LSH, QT><<<grid, THREADS, 0, stream>>>(
+  phase_a_kernel<BF16, LSH, QT, KC><<<grid, THREADS, 0, stream>>>(
       static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(q),
-      penalty, buckets, target, out, n_blocks, F, B, max_bits);
+      penalty, buckets, target, out, n_blocks, F, q_stride, B, max_bits,
+      fold);
+}
+
+template <bool BF16, bool LSH, int KC>
+void launch_tile(const void* y, const void* q, const float* penalty,
+                 const int32_t* buckets, const int32_t* target, float* out,
+                 int n_blocks, int F, int q_stride, int B, int max_bits,
+                 int fold, cudaStream_t stream) {
+  if (B >= 64)
+    launch<BF16, LSH, 64, KC>(y, q, penalty, buckets, target, out, n_blocks,
+                              F, q_stride, B, max_bits, fold, stream);
+  else if (B > 8)
+    launch<BF16, LSH, 32, KC>(y, q, penalty, buckets, target, out, n_blocks,
+                              F, q_stride, B, max_bits, fold, stream);
+  else
+    launch<BF16, LSH, 8, KC>(y, q, penalty, buckets, target, out, n_blocks,
+                             F, q_stride, B, max_bits, fold, stream);
 }
 
 template <bool BF16, bool LSH>
-void launch_tile(const void* y, const void* q, const float* penalty,
-                 const int32_t* buckets, const int32_t* target, float* out,
-                 int n_blocks, int F, int B, int max_bits,
-                 cudaStream_t stream) {
-  if (B >= 64)
-    launch<BF16, LSH, 64>(y, q, penalty, buckets, target, out, n_blocks, F,
-                          B, max_bits, stream);
-  else if (B > 8)
-    launch<BF16, LSH, 32>(y, q, penalty, buckets, target, out, n_blocks, F,
-                          B, max_bits, stream);
+void launch_width(const void* y, const void* q, const float* penalty,
+                  const int32_t* buckets, const int32_t* target, float* out,
+                  int n_blocks, int F, int q_stride, int B, int max_bits,
+                  int fold, cudaStream_t stream) {
+  if (F % 32 == 0)
+    launch_tile<BF16, LSH, 32>(y, q, penalty, buckets, target, out, n_blocks,
+                               F, q_stride, B, max_bits, fold, stream);
+  else if (F == 16)
+    launch_tile<BF16, LSH, 16>(y, q, penalty, buckets, target, out, n_blocks,
+                               F, q_stride, B, max_bits, fold, stream);
   else
-    launch<BF16, LSH, 8>(y, q, penalty, buckets, target, out, n_blocks, F,
-                         B, max_bits, stream);
+    launch_tile<BF16, LSH, 8>(y, q, penalty, buckets, target, out, n_blocks,
+                              F, q_stride, B, max_bits, fold, stream);
 }
 
 }  // namespace
 
-// Y (n_rows, features) and Q (n_queries, features), both float32 or both
-// bfloat16 (bf16 != 0), row-major and 16-byte aligned; penalty (n_rows,)
-// float32; buckets (n_rows,) and target (n_queries,) int32, both null for
-// the exact body; out (n_queries, n_rows / 128) float32.  Returns the CUDA
-// error of the launch, 0 on success.
+// Y (n_rows, features) and Q (n_queries, q_stride), both float32 or both
+// bfloat16 (bf16 != 0), row-major and 16-byte aligned; features is a
+// multiple of 32, or 8 or 16, and at most q_stride; only the first
+// `features` columns of Q are read.  penalty (fold, n_rows / 128,
+// 128 / fold) float32; buckets of the same layout and target
+// (n_queries,), int32, both null for the exact body; fold 1 (the store:
+// penalty and buckets in row order), 2 or 4 (a folded mirror read as
+// n_rows rows of `features` columns).  out (n_queries, n_rows / 128)
+// float32.  Returns the CUDA error of the launch, 0 on success.
 extern "C" int oryx_phase_a(const void* y, const void* q,
                             const float* penalty, const int32_t* buckets,
                             const int32_t* target, float* out, int n_rows,
-                            int features, int n_queries, int max_bits,
-                            int bf16, void* stream) {
-  if (n_rows <= 0 || n_rows % BS || features <= 0 || features % KC
-      || n_queries <= 0 || (buckets == nullptr) != (target == nullptr))
+                            int features, int q_stride, int n_queries,
+                            int max_bits, int bf16, int fold, void* stream) {
+  const bool width_ok = features > 0
+      && (features % 32 == 0 || features == 16 || features == 8);
+  if (n_rows <= 0 || n_rows % BS || !width_ok || q_stride < features
+      || q_stride % (bf16 ? 8 : 4) || n_queries <= 0
+      || (fold != 1 && fold != 2 && fold != 4)
+      || (buckets == nullptr) != (target == nullptr))
     return (int)cudaErrorInvalidValue;
   (void)cudaGetLastError();  // clear a stale error of an earlier call
   const int n_blocks = n_rows / BS;
@@ -286,18 +348,22 @@ extern "C" int oryx_phase_a(const void* y, const void* q,
   const bool lsh = buckets != nullptr;
   if (bf16) {
     if (lsh)
-      launch_tile<true, true>(y, q, penalty, buckets, target, out, n_blocks,
-                              features, n_queries, max_bits, s);
+      launch_width<true, true>(y, q, penalty, buckets, target, out, n_blocks,
+                               features, q_stride, n_queries, max_bits, fold,
+                               s);
     else
-      launch_tile<true, false>(y, q, penalty, buckets, target, out, n_blocks,
-                               features, n_queries, max_bits, s);
+      launch_width<true, false>(y, q, penalty, buckets, target, out,
+                                n_blocks, features, q_stride, n_queries,
+                                max_bits, fold, s);
   } else {
     if (lsh)
-      launch_tile<false, true>(y, q, penalty, buckets, target, out, n_blocks,
-                               features, n_queries, max_bits, s);
+      launch_width<false, true>(y, q, penalty, buckets, target, out,
+                                n_blocks, features, q_stride, n_queries,
+                                max_bits, fold, s);
     else
-      launch_tile<false, false>(y, q, penalty, buckets, target, out,
-                                n_blocks, features, n_queries, max_bits, s);
+      launch_width<false, false>(y, q, penalty, buckets, target, out,
+                                 n_blocks, features, q_stride, n_queries,
+                                 max_bits, fold, s);
   }
   return (int)cudaGetLastError();
 }

@@ -10,13 +10,15 @@ use; nothing prebuilt is shipped.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "build", "LOGS"]
+__all__ = ["BUILD_DIR", "build", "load", "check_operand", "LOGS"]
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -24,6 +26,9 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # compiler output (registers, shared memory, spills) of the builds this
 # process ran, by source file name
 LOGS: dict[str, str] = {}
+# loaded libraries by source: one source may serve several wrappers
+_libs: dict[Path, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -70,3 +75,24 @@ def build(sources: list[Path]) -> list[Path]:
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return outs
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The library built from ``source``, built first if it is not
+    current and loaded once per process."""
+    with _load_lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(str(build([source])[0]))
+        return lib
+
+
+def check_operand(kernel: str, t, name: str, dtype, device, shape) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel's C interface takes."""
+    if t.device != device or t.dtype != dtype \
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")

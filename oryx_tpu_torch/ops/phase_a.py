@@ -24,7 +24,7 @@ from ..app.als.lsh import _popcount
 from . import cuda_build
 
 __all__ = ["phase_a", "phase_a_reference", "build", "LAUNCHES",
-           "BLOCK_ROWS", "SOURCE"]
+           "BLOCK_ROWS", "SOURCE", "MIN_PLAIN_ROWS", "pad_rows"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a.cu"
 # rows per block maximum; the kernel's BS
@@ -34,6 +34,12 @@ BLOCK_ROWS = 128
 _WIDTH_ALIGN = 32
 # rows per matmul in the plain version: bounds its (B, rows) score tile
 _REF_CHUNK_ROWS = 1 << 17
+# the plain version multiplies at least this many query rows (zero rows
+# past B): cuBLAS then takes an SGEMM that sums each dot product over the
+# columns in order, as the kernel's FMA chain does, so the two agree bit
+# for bit; for a few rows it picks another algorithm, whose sums differ
+# in the last bits (cuBLAS of CUDA 12.8 on an H100)
+MIN_PLAIN_ROWS = 32
 
 # kernel launches since the process started (or a caller reset it)
 LAUNCHES = 0
@@ -48,14 +54,18 @@ def build() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            path = cuda_build.build([SOURCE])[0]
-            lib = ctypes.CDLL(str(path))
+            lib = cuda_build.load(SOURCE)
             lib.oryx_phase_a.argtypes = ([ctypes.c_void_p] * 6
-                                         + [ctypes.c_int] * 5
+                                         + [ctypes.c_int] * 7
                                          + [ctypes.c_void_p])
             lib.oryx_phase_a.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def pad_rows(q: torch.Tensor, rows: int = MIN_PLAIN_ROWS) -> torch.Tensor:
+    """``q`` with zero rows appended up to ``rows`` rows."""
+    return torch.nn.functional.pad(q, (0, 0, 0, max(0, rows - q.shape[0])))
 
 
 def phase_a_reference(Qc: torch.Tensor, Y: torch.Tensor,
@@ -70,12 +80,12 @@ def phase_a_reference(Qc: torch.Tensor, Y: torch.Tensor,
     the LSH mask, reshaped and max-reduced per ``bs``-row block."""
     n = Y.shape[0]
     b = Qc.shape[0]
-    q = Qc.to(torch.float32)
+    q = pad_rows(Qc.to(torch.float32))
     pen = penalty.reshape(-1)
     out = torch.empty((b, n // bs), dtype=torch.float32, device=Y.device)
     for start in range(0, n, _REF_CHUNK_ROWS):
         stop = min(n, start + _REF_CHUNK_ROWS)
-        s = q @ Y[start:stop].to(torch.float32).T + pen[start:stop]
+        s = (q @ Y[start:stop].to(torch.float32).T)[:b] + pen[start:stop]
         if buckets is not None:
             ok = _popcount(torch.bitwise_xor(buckets[None, start:stop],
                                              target[:, None])) <= max_bits
@@ -85,12 +95,7 @@ def phase_a_reference(Qc: torch.Tensor, Y: torch.Tensor,
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
-    if t.device != device or t.dtype != dtype \
-            or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(
-            f"phase_a: {name} must be a contiguous {dtype} tensor of shape "
-            f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
+    cuda_build.check_operand("phase_a", t, name, dtype, device, shape)
 
 
 def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
@@ -140,8 +145,8 @@ def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
             Y.data_ptr(), Qc.data_ptr(), penalty.data_ptr(),
             buckets.data_ptr() if buckets is not None else None,
             target.data_ptr() if target is not None else None,
-            out.data_ptr(), n, f, b, int(max_bits),
-            int(Y.dtype == torch.bfloat16),
+            out.data_ptr(), n, f, f, b, int(max_bits),
+            int(Y.dtype == torch.bfloat16), 1,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"phase_a kernel launch failed: CUDA error {rc}")

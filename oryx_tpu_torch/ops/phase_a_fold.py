@@ -1,0 +1,163 @@
+"""Phase A over the folded mirror of a narrow store: per-128-row-block
+maxima of Q·Yᵀ, by the hand-written CUDA kernel of ``csrc/phase_a.cu``
+in its folded variant.
+
+Counterpart of the Pallas kernel inside
+``oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas_fold``,
+both bodies.  The folded mirror ``Yf`` (N / fold, W) holds logical row
+``i·fold + j`` in columns ``[j·w, j·w + w)`` of its row ``i``
+(w = W / fold); the penalty and the LSH buckets come in its slot-major
+(fold, N / 128, 128 / fold) layout.  The plain version,
+``phase_a_fold_reference``, computes the reference's way: one product
+per slot against a slot-shifted copy of the query, a block max per slot,
+the max over slots.  The kernel reads the same memory as N logical rows
+of w columns (``Yf.view(N, w)``) and the side inputs at their slot-major
+offsets.  ``phase_a_fold`` launches the kernel for CUDA tensors and
+raises if it cannot, and takes the plain version for CPU tensors only.
+``LAUNCHES`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from ..app.als.lsh import _popcount
+from . import cuda_build
+from . import phase_a as _pa
+
+__all__ = ["phase_a_fold", "phase_a_fold_reference", "slot_queries",
+           "check_fold_operands", "LAUNCHES", "BLOCK_ROWS", "SOURCE"]
+
+SOURCE = _pa.SOURCE
+BLOCK_ROWS = _pa.BLOCK_ROWS
+# physical rows per matmul in the plain versions
+_REF_CHUNK_ROWS = 1 << 16
+
+# kernel launches since the process started (or a caller reset it)
+LAUNCHES = 0
+_count_lock = threading.Lock()
+
+
+def slot_queries(q: torch.Tensor, fold: int) -> torch.Tensor:
+    """(fold, B, W) slot-shifted copies of the (B, W) query: copy ``j``
+    holds the first w = W / fold columns of ``q`` in columns
+    ``[j·w, j·w + w)`` and zeros elsewhere, which kill the other slots'
+    features in a product with a folded row."""
+    b, width = q.shape
+    w = width // fold
+    out = torch.zeros((fold, b, width), dtype=q.dtype, device=q.device)
+    for j in range(fold):
+        out[j, :, j * w:(j + 1) * w] = q[:, :w]
+    return out
+
+
+def phase_a_fold_reference(Qc: torch.Tensor, Yf: torch.Tensor,
+                           pen_f: torch.Tensor,
+                           bkt_f: torch.Tensor | None = None,
+                           target: torch.Tensor | None = None,
+                           max_bits: int = 0, fold: int = 2,
+                           bs: int = BLOCK_ROWS) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, computed as the reference
+    computes it: per fold slot, ``Yf @ Qs[j]ᵀ`` in float32 (a bf16
+    operand widens exactly) over physical-row chunks, plus the slot's
+    penalty and LSH mask, max over each block's ``bs / fold`` physical
+    rows; then the max over slots."""
+    nf = Yf.shape[0]
+    bsf = bs // fold
+    b = Qc.shape[0]
+    qs = slot_queries(_pa.pad_rows(Qc), fold).to(torch.float32)
+    out = None
+    for j in range(fold):
+        pen = pen_f[j].reshape(-1)
+        bkt = bkt_f[j].reshape(-1) if bkt_f is not None else None
+        mj = torch.empty((b, nf // bsf), dtype=torch.float32,
+                         device=Yf.device)
+        for start in range(0, nf, _REF_CHUNK_ROWS):
+            stop = min(nf, start + _REF_CHUNK_ROWS)
+            s = (qs[j] @ Yf[start:stop].to(torch.float32).T)[:b] \
+                + pen[start:stop]
+            if bkt is not None:
+                ok = _popcount(torch.bitwise_xor(
+                    bkt[None, start:stop], target[:, None])) <= max_bits
+                s = torch.where(ok, s, float("-inf"))
+            mj[:, start // bsf:stop // bsf] = s.view(b, -1, bsf).amax(-1)
+        out = mj if out is None else torch.maximum(out, mj)
+    return out
+
+
+def check_fold_operands(kernel: str, q, Yf, pen_f, bkt_f, target,
+                        fold: int, bs: int, y_dtypes, pen_dtype) -> int:
+    """Checks the folded kernels' C interface leaves to the caller;
+    returns the logical row width w = W / fold."""
+    if Yf.dim() != 2 or Yf.dtype not in y_dtypes:
+        raise ValueError(f"{kernel}: Yf must be a 2-D tensor of one of "
+                         f"{y_dtypes}, got {Yf.dtype} {tuple(Yf.shape)}")
+    nf, width = Yf.shape
+    w = width // fold if fold else 0
+    b = q.shape[0] if q.dim() == 2 else 0
+    if bs != BLOCK_ROWS or fold not in (2, 4) or width % 32 \
+            or w not in (8, 16) and w % 32 or nf % (bs // fold) or b == 0:
+        raise ValueError(
+            f"{kernel} kernel needs bs == {BLOCK_ROWS}, fold 2 or 4, W % 32 "
+            "== 0, W / fold 8, 16 or a multiple of 32, whole blocks and "
+            f"B > 0; got bs={bs}, fold={fold}, Yf {nf}x{width}, B={b}")
+    dev = Yf.device
+    check = cuda_build.check_operand
+    n_blocks = nf * fold // bs
+    check(kernel, Yf, "Yf", Yf.dtype, dev, (nf, width))
+    check(kernel, pen_f, "pen_f", pen_dtype, dev, (fold, n_blocks, bs // fold))
+    if (bkt_f is None) != (target is None):
+        raise ValueError(f"{kernel}: bkt_f and target come together")
+    if bkt_f is not None:
+        check(kernel, bkt_f, "bkt_f", torch.int32, dev,
+              (fold, n_blocks, bs // fold))
+        check(kernel, target, "target", torch.int32, dev, (b,))
+    if Yf.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"{kernel}: Yf and the query must be 16-byte "
+                         "aligned for the kernel's vector loads")
+    return w
+
+
+def phase_a_fold(Qc: torch.Tensor, Yf: torch.Tensor, pen_f: torch.Tensor,
+                 bkt_f: torch.Tensor | None = None,
+                 target: torch.Tensor | None = None, max_bits: int = 0,
+                 fold: int = 2, bs: int = BLOCK_ROWS) -> torch.Tensor:
+    """Block maxima (B, N // bs) float32 over the folded mirror.
+
+    ``Yf`` is the (N / fold, W) float32 or bfloat16 mirror, ``Qc`` the
+    (B, W) query in its dtype, ``pen_f`` the (fold, N // bs, bs // fold)
+    float32 0/-inf mask, ``bkt_f`` the buckets in the same layout and
+    ``target`` (B,), int32.  A CPU ``Yf`` takes the plain version; a
+    CUDA ``Yf`` launches the kernel or raises."""
+    if Yf.device.type == "cpu":
+        return phase_a_fold_reference(Qc, Yf, pen_f, bkt_f, target,
+                                      max_bits, fold, bs)
+    if Yf.device.type != "cuda":
+        raise ValueError(f"phase_a_fold: unsupported device {Yf.device}")
+    w = check_fold_operands("phase_a_fold", Qc, Yf, pen_f, bkt_f, target,
+                            fold, bs, (torch.float32, torch.bfloat16),
+                            torch.float32)
+    nf, width = Yf.shape
+    b = Qc.shape[0]
+    cuda_build.check_operand("phase_a_fold", Qc, "Qc", Yf.dtype, Yf.device,
+                             (b, width))
+    n = nf * fold
+    out = torch.empty((b, n // bs), dtype=torch.float32, device=Yf.device)
+    lib = _pa.build()
+    with torch.cuda.device(Yf.device):
+        rc = lib.oryx_phase_a(
+            Yf.data_ptr(), Qc.data_ptr(), pen_f.data_ptr(),
+            bkt_f.data_ptr() if bkt_f is not None else None,
+            target.data_ptr() if target is not None else None,
+            out.data_ptr(), n, w, width, b, int(max_bits),
+            int(Yf.dtype == torch.bfloat16), fold,
+            torch.cuda.current_stream(Yf.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"phase_a_fold kernel launch failed: CUDA error {rc}")
+    global LAUNCHES
+    with _count_lock:
+        LAUNCHES += 1
+    return out

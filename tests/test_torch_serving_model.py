@@ -33,7 +33,7 @@ def streaming(monkeypatch):
         monkeypatch.setattr(mod, "_PA_TILE", 2048)
 
 
-def _pair(Y, X, dtype="float32", sample_rate=1.0, known=None):
+def _pair(Y, X, dtype="float32", sample_rate=1.0, known=None, **port_kw):
     f = Y.shape[1]
     jm = jsm.ALSServingModel(f, implicit=True, sample_rate=sample_rate,
                              dtype=dtype)
@@ -47,7 +47,7 @@ def _pair(Y, X, dtype="float32", sample_rate=1.0, known=None):
         f, True, x_ids=xr, X=np.asarray(xh, np.float32), y_ids=yr,
         Y=np.asarray(yh, np.float32), known_items=known or {},
         lsh_hyperplanes=jm.lsh.hyperplanes if jm.lsh else None,
-        sample_rate=sample_rate, dtype=dtype, device="cpu")
+        sample_rate=sample_rate, dtype=dtype, device="cpu", **port_kw)
     return jm, tm
 
 
@@ -85,7 +85,13 @@ def test_flat_path_matches_reference(dtype, rate):
 @pytest.mark.parametrize("rate", [1.0, 0.3], ids=["exact", "lsh"])
 def test_streaming_path_matches_reference(streaming, dtype, rate):
     Y, Q = _data(4096, 8, 11, seed=2)
-    jm, tm = _pair(Y, Q, dtype, rate)
+    # on the CPU the reference serves its float32 "scan" kind (its Pallas
+    # kernels cannot lower there); the port's float32 kernel kind selects
+    # blocks on the same maxima, so the certificates fail alike.  The
+    # int8 and folded kinds are held to the reference in
+    # test_torch_serving_model_i8.py
+    jm, tm = _pair(Y, Q, dtype, rate, int8_selection="false",
+                   fold_scan="false")
     _assert_same(jm.top_n_batch(6, Q), tm.top_n_batch(6, Q), _tol(dtype))
     # a drain wider than one full window: [256, 8]
     Qw = np.random.default_rng(3).standard_normal((260, 8)).astype(
@@ -122,11 +128,14 @@ def test_streaming_certificate_failure_falls_back_alike(streaming,
         return run
 
     # on the CPU the reference serves the "scan" kind (its Pallas kernel
-    # cannot lower there); the port serves its kernel kind
+    # cannot lower there); the port serves one of its kernel kinds
     monkeypatch.setattr(jsm, "_batch_top_n_twophase_kernel",
                         sabotage(jsm._batch_top_n_twophase_kernel))
-    monkeypatch.setattr(tsm, "_batch_top_n_twophase_cuda",
-                        sabotage(tsm._batch_top_n_twophase_cuda))
+    for name in ("_batch_top_n_twophase_cuda",
+                 "_batch_top_n_twophase_cuda_fold",
+                 "_batch_top_n_twophase_cuda_i8",
+                 "_batch_top_n_twophase_cuda_i8_fold"):
+        monkeypatch.setattr(tsm, name, sabotage(getattr(tsm, name)))
     j_got, t_got = jm.top_n_batch(5, Q), tm.top_n_batch(5, Q)
     _assert_same(want, j_got, 1e-5)
     _assert_same(j_got, t_got, 1e-5)
@@ -137,9 +146,15 @@ def test_streaming_certificate_failure_falls_back_alike(streaming,
 
 def test_streaming_uses_kernel_kind_and_scan_off_tile(streaming):
     Y, Q = _data(4096, 8, 2, seed=6)
-    _, tm = _pair(Y, Q)
-    assert tm._phase_a_kinds(4096) == ["pallas", "scan"]
-    assert tm._phase_a_kinds(4096 + 1024) == ["scan"]
+    jm, tm = _pair(Y, Q)
+    width, bs = tm.Y.device_features, tsm._BLOCK_ROWS
+    # 8 features in 32 columns: int8 on ("auto"), fold 4
+    assert tm._phase_a_kinds(4096, width, bs) == \
+        (["i8_fold", "fold", "i8", "pallas", "scan"], 4) == \
+        jm._phase_a_kinds(4096, width, bs)
+    assert tm._phase_a_kinds(4096 + 1024, width, bs) == (["scan"], 4)
+    _, off = _pair(Y, Q, int8_selection="false", fold_scan="false")
+    assert off._phase_a_kinds(4096, width, bs) == (["pallas", "scan"], 1)
     assert tm.kernel_route_label is None
 
 

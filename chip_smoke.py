@@ -27,9 +27,15 @@ without a card, outside a checkout, or when any phase fails.  Phases:
      and to ``phase_a_i8`` on the unfolded mirror;
    - ``phase_a_fold`` (the folded store, float32 and bfloat16) at the
      same 10-feature shape, within the tolerances of ``phase_a``;
-   - a coverage case of both folded kernels at fold 4 (8 features,
-     1,048,576 rows, 8 queries), which runs their 8-column path; it is
-     labelled coverage, not a served configuration.
+   - coverage cases, labelled so, not served configurations: ``phase_a``
+     at widths 32, 64 and 96 (1,048,576 rows, both dtypes, exact and LSH,
+     8 and 256 queries) and at 300 queries (width 256, two query tiles);
+     both folded kernels at fold 4 (8 features, 1,048,576 rows, 8
+     queries), which runs their 8-column path.
+   Each ``phase_a`` case also prints the design it ran (``body``:
+   "wgmma" for bf16, "ffma" for float32), its registers and spills from
+   the compiler's output, its shared memory and ring depth, and every
+   case its share of the bound (``bound_share``).
    Float kernels must give the plain version's -inf pattern and no NaN.
    The int8 quantizer on the card must equal the CPU's bit for bit on
    the first 1,048,576 rows of each quantized store.
@@ -60,6 +66,7 @@ import contextlib
 import gc
 import http.client
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +86,11 @@ KNOWN_PER_USER = 9
 WINDOWS = (8, 32, 256)
 COVERAGE_ROWS = 1 << 20
 COVERAGE_FEATURES = 8
+# phase_a coverage: the widths 32- and 64-feature models serve on, and
+# one that is not a multiple of 64; a window above 256 queries
+COVERAGE_WIDTHS = (32, 64, 96)
+COVERAGE_WINDOWS = (8, 256)
+WIDE_WINDOW = 300
 QUANT_CHECK_ROWS = 1 << 20
 # rows per library call of the folded and int8 yardsticks: bounds their
 # (rows, B) score tiles
@@ -96,8 +108,8 @@ KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
     "phase_a": (f"{REFERENCE}:314", "oryx_tpu_torch/csrc/phase_a.cu",
                 "pallas"),
-    "phase_a_fold": (f"{REFERENCE}:433", "oryx_tpu_torch/csrc/phase_a.cu",
-                     "fold"),
+    "phase_a_fold": (f"{REFERENCE}:433",
+                     "oryx_tpu_torch/csrc/phase_a_fold.cu", "fold"),
     "phase_a_i8_fold": (f"{REFERENCE}:702",
                         "oryx_tpu_torch/csrc/phase_a_i8.cu", "i8_fold"),
     "phase_a_i8": (f"{REFERENCE}:804", "oryx_tpu_torch/csrc/phase_a_i8.cu",
@@ -252,10 +264,12 @@ def compare(kernel: str, info: str, M, R, exact: bool, rtol: float | None,
 
 def run_case(torch, kernel: str, fields: dict, kern, plain, library,
              nbytes: float, ops: float, op_rate: float, bw: float,
-             exact: bool, rtol: float | None = None, also=None) -> dict:
+             exact: bool, rtol: float | None = None, also=None,
+             extra: dict | None = None) -> dict:
     """One kernel case: compare, then time the kernel, the plain version
     and the library yardstick; ``also`` holds other results the kernel's
-    maxima must equal bit for bit."""
+    maxima must equal bit for bit, ``extra`` more fields for the case's
+    line."""
     info = " ".join(f"{k}={v}" for k, v in fields.items())
     M = kern()
     R = plain()
@@ -275,8 +289,9 @@ def run_case(torch, kernel: str, fields: dict, kern, plain, library,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_share": max(t_bytes, t_ops) / ms,
             "bytes": nbytes, "ops": ops,
-            "max_abs_err": max_abs, "max_rel_err": max_rel}
+            "max_abs_err": max_abs, "max_rel_err": max_rel, **(extra or {})}
     log(case)
     return case
 
@@ -308,35 +323,50 @@ def lsh_ok(torch, buckets, target, max_bits):
                                        target[None, :])) <= max_bits
 
 
-def float_cases(model, rng, gpu_name, lsh: bool, stores) -> list[dict]:
-    """``phase_a`` on this model's snapshot, for every store dtype and
-    window."""
+def ptxas_usage(variant: str) -> dict:
+    """Registers and spilled bytes of one kernel instantiation, read from
+    the compiler's output of ``phase_a.cu`` (``-Xptxas -v``)."""
+    from oryx_tpu_torch.ops import cuda_build
+    name, _, args = variant.partition("<")
+    # Itanium mangling: phase_a_tc<256, 64> -> phase_a_tcILi256ELi64EE
+    mangled = name + ("I" + "".join(f"Li{a.strip()}E" for a in
+                                    args.rstrip(">").split(",")) + "E"
+                      if args else "")
+    lines = cuda_build.LOGS.get("phase_a.cu", "").splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and mangled + "E" in line:
+            text = " ".join(lines[k + 1:k + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            return {"registers": int(regs.group(1)) if regs else None,
+                    "spill_bytes": int(spill.group(1)) if spill else None}
+    return {"registers": None, "spill_bytes": None}
+
+
+def phase_a_cases(vecs, live, buckets, hp, mb: int, features: int,
+                  stores, windows, rng, gpu_name, label=None) -> list[dict]:
+    """``phase_a`` on the store ``vecs`` (rows ``live``, LSH when
+    ``buckets`` is given), for every store dtype and window.  Each case
+    also says which design ran (``body``), its registers and spills (from
+    the compiler's output), its shared memory and ring depth."""
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
     from oryx_tpu_torch.app.als.lsh import _popcount
     from oryx_tpu_torch.ops import phase_a as pa
 
     bw, fp32_rate, bf16_rate, _ = peaks(gpu_name)
-    vecs, active, version = model.Y.device_arrays_versioned()
     n, width = vecs.shape
-    live = active.clone()
-    live[::11] = False
+    lsh = buckets is not None
     pen = sm._penalty_kernel(live, pa.BLOCK_ROWS).contiguous()
-    buckets = hp = None
-    mb = 0
-    if lsh:
-        buckets = model._cached_buckets(vecs, version)
-        hp = model.lsh._device_hyperplanes()
-        mb = model.lsh.max_bits_differing
+    flat_pen = pen.view(-1)
     out = []
     for dtype in stores:
         Y = vecs if vecs.dtype == dtype else vecs.to(dtype)
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-        for b in WINDOWS:
-            Q = queries(torch, rng, b, FEATURES)
+        for b in windows:
+            Q = queries(torch, rng, b, features)
             Qc = sm._q_cast(Q, Y).contiguous()
             tgt = sm._query_buckets(Q, hp) if lsh else None
-            flat_pen = pen.view(-1)
 
             def library():
                 s = torch.matmul(Qc, Y.T).float() + flat_pen
@@ -349,18 +379,61 @@ def float_cases(model, rng, gpu_name, lsh: bool, stores) -> list[dict]:
                       + Qc.numel() * Qc.element_size() + pen.numel() * 4
                       + b * (n // pa.BLOCK_ROWS) * 4
                       + (buckets.numel() * 4 + b * 4 if lsh else 0))
+            design = pa.plan(width, b, dtype == torch.bfloat16)
+            fields = {"store": name, "lsh": lsh, "rows": n,
+                      "features": features, "width": width, "B": b,
+                      "retired_rows": int((~live).sum())}
+            if label:
+                fields["label"] = label
             out.append(run_case(
-                torch, "phase_a",
-                {"store": name, "lsh": lsh, "rows": n,
-                 "features": FEATURES, "width": width, "B": b,
-                 "retired_rows": int((~live).sum())},
+                torch, "phase_a", fields,
                 lambda: pa.phase_a(Qc, Y, pen, buckets, tgt, mb),
                 lambda: pa.phase_a_reference(Qc, Y, pen, buckets, tgt, mb),
-                library, nbytes, 2.0 * n * FEATURES * b,
+                library, nbytes, 2.0 * n * features * b,
                 bf16_rate if name == "bfloat16" else fp32_rate, bw,
-                exact=False, rtol=RTOL[name]))
+                exact=False, rtol=RTOL[name],
+                extra={**design, **ptxas_usage(design["variant"])}))
         del Y
     free()
+    return out
+
+
+def float_cases(model, rng, gpu_name, lsh: bool, stores) -> list[dict]:
+    """``phase_a`` on this model's snapshot, for every store dtype and
+    window."""
+    vecs, active, version = model.Y.device_arrays_versioned()
+    live = active.clone()
+    live[::11] = False
+    buckets = hp = None
+    mb = 0
+    if lsh:
+        buckets = model._cached_buckets(vecs, version)
+        hp = model.lsh._device_hyperplanes()
+        mb = model.lsh.max_bits_differing
+    return phase_a_cases(vecs, live, buckets, hp, mb, FEATURES, stores,
+                         WINDOWS, rng, gpu_name)
+
+
+def coverage_cases(rng, gpu_name) -> list[dict]:
+    """``phase_a`` at the widths 32- and 64-feature stores have and at
+    96 columns, on COVERAGE_ROWS rows, both dtypes, exact and LSH, at
+    COVERAGE_WINDOWS; and one window of WIDE_WINDOW queries at 256
+    columns, which takes two query tiles.  Labelled coverage: no served
+    configuration runs these shapes here."""
+    import torch
+    out = []
+    stores = [torch.float32, torch.bfloat16]
+    for width, windows in [(w, COVERAGE_WINDOWS) for w in COVERAGE_WIDTHS] \
+            + [(256, (WIDE_WINDOW,))]:
+        vecs = torch.from_numpy(rng.standard_normal(
+            (COVERAGE_ROWS, width), dtype=np.float32)).to(DEVICE)
+        active = torch.ones(COVERAGE_ROWS, dtype=torch.bool, device=DEVICE)
+        for lsh in ((False, True) if width != 256 else (False,)):
+            live, buckets, hp, mb = side_inputs(vecs, active, width, lsh)
+            out += phase_a_cases(vecs, live, buckets, hp, mb, width, stores,
+                                 windows, rng, gpu_name, "coverage")
+        del vecs
+        free()
     return out
 
 
@@ -913,7 +986,9 @@ def main() -> int:
     del model, Y, y_ids
     free()
 
-    # coverage, not a configuration: fold 4 runs the 8-column path
+    # coverage, not a configuration: phase_a at narrow widths and a
+    # window above 256 queries; fold 4 runs the folded 8-column path
+    cases += coverage_cases(rng, gpu_name)
     vecs = torch.zeros((COVERAGE_ROWS, 32), device=DEVICE)
     vecs[:, :COVERAGE_FEATURES] = torch.from_numpy(rng.standard_normal(
         (COVERAGE_ROWS, COVERAGE_FEATURES), dtype=np.float32)).to(DEVICE)
@@ -926,29 +1001,39 @@ def main() -> int:
     def head(kernel, **want):
         return next(c for c in cases if c["kernel"] == kernel
                     and not c["lsh"] and c["B"] == 256
+                    and c.get("label") != "coverage"
                     and all(c[k] == v for k, v in want.items()))
 
-    heads = {"phase_a": (head("phase_a", store="float32"), "5M_f32_exact"),
-             "phase_a_i8": (head("phase_a_i8", features=50),
-                            "5M_50f_f32_auto"),
-             "phase_a_fold": (head("phase_a_fold", store="float32"),
-                              "20M_10f_f32_noint8"),
-             "phase_a_i8_fold": (head("phase_a_i8_fold"),
-                                 "20M_10f_f32_auto")}
+    # summary entry: (wrapper, head case, served configuration, the cases
+    # whose largest error it reports)
+    heads = {
+        "phase_a": ("phase_a", head("phase_a", store="float32"),
+                    "5M_f32_exact", {"store": "float32"}),
+        "phase_a_bf16": ("phase_a", head("phase_a", store="bfloat16"),
+                         "5M_bf16_exact", {"store": "bfloat16"}),
+        "phase_a_i8": ("phase_a_i8", head("phase_a_i8", features=50),
+                       "5M_50f_f32_auto", {}),
+        "phase_a_fold": ("phase_a_fold", head("phase_a_fold",
+                                              store="float32"),
+                         "20M_10f_f32_noint8", {}),
+        "phase_a_i8_fold": ("phase_a_i8_fold", head("phase_a_i8_fold"),
+                            "20M_10f_f32_auto", {})}
     log({"phase": "total", "seconds": time.perf_counter() - t_start})
     log({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][1],
-        "replaces": KERNELS[name][0],
-        "launches": serves[config]["launches"][name],
+        "name": name, "route": "cuda", "source": KERNELS[wrapper][1],
+        "replaces": KERNELS[wrapper][0],
+        "launches": serves[config]["launches"][wrapper],
         "max_abs_err": max(c["max_abs_err"] for c in cases
-                           if c["kernel"] == name),
+                           if c["kernel"] == wrapper
+                           and all(c[k] == v for k, v in of.items())),
         "ms": h["ms"], "plain_ms": h["plain_ms"],
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": h["library_ms"], "served_config": config,
+        **({"body": h["body"]} if "body" in h else {}),
         "shape": {"rows": h["rows"], "width": h["width"],
                   "features": h["features"], "B": h["B"],
                   "store": h["store"]}}
-        for name, (h, config) in heads.items()]})
+        for name, (wrapper, h, config, of) in heads.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
                                 "count": torch.cuda.device_count()}})
     return 0

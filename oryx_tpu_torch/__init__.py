@@ -8,8 +8,9 @@ JAX-free module of the reference it keeps as its own copy.
 
 Every entry point that places data takes ``device=None``, which means
 ``cuda``; without a CUDA device such a call raises unless the caller
-passes ``device="cpu"``.  The phase-A scoring kernel is hand-written
-CUDA (``csrc/phase_a.cu``), built at first use into ``build/kernels/``.
+passes ``device="cpu"``.  The phase-A scoring kernels are hand-written
+CUDA (``csrc/phase_a.cu``, ``csrc/phase_a_fold.cu``,
+``csrc/phase_a_i8.cu``), built at first use into ``build/kernels/``.
 """
 
 __version__ = "0.1.0"

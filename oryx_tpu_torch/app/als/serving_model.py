@@ -42,6 +42,7 @@ import torch
 
 from ...api.serving import ServingModel
 from ...common.lang import AutoReadWriteLock
+from ...ops.phase_a import MAX_WIDTH as PHASE_A_MAX_WIDTH
 from ...ops.phase_a import phase_a
 from ...ops.phase_a_fold import phase_a_fold
 from ...ops.phase_a_i8 import I8_PENALTY as _I8_PENALTY
@@ -950,7 +951,10 @@ class ALSServingModel(FactorModelBase, ServingModel):
                 kinds.append("fold")
             if want_i8 and "i8" not in kinds:
                 kinds.append("i8")
-            kinds.append("pallas")
+            # the store kernel keeps a query tile of the whole width in
+            # shared memory; a wider store is served by the scan
+            if width <= PHASE_A_MAX_WIDTH:
+                kinds.append("pallas")
         kinds.append("scan")
         return kinds, fold
 

@@ -1,5 +1,6 @@
 """Phase A of the two-phase streaming top-k: per-128-row-block maxima of
-Q·Yᵀ, by a hand-written CUDA kernel (``csrc/phase_a.cu``).
+Q·Yᵀ, by hand-written CUDA kernels (``csrc/phase_a.cu``): a bf16 store
+on the tensor cores (``wgmma`` fed by TMA), a float32 store in FFMA.
 
 Counterpart of the Pallas kernel inside
 ``oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas``,
@@ -7,7 +8,9 @@ both bodies: exact, and LSH (rows outside the query's Hamming ball set
 to -inf first).  ``phase_a`` launches the kernel for CUDA tensors and
 raises if it cannot; for CPU tensors, and only for them, it computes the
 same function with ``phase_a_reference``, the plain PyTorch version.
-``LAUNCHES`` counts the kernel's launches.
+``LAUNCHES`` counts the kernel's launches (one per call, whatever number
+of grids the entry point runs for it); ``plan`` says which design a call
+of a given size runs.
 
 The output is (B, N // 128) float32 — the layout phase B reads.
 """
@@ -23,8 +26,9 @@ import torch
 from ..app.als.lsh import _popcount
 from . import cuda_build
 
-__all__ = ["phase_a", "phase_a_reference", "build", "LAUNCHES",
-           "BLOCK_ROWS", "SOURCE", "MIN_PLAIN_ROWS", "pad_rows"]
+__all__ = ["phase_a", "phase_a_reference", "build", "plan", "LAUNCHES",
+           "BLOCK_ROWS", "SOURCE", "MIN_PLAIN_ROWS", "MAX_WIDTH",
+           "pad_rows"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a.cu"
 # rows per block maximum; the kernel's BS
@@ -32,6 +36,11 @@ BLOCK_ROWS = 128
 # the kernel stages this many feature columns at a time: the store pads
 # its columns to a multiple of it
 _WIDTH_ALIGN = 32
+# widest row the kernels take: they keep a whole query tile (up to 128
+# float32 or 256 bf16 queries of this width) in shared memory
+MAX_WIDTH = 256
+# oryx_phase_a_plan's body codes
+_BODIES = ("wgmma", "ffma", "ffma")
 # rows per matmul in the plain version: bounds its (B, rows) score tile
 _REF_CHUNK_ROWS = 1 << 17
 # the plain version multiplies at least this many query rows (zero rows
@@ -59,8 +68,31 @@ def build() -> ctypes.CDLL:
                                          + [ctypes.c_int] * 7
                                          + [ctypes.c_void_p])
             lib.oryx_phase_a.restype = ctypes.c_int
+            lib.oryx_phase_a_plan.argtypes = ([ctypes.c_int] * 3
+                                              + [ctypes.c_void_p] * 3)
+            lib.oryx_phase_a_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def plan(features: int, n_queries: int, bf16: bool) -> dict:
+    """What a kernel call of this size runs: ``body`` ("wgmma" or
+    "ffma"), ``variant`` (the kernel's name in the compiler's output),
+    ``tile`` (the wgmma N of the first query tile, or the queries per
+    FFMA tile), ring ``stages`` and ``smem_bytes`` of one thread block.
+    Builds the library if it is not current."""
+    tile, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = build().oryx_phase_a_plan(
+        int(features), int(n_queries), int(bool(bf16)), ctypes.byref(tile),
+        ctypes.byref(stages), ctypes.byref(smem))
+    if code < 0:
+        raise ValueError(f"phase_a: no kernel for {features} columns and "
+                         f"{n_queries} queries")
+    kc = 64 if features % 64 == 0 else 32
+    variant = (f"phase_a_tc<{tile.value}, {kc}>", "phase_a_narrow",
+               f"phase_a_wide<{tile.value}, {kc}>")[code]
+    return {"body": _BODIES[code], "variant": variant, "tile": tile.value,
+            "stages": stages.value, "smem_bytes": smem.value}
 
 
 def pad_rows(q: torch.Tensor, rows: int = MIN_PLAIN_ROWS) -> torch.Tensor:
@@ -109,8 +141,8 @@ def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
     (B, F) query in the same dtype; ``penalty`` the (N // bs, bs) float32
     0/-inf live-row mask; ``buckets`` (N,) and ``target`` (B,) int32.
     A CPU ``Y`` takes the plain version.  A CUDA ``Y`` launches the
-    kernel, which needs ``bs == 128``, N % 128 == 0 and F % 32 == 0;
-    anything it does not take raises."""
+    kernel, which needs ``bs == 128``, N % 128 == 0, F % 32 == 0 and
+    F <= ``MAX_WIDTH``; anything it does not take raises."""
     if Y.device.type == "cpu":
         return phase_a_reference(Qc, Y, penalty, buckets, target, max_bits,
                                  bs)
@@ -121,11 +153,12 @@ def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
                          f"tensor, got {Y.dtype} {tuple(Y.shape)}")
     n, f = Y.shape
     b = Qc.shape[0] if Qc.dim() == 2 else 0
-    if bs != BLOCK_ROWS or n % BLOCK_ROWS or f % _WIDTH_ALIGN or b == 0:
+    if bs != BLOCK_ROWS or n % BLOCK_ROWS or f % _WIDTH_ALIGN \
+            or f > MAX_WIDTH or b == 0:
         raise ValueError(
             f"phase_a kernel needs bs == {BLOCK_ROWS}, N % {BLOCK_ROWS} == 0,"
-            f" F % {_WIDTH_ALIGN} == 0 and B > 0; got bs={bs}, Y {n}x{f}, "
-            f"B={b}")
+            f" F % {_WIDTH_ALIGN} == 0, F <= {MAX_WIDTH} and B > 0; got "
+            f"bs={bs}, Y {n}x{f}, B={b}")
     dev = Y.device
     _check(Y, "Y", Y.dtype, dev, (n, f))
     _check(Qc, "Qc", Y.dtype, dev, (b, f))
@@ -135,9 +168,10 @@ def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
     if buckets is not None:
         _check(buckets, "buckets", torch.int32, dev, (n,))
         _check(target, "target", torch.int32, dev, (b,))
-    if Y.data_ptr() % 16 or Qc.data_ptr() % 16:
-        raise ValueError("phase_a: Y and Qc must be 16-byte aligned for "
-                         "the kernel's vector loads")
+    if any(t.data_ptr() % 16 for t in (Y, Qc, penalty, buckets)
+           if t is not None):
+        raise ValueError("phase_a: Y, Qc, penalty and buckets must be "
+                         "16-byte aligned for the kernel's vector loads")
     out = torch.empty((b, n // bs), dtype=torch.float32, device=dev)
     lib = build()
     with torch.cuda.device(dev):

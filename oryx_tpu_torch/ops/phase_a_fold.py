@@ -1,6 +1,6 @@
 """Phase A over the folded mirror of a narrow store: per-128-row-block
-maxima of Q·Yᵀ, by the hand-written CUDA kernel of ``csrc/phase_a.cu``
-in its folded variant.
+maxima of Q·Yᵀ, by the hand-written CUDA kernel of
+``csrc/phase_a_fold.cu``.
 
 Counterpart of the Pallas kernel inside
 ``oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas_fold``,
@@ -19,7 +19,9 @@ raises if it cannot, and takes the plain version for CPU tensors only.
 
 from __future__ import annotations
 
+import ctypes
 import threading
+from pathlib import Path
 
 import torch
 
@@ -28,9 +30,10 @@ from . import cuda_build
 from . import phase_a as _pa
 
 __all__ = ["phase_a_fold", "phase_a_fold_reference", "slot_queries",
-           "check_fold_operands", "LAUNCHES", "BLOCK_ROWS", "SOURCE"]
+           "check_fold_operands", "build", "LAUNCHES", "BLOCK_ROWS",
+           "SOURCE"]
 
-SOURCE = _pa.SOURCE
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_fold.cu"
 BLOCK_ROWS = _pa.BLOCK_ROWS
 # physical rows per matmul in the plain versions
 _REF_CHUNK_ROWS = 1 << 16
@@ -38,6 +41,23 @@ _REF_CHUNK_ROWS = 1 << 16
 # kernel launches since the process started (or a caller reset it)
 LAUNCHES = 0
 _count_lock = threading.Lock()
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> ctypes.CDLL:
+    """Build the kernel from its source if its library is not current,
+    and load it."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = cuda_build.load(SOURCE)
+            lib.oryx_phase_a_fold.argtypes = ([ctypes.c_void_p] * 6
+                                              + [ctypes.c_int] * 7
+                                              + [ctypes.c_void_p])
+            lib.oryx_phase_a_fold.restype = ctypes.c_int
+            _lib = lib
+        return _lib
 
 
 def slot_queries(q: torch.Tensor, fold: int) -> torch.Tensor:
@@ -145,9 +165,9 @@ def phase_a_fold(Qc: torch.Tensor, Yf: torch.Tensor, pen_f: torch.Tensor,
                              (b, width))
     n = nf * fold
     out = torch.empty((b, n // bs), dtype=torch.float32, device=Yf.device)
-    lib = _pa.build()
+    lib = build()
     with torch.cuda.device(Yf.device):
-        rc = lib.oryx_phase_a(
+        rc = lib.oryx_phase_a_fold(
             Yf.data_ptr(), Qc.data_ptr(), pen_f.data_ptr(),
             bkt_f.data_ptr() if bkt_f is not None else None,
             target.data_ptr() if target is not None else None,

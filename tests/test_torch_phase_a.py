@@ -147,3 +147,16 @@ def test_wrapper_plain_version_only_on_cpu():
         pa.phase_a(torch.zeros((8, 32), device="meta"),
                    torch.zeros((256, 32), device="meta"),
                    torch.zeros((2, 128), device="meta"))
+
+
+def test_store_wider_than_the_kernel_serves_on_the_scan():
+    """The kernel keeps a whole-width query tile in shared memory, up to
+    ``MAX_WIDTH`` columns; a wider store is served by the scan kind."""
+    def kinds(features):
+        tm = tsm.ALSServingModel(features, implicit=True, device="cpu",
+                                 int8_selection="false", fold_scan="false")
+        return tm._phase_a_kinds(8192, tm.Y.device_features, BS)
+
+    assert device_width(250) <= pa.MAX_WIDTH < device_width(300)
+    assert kinds(250) == (["pallas", "scan"], 1)
+    assert kinds(300) == (["scan"], 1)

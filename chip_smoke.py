@@ -20,22 +20,28 @@ without a card, outside a checkout, or when any phase fails.  Phases:
      of 8, 32 and 256 queries, exact, and with LSH on a 1M-item store:
      block maxima within rtol 1e-5 (float32) or 1e-4 (bfloat16) plus the
      same figure as an absolute tolerance, for maxima near 0;
-   - ``phase_a_i8`` (the int8 mirror) at 5,111,808 x 256 (250 features)
-     and x 64 (50 features), exact and LSH: int32 maxima bit-identical;
-   - ``phase_a_i8_fold`` (the folded int8 mirror) at 20,054,016 x 32 (10
-     features, fold 2), exact and LSH: bit-identical to its plain version
-     and to ``phase_a_i8`` on the unfolded mirror;
+   - ``phase_a_i8`` (the int8 mirror, on the tensor cores) at 5,111,808
+     x 256 (250 features) and x 64 (50 features), exact and LSH: int32
+     maxima bit-identical;
+   - ``phase_a_i8_fold`` (the folded int8 mirror, ``__dp4a``) at
+     20,054,016 x 32 (10 features, fold 2), exact and LSH: bit-identical
+     to its plain version and to ``phase_a_i8`` on the unfolded mirror,
+     which holds the two int8 kernels against each other;
    - ``phase_a_fold`` (the folded store, float32 and bfloat16) at the
-     same 10-feature shape, within the tolerances of ``phase_a``;
+     same 10-feature shape, multiplying the 10 feature columns, within
+     the tolerances of ``phase_a``;
    - coverage cases, labelled so, not served configurations: ``phase_a``
      at widths 32, 64 and 96 (1,048,576 rows, both dtypes, exact and LSH,
      8 and 256 queries) and at 300 queries (width 256, two query tiles);
-     both folded kernels at fold 4 (8 features, 1,048,576 rows, 8
-     queries), which runs their 8-column path.
-   Each ``phase_a`` case also prints the design it ran (``body``:
-   "wgmma" for bf16, "ffma" for float32), its registers and spills from
-   the compiler's output, its shared memory and ring depth, and every
-   case its share of the bound (``bound_share``).
+     ``phase_a_i8`` at int8 widths 32 and 96 (1,048,576 rows, exact and
+     LSH, 8 and 256 queries) and at 300 queries (width 256); both folded
+     kernels at fold 4 (8 features, 1,048,576 rows, 8 queries), which
+     runs their 8-column path.
+   Each ``phase_a``, ``phase_a_i8`` and ``phase_a_fold`` case also prints
+   the design it ran (``body``: "wgmma" on the tensor cores, "ffma" on
+   the CUDA cores), its registers and spills from the compiler's output,
+   its shared memory and ring depth, and every case its share of the
+   bound (``bound_share``).
    Float kernels must give the plain version's -inf pattern and no NaN.
    The int8 quantizer on the card must equal the CPU's bit for bit on
    the first 1,048,576 rows of each quantized store.
@@ -89,6 +95,8 @@ COVERAGE_FEATURES = 8
 # phase_a coverage: the widths 32- and 64-feature models serve on, and
 # one that is not a multiple of 64; a window above 256 queries
 COVERAGE_WIDTHS = (32, 64, 96)
+# phase_a_i8 coverage: int8 widths that take 32-byte chunks
+I8_COVERAGE_WIDTHS = (32, 96)
 COVERAGE_WINDOWS = (8, 256)
 WIDE_WINDOW = 300
 QUANT_CHECK_ROWS = 1 << 20
@@ -111,7 +119,7 @@ KERNELS = {
     "phase_a_fold": (f"{REFERENCE}:433",
                      "oryx_tpu_torch/csrc/phase_a_fold.cu", "fold"),
     "phase_a_i8_fold": (f"{REFERENCE}:702",
-                        "oryx_tpu_torch/csrc/phase_a_i8.cu", "i8_fold"),
+                        "oryx_tpu_torch/csrc/phase_a_i8_fold.cu", "i8_fold"),
     "phase_a_i8": (f"{REFERENCE}:804", "oryx_tpu_torch/csrc/phase_a_i8.cu",
                    "i8"),
 }
@@ -165,8 +173,13 @@ def plain_phase_a():
     version: the model's own path, with no kernel in it."""
     from oryx_tpu_torch.app.als import serving_model as sm
     mods = wrappers()
+
+    def fold_plain(*args, features=None, **kwargs):
+        # the plain version multiplies every column of a slot
+        return mods["phase_a_fold"].phase_a_fold_reference(*args, **kwargs)
+
     swaps = {"phase_a": mods["phase_a"].phase_a_reference,
-             "phase_a_fold": mods["phase_a_fold"].phase_a_fold_reference,
+             "phase_a_fold": fold_plain,
              "phase_a_i8": mods["phase_a_i8"].phase_a_i8_reference,
              "phase_a_i8_fold":
                  mods["phase_a_i8_fold"].phase_a_i8_fold_reference}
@@ -323,16 +336,22 @@ def lsh_ok(torch, buckets, target, max_bits):
                                        target[None, :])) <= max_bits
 
 
-def ptxas_usage(variant: str) -> dict:
+def ptxas_usage(source: str, variant: str) -> dict:
     """Registers and spilled bytes of one kernel instantiation, read from
-    the compiler's output of ``phase_a.cu`` (``-Xptxas -v``)."""
+    the compiler's output of ``source`` (``-Xptxas -v``)."""
     from oryx_tpu_torch.ops import cuda_build
     name, _, args = variant.partition("<")
-    # Itanium mangling: phase_a_tc<256, 64> -> phase_a_tcILi256ELi64EE
-    mangled = name + ("I" + "".join(f"Li{a.strip()}E" for a in
+
+    def arg(a: str) -> str:
+        a = a.strip()
+        return {"false": "Lb0E", "true": "Lb1E"}.get(a, f"Li{a}E")
+
+    # Itanium mangling: phase_a_tc<256, 64> -> phase_a_tcILi256ELi64EE,
+    # fold_wide<false, 16, ...> -> fold_wideILb0ELi16E...E
+    mangled = name + ("I" + "".join(arg(a) for a in
                                     args.rstrip(">").split(",")) + "E"
                       if args else "")
-    lines = cuda_build.LOGS.get("phase_a.cu", "").splitlines()
+    lines = cuda_build.LOGS.get(source, "").splitlines()
     for k, line in enumerate(lines):
         if "Compiling entry function" in line and mangled + "E" in line:
             text = " ".join(lines[k + 1:k + 4])
@@ -392,7 +411,8 @@ def phase_a_cases(vecs, live, buckets, hp, mb: int, features: int,
                 library, nbytes, 2.0 * n * features * b,
                 bf16_rate if name == "bfloat16" else fp32_rate, bw,
                 exact=False, rtol=RTOL[name],
-                extra={**design, **ptxas_usage(design["variant"])}))
+                extra={**design,
+                       **ptxas_usage("phase_a.cu", design["variant"])}))
         del Y
     free()
     return out
@@ -437,6 +457,25 @@ def coverage_cases(rng, gpu_name) -> list[dict]:
     return out
 
 
+def i8_coverage_cases(rng, gpu_name) -> list[dict]:
+    """``phase_a_i8`` at int8 widths 32 and 96 (32-byte chunks), on
+    COVERAGE_ROWS rows, exact and LSH, at COVERAGE_WINDOWS; and one window
+    of WIDE_WINDOW queries at width 256, which takes two query tiles.
+    Labelled coverage: no served configuration runs these shapes here."""
+    import torch
+    out = []
+    active = torch.ones(COVERAGE_ROWS, dtype=torch.bool, device=DEVICE)
+    for width, windows in [(w, COVERAGE_WINDOWS) for w in I8_COVERAGE_WIDTHS] \
+            + [(256, (WIDE_WINDOW,))]:
+        vecs = torch.from_numpy(rng.standard_normal(
+            (COVERAGE_ROWS, width), dtype=np.float32)).to(DEVICE)
+        out += i8_cases(vecs, active, rng, gpu_name, width, windows,
+                        "coverage")
+        del vecs
+        free()
+    return out
+
+
 def check_quantizer(vecs, label: str) -> None:
     """The quantizer on the card equals the CPU's bit for bit on the
     first QUANT_CHECK_ROWS rows."""
@@ -460,10 +499,14 @@ def int_mm_block_max(torch, y8_rows, q8_cols, pen_rows, buckets, target,
     int32 in row order."""
     from oryx_tpu_torch.ops.phase_a_i8 import I8_PENALTY
     n = y8_rows.shape[0]
+    b = q8_cols.shape[1]
+    # _int_mm takes a multiple of 8 columns: zero queries past the window,
+    # the columns kept column-major
+    q8_cols = torch.nn.functional.pad(q8_cols.T, (0, 0, 0, -b % 8)).T
     outs = []
     for s0 in range(0, n, LIBRARY_CHUNK_ROWS):
         s1 = min(n, s0 + LIBRARY_CHUNK_ROWS)
-        s = torch._int_mm(y8_rows[s0:s1], q8_cols)
+        s = torch._int_mm(y8_rows[s0:s1], q8_cols)[:, :b]
         s += pen_rows[s0:s1, None]
         if buckets is not None:
             s.masked_fill_(~lsh_ok(torch, buckets[s0:s1], target, max_bits),
@@ -490,9 +533,11 @@ def matmul_block_max(torch, y_rows, q_cols, pen_rows, buckets, target,
     return torch.cat(outs).T
 
 
-def i8_cases(vecs, active, rng, gpu_name, features: int,
-             windows) -> list[dict]:
-    """``phase_a_i8`` on the int8 mirror of ``vecs``, exact and LSH."""
+def i8_cases(vecs, active, rng, gpu_name, features: int, windows,
+             label: str | None = None) -> list[dict]:
+    """``phase_a_i8`` on the int8 mirror of ``vecs``, exact and LSH.  Each
+    case also says which design ran, its registers and spills, its shared
+    memory and ring depth."""
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
     from oryx_tpu_torch.ops import phase_a_i8 as pi8
@@ -514,17 +559,22 @@ def i8_cases(vecs, active, rng, gpu_name, features: int,
             nbytes = (y8.numel() + q8.numel() + pen_i.numel() * 4
                       + b * (n // 128) * 4
                       + (buckets.numel() * 4 + b * 4 if lsh else 0))
+            fields = {"store": "int8", "lsh": lsh, "rows": n,
+                      "features": features, "width": width, "B": b,
+                      "retired_rows": int((~live).sum())}
+            if label:
+                fields["label"] = label
+            design = pi8.plan(width, b)
             out.append(run_case(
-                torch, "phase_a_i8",
-                {"store": "int8", "lsh": lsh, "rows": n,
-                 "features": features, "width": width, "B": b,
-                 "retired_rows": int((~live).sum())},
+                torch, "phase_a_i8", fields,
                 lambda: pi8.phase_a_i8(q8, y8, pen_i, buckets, tgt, mb),
                 lambda: pi8.phase_a_i8_reference(q8, y8, pen_i, buckets, tgt,
                                                  mb),
                 lambda: int_mm_block_max(torch, y8, q8_cols, pen_i.view(-1),
                                          buckets, tgt, mb),
-                nbytes, 2.0 * n * features * b, i8_rate, bw, exact=True))
+                nbytes, 2.0 * n * features * b, i8_rate, bw, exact=True,
+                extra={**design,
+                       **ptxas_usage("phase_a_i8.cu", design["variant"])}))
     del y8
     free()
     return out
@@ -593,17 +643,20 @@ def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
                           + Qc.numel() * Qc.element_size()
                           + pen_f.numel() * 4 + b * (n // 128) * 4
                           + (bkt_f.numel() * 4 + b * 4 if lsh else 0))
+                design = pf.plan(w, b, dtype == torch.bfloat16, features)
                 out.append(run_case(
                     torch, "phase_a_fold", {"store": name, **base, "B": b},
                     lambda: pf.phase_a_fold(Qc, yf, pen_f, bkt_f, tgt, mb,
-                                            fold),
+                                            fold, features=features),
                     lambda: pf.phase_a_fold_reference(Qc, yf, pen_f, bkt_f,
                                                       tgt, mb, fold),
                     lambda: matmul_block_max(torch, yf.view(n, w), q_cols,
                                              pen.view(-1), buckets, tgt, mb),
                     nbytes, 2.0 * n * features * b,
                     bf16_rate if name == "bfloat16" else fp32_rate, bw,
-                    exact=False, rtol=RTOL[name]))
+                    exact=False, rtol=RTOL[name],
+                    extra={**design, **ptxas_usage("phase_a_fold.cu",
+                                                   design["variant"])}))
             del Y, yf, pen_f
     del y8
     free()
@@ -822,7 +875,7 @@ def phase_a_program(model, kind: str, Q):
         yf, pen_f, bkt_f = model._cached_fold(vecs, active, buckets, version,
                                               fold, bs)
         run_a = lambda: mods["phase_a_fold"].phase_a_fold(  # noqa: E731
-            Qc, yf, pen_f, bkt_f, tgt, mb, fold)
+            Qc, yf, pen_f, bkt_f, tgt, mb, fold, features=model.features)
         M = run_a()
     else:
         pen = model._cached_penalty(active, version)
@@ -989,6 +1042,7 @@ def main() -> int:
     # coverage, not a configuration: phase_a at narrow widths and a
     # window above 256 queries; fold 4 runs the folded 8-column path
     cases += coverage_cases(rng, gpu_name)
+    cases += i8_coverage_cases(rng, gpu_name)
     vecs = torch.zeros((COVERAGE_ROWS, 32), device=DEVICE)
     vecs[:, :COVERAGE_FEATURES] = torch.from_numpy(rng.standard_normal(
         (COVERAGE_ROWS, COVERAGE_FEATURES), dtype=np.float32)).to(DEVICE)

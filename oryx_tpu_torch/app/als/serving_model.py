@@ -445,17 +445,20 @@ def _batch_top_n_twophase_cuda_i8(Y, Y8, sy_b, l1y_b, Q, penalty_i,
 
 def _batch_top_n_twophase_cuda_fold(Y, Yf, Q, pen_f, active, bkt_f,
                                     buckets, hyperplanes, k: int, bs: int,
-                                    ksel: int, max_bits: int, fold: int):
+                                    ksel: int, max_bits: int, fold: int,
+                                    features: int | None = None):
     """Two-phase streaming top-k whose phase A scans the folded mirror
-    (``ops/phase_a_fold.py``).  Phase B and the certificate run on the
-    store as always (the folded products are summed in another order,
-    within the certificate's relative margin).  Counterpart of the
-    reference's ``_batch_top_n_twophase_pallas_fold``."""
+    (``ops/phase_a_fold.py``), multiplying the first ``features`` columns
+    of each logical row (all of them when None).  Phase B and the
+    certificate run on the store as always (the folded products are
+    summed in another order, within the certificate's relative margin).
+    Counterpart of the reference's ``_batch_top_n_twophase_pallas_fold``."""
     Qc = _q_cast(Q, Y).contiguous()
     target = None
     if buckets is not None:
         target = _query_buckets(Q, hyperplanes)
-    M = phase_a_fold(Qc, Yf, pen_f, bkt_f, target, max_bits, fold, bs)
+    M = phase_a_fold(Qc, Yf, pen_f, bkt_f, target, max_bits, fold, bs,
+                     features=features)
     return _phase_b(Y, Qc, active, buckets, target, M, k, bs, ksel,
                     max_bits)
 
@@ -908,7 +911,7 @@ class ALSServingModel(FactorModelBase, ServingModel):
             yf, pen_f, bkt_f = ctx["fold"]
             return _batch_top_n_twophase_cuda_fold(
                 vecs, yf, qw, pen_f, active, bkt_f, buckets, hp, k, bs,
-                ksel, mb, fold)
+                ksel, mb, fold, self.features)
         if kind == "i8":
             if "i8" not in ctx:
                 ctx["i8"] = (self._cached_i8(vecs, version),

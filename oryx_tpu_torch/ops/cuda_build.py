@@ -3,7 +3,8 @@ interface, for ``ctypes``.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` (Hopper) into
 ``build/kernels/`` at the repository root, under a name keyed by a
-hash of the source and the flags, so an edited source is rebuilt and an
+hash of the source, the headers beside it (``*.cuh``, which the sources
+share) and the flags, so an edited source or header is rebuilt and an
 unchanged one is reused.  Sources are built from the checkout at first
 use; nothing prebuilt is shipped.
 """
@@ -43,8 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    """Where the library of ``source`` is built: named by a hash of the
+    source, every header of its directory and the flags."""
+    text = source.read_bytes()
+    for header in sorted(source.parent.glob("*.cuh")):
+        text += header.name.encode() + header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 

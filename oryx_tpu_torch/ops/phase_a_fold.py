@@ -12,9 +12,13 @@ both bodies.  The folded mirror ``Yf`` (N / fold, W) holds logical row
 per slot against a slot-shifted copy of the query, a block max per slot,
 the max over slots.  The kernel reads the same memory as N logical rows
 of w columns (``Yf.view(N, w)``) and the side inputs at their slot-major
-offsets.  ``phase_a_fold`` launches the kernel for CUDA tensors and
-raises if it cannot, and takes the plain version for CPU tensors only.
-``LAUNCHES`` counts the kernel's launches.
+offsets, and multiplies only the first ``features`` columns of each
+(the rest are zeros in the store and the query; the plain version
+multiplies all of them).  ``phase_a_fold`` launches the kernel for CUDA
+tensors and raises if it cannot, and takes the plain version for CPU
+tensors only.  ``LAUNCHES`` counts the kernel's launches (one per call,
+whatever number of grids the entry point runs for it); ``plan`` says
+which design a call of a given size runs.
 """
 
 from __future__ import annotations
@@ -30,11 +34,17 @@ from . import cuda_build
 from . import phase_a as _pa
 
 __all__ = ["phase_a_fold", "phase_a_fold_reference", "slot_queries",
-           "check_fold_operands", "build", "LAUNCHES", "BLOCK_ROWS",
-           "SOURCE"]
+           "check_fold_operands", "check_features", "build", "plan",
+           "LAUNCHES", "BLOCK_ROWS", "SOURCE", "WIDTHS"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_fold.cu"
 BLOCK_ROWS = _pa.BLOCK_ROWS
+# logical row widths w = W / fold the kernel takes: the store pads its
+# rows to a multiple of 32 columns and folds only where the features fit
+# half or a quarter of them, so its folded mirrors have 8 or 16 columns
+WIDTHS = (8, 16)
+# oryx_phase_a_fold_plan's body codes
+_BODIES = {1: ("ffma", "fold_narrow"), 2: ("ffma", "fold_wide")}
 # physical rows per matmul in the plain versions
 _REF_CHUNK_ROWS = 1 << 16
 
@@ -53,11 +63,52 @@ def build() -> ctypes.CDLL:
         if _lib is None:
             lib = cuda_build.load(SOURCE)
             lib.oryx_phase_a_fold.argtypes = ([ctypes.c_void_p] * 6
-                                              + [ctypes.c_int] * 7
+                                              + [ctypes.c_int] * 8
                                               + [ctypes.c_void_p])
             lib.oryx_phase_a_fold.restype = ctypes.c_int
+            lib.oryx_phase_a_fold_plan.argtypes = ([ctypes.c_int] * 3
+                                                   + [ctypes.c_void_p] * 3)
+            lib.oryx_phase_a_fold_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def plan(width: int, n_queries: int, bf16: bool,
+         features: int | None = None) -> dict:
+    """What a kernel call of this size runs (``width`` = w, the logical
+    row width; ``features`` as ``phase_a_fold`` takes it): ``body``
+    ("ffma"), ``variant`` (the kernel's name in the compiler's output),
+    ``tile`` (queries per register tile), ring ``stages`` and
+    ``smem_bytes`` of one thread block.  Builds the library if it is not
+    current."""
+    tile, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = build().oryx_phase_a_fold_plan(
+        int(width), int(n_queries), int(bool(bf16)), ctypes.byref(tile),
+        ctypes.byref(stages), ctypes.byref(smem))
+    if code < 0:
+        raise ValueError(f"phase_a_fold: no kernel for width {width} and "
+                         f"{n_queries} queries")
+    body, name = _BODIES[code]
+    args = f"{'true' if bf16 else 'false'}, {width}"
+    if code == 2:
+        # the wide kernel's column groups: 3 or 4 of a 16-column row, all
+        # of an 8-column one
+        f = check_features("phase_a_fold", features, width)
+        kg = max(3, -(-f // 4)) if width == 16 else width // 4
+        args += f", {tile.value}, {kg}"
+    return {"body": body, "variant": f"{name}<{args}>", "tile": tile.value,
+            "stages": stages.value, "smem_bytes": smem.value}
+
+
+def check_features(kernel: str, features: int | None, w: int) -> int:
+    """The number of leading columns the kernel multiplies: ``features``,
+    or all ``w`` when it is None; raises unless 0 < features <= w."""
+    if features is None:
+        return w
+    if not 0 < features <= w:
+        raise ValueError(f"{kernel}: features must be in 1..{w} (the "
+                         f"logical row width), got {features}")
+    return int(features)
 
 
 def slot_queries(q: torch.Tensor, fold: int) -> torch.Tensor:
@@ -143,14 +194,21 @@ def check_fold_operands(kernel: str, q, Yf, pen_f, bkt_f, target,
 def phase_a_fold(Qc: torch.Tensor, Yf: torch.Tensor, pen_f: torch.Tensor,
                  bkt_f: torch.Tensor | None = None,
                  target: torch.Tensor | None = None, max_bits: int = 0,
-                 fold: int = 2, bs: int = BLOCK_ROWS) -> torch.Tensor:
+                 fold: int = 2, bs: int = BLOCK_ROWS,
+                 features: int | None = None) -> torch.Tensor:
     """Block maxima (B, N // bs) float32 over the folded mirror.
 
     ``Yf`` is the (N / fold, W) float32 or bfloat16 mirror, ``Qc`` the
     (B, W) query in its dtype, ``pen_f`` the (fold, N // bs, bs // fold)
     float32 0/-inf mask, ``bkt_f`` the buckets in the same layout and
-    ``target`` (B,), int32.  A CPU ``Yf`` takes the plain version; a
-    CUDA ``Yf`` launches the kernel or raises."""
+    ``target`` (B,), int32.  ``features`` (default: all w = W / fold
+    columns) is the number of leading columns of a logical row that may
+    be non-zero; the kernel multiplies no further, which leaves the
+    maxima unchanged when the columns past it are zeros.  It must be in
+    1..w on every device.  A CPU ``Yf`` takes the plain version; a CUDA
+    ``Yf`` launches the kernel or raises."""
+    if Yf.dim() == 2 and fold:
+        check_features("phase_a_fold", features, Yf.shape[1] // fold)
     if Yf.device.type == "cpu":
         return phase_a_fold_reference(Qc, Yf, pen_f, bkt_f, target,
                                       max_bits, fold, bs)
@@ -159,10 +217,14 @@ def phase_a_fold(Qc: torch.Tensor, Yf: torch.Tensor, pen_f: torch.Tensor,
     w = check_fold_operands("phase_a_fold", Qc, Yf, pen_f, bkt_f, target,
                             fold, bs, (torch.float32, torch.bfloat16),
                             torch.float32)
+    if w not in WIDTHS:
+        raise ValueError(f"phase_a_fold kernel needs W / fold in {WIDTHS}, "
+                         f"got {w}")
     nf, width = Yf.shape
     b = Qc.shape[0]
     cuda_build.check_operand("phase_a_fold", Qc, "Qc", Yf.dtype, Yf.device,
                              (b, width))
+    features = check_features("phase_a_fold", features, w)
     n = nf * fold
     out = torch.empty((b, n // bs), dtype=torch.float32, device=Yf.device)
     lib = build()
@@ -172,7 +234,7 @@ def phase_a_fold(Qc: torch.Tensor, Yf: torch.Tensor, pen_f: torch.Tensor,
             bkt_f.data_ptr() if bkt_f is not None else None,
             target.data_ptr() if target is not None else None,
             out.data_ptr(), n, w, width, b, int(max_bits),
-            int(Yf.dtype == torch.bfloat16), fold,
+            int(Yf.dtype == torch.bfloat16), fold, features,
             torch.cuda.current_stream(Yf.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

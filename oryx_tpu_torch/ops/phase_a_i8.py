@@ -1,6 +1,6 @@
 """Phase A on the int8 mirror: per-128-row-block maxima of the integer
-products ``Y8 · q8ᵀ``, by a hand-written CUDA kernel
-(``csrc/phase_a_i8.cu``).
+products ``Y8 · q8ᵀ``, by a hand-written CUDA kernel on the tensor cores
+(``csrc/phase_a_i8.cu``: int8 ``wgmma`` fed by TMA).
 
 Counterpart of the Pallas kernel inside
 ``oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas_i8``,
@@ -9,7 +9,9 @@ Hamming ball replaced by ``I8_PENALTY``).  ``phase_a_i8`` launches the
 kernel for CUDA tensors and raises if it cannot; for CPU tensors, and
 only for them, it computes the same function with
 ``phase_a_i8_reference``, the plain PyTorch version.  ``LAUNCHES``
-counts the kernel's launches.
+counts the kernel's launches (one per call, whatever number of grids
+the entry point runs for it); ``plan`` says which design a call of a
+given size runs.
 
 The output is (B, N // 128) int32.  Integer sums are exact, so the
 kernel's maxima equal the plain version's bit for bit.
@@ -27,7 +29,7 @@ from ..app.als.lsh import _popcount
 from . import cuda_build
 
 __all__ = ["phase_a_i8", "phase_a_i8_reference", "int_scores", "build",
-           "LAUNCHES", "BLOCK_ROWS", "I8_PENALTY", "SOURCE"]
+           "plan", "LAUNCHES", "BLOCK_ROWS", "I8_PENALTY", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_i8.cu"
 # rows per block maximum; the kernel's BS
@@ -35,7 +37,8 @@ BLOCK_ROWS = 128
 # retired-row penalty (the reference's _I8_PENALTY): far below any int8
 # dot product, far from int32 overflow when added to one
 I8_PENALTY = -(1 << 29)
-# the kernel reads its rows in 32-byte stages and keeps |sums| < 2^23
+# the kernel reads its rows in chunks of 32, 64 or 128 bytes (one wgmma
+# K step is 32 bytes) and keeps |sums| < 2^23
 _WIDTH_ALIGN = 32
 _MAX_WIDTH = 256
 # rows per matmul in the plain version: bounds its (B, rows) score tile
@@ -62,8 +65,33 @@ def build() -> ctypes.CDLL:
                                             + [ctypes.c_int] * 6
                                             + [ctypes.c_void_p])
             lib.oryx_phase_a_i8.restype = ctypes.c_int
+            lib.oryx_phase_a_i8_plan.argtypes = ([ctypes.c_int] * 2
+                                                 + [ctypes.c_void_p] * 4)
+            lib.oryx_phase_a_i8_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def plan(width: int, n_queries: int) -> dict:
+    """What a kernel call of this size runs on its first query tile:
+    ``body`` ("wgmma"), ``variant`` (the kernel's name in the compiler's
+    output: ``phase_a_i8_tc`` with the queries as the wgmma N side up to
+    64 queries, ``phase_a_i8_tq`` with them as the M side above), ``tile``
+    (the queries of the tile), ``chunk_bytes`` (bytes of a row per ring
+    stage, and the swizzle), ring ``stages`` and ``smem_bytes`` of one
+    thread block.  Builds the library if it is not current."""
+    tile, chunk, stages, smem = (ctypes.c_int() for _ in range(4))
+    code = build().oryx_phase_a_i8_plan(
+        int(width), int(n_queries), ctypes.byref(tile), ctypes.byref(chunk),
+        ctypes.byref(stages), ctypes.byref(smem))
+    if code < 0:
+        raise ValueError(f"phase_a_i8: no kernel for width {width} and "
+                         f"{n_queries} queries")
+    variant = (f"phase_a_i8_tc<{tile.value}, {chunk.value}>" if code == 0
+               else f"phase_a_i8_tq<{chunk.value}>")
+    return {"body": "wgmma", "variant": variant,
+            "tile": tile.value, "chunk_bytes": chunk.value,
+            "stages": stages.value, "smem_bytes": smem.value}
 
 
 def int_scores(q8: torch.Tensor, y8: torch.Tensor) -> torch.Tensor:
@@ -104,35 +132,6 @@ def phase_a_i8_reference(q8: torch.Tensor, Y8: torch.Tensor,
     return out
 
 
-def launch(kernel: str, q8: torch.Tensor, Y8: torch.Tensor,
-           penalty_i: torch.Tensor, buckets, target, max_bits: int,
-           n_rows: int, width: int, fold: int) -> torch.Tensor:
-    """Launch ``csrc/phase_a_i8.cu`` over ``n_rows`` rows of ``width``
-    bytes of ``Y8`` (a folded mirror's logical rows for ``fold`` > 1)
-    against the first ``width`` bytes of each ``q8`` row, after the
-    checks its C interface leaves to the caller."""
-    dev = Y8.device
-    if (buckets is None) != (target is None):
-        raise ValueError(f"{kernel}: buckets and target come together")
-    if Y8.data_ptr() % 16 or q8.data_ptr() % 16:
-        raise ValueError(f"{kernel}: Y8 and q8 must be 16-byte aligned for "
-                         "the kernel's vector loads")
-    b, q_stride = q8.shape
-    out = torch.empty((b, n_rows // BLOCK_ROWS), dtype=torch.int32,
-                      device=dev)
-    lib = build()
-    with torch.cuda.device(dev):
-        rc = lib.oryx_phase_a_i8(
-            Y8.data_ptr(), q8.data_ptr(), penalty_i.data_ptr(),
-            buckets.data_ptr() if buckets is not None else None,
-            target.data_ptr() if target is not None else None,
-            out.data_ptr(), n_rows, width, q_stride, b, int(max_bits), fold,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    return out
-
-
 def phase_a_i8(q8: torch.Tensor, Y8: torch.Tensor, penalty_i: torch.Tensor,
                buckets: torch.Tensor | None = None,
                target: torch.Tensor | None = None, max_bits: int = 0,
@@ -168,12 +167,26 @@ def phase_a_i8(q8: torch.Tensor, Y8: torch.Tensor, penalty_i: torch.Tensor,
     check("phase_a_i8", q8, "q8", torch.int8, dev, (b, w))
     check("phase_a_i8", penalty_i, "penalty_i", torch.int32, dev,
           (n // bs, bs))
+    if (buckets is None) != (target is None):
+        raise ValueError("phase_a_i8: buckets and target come together")
     if buckets is not None:
         check("phase_a_i8", buckets, "buckets", torch.int32, dev, (n,))
-    if target is not None:
         check("phase_a_i8", target, "target", torch.int32, dev, (b,))
-    out = launch("phase_a_i8", q8, Y8, penalty_i, buckets, target, max_bits,
-                 n, w, 1)
+    if any(t.data_ptr() % 16 for t in (Y8, q8, penalty_i, buckets)
+           if t is not None):
+        raise ValueError("phase_a_i8: Y8, q8, penalty_i and buckets must be "
+                         "16-byte aligned for the kernel's vector loads")
+    out = torch.empty((b, n // bs), dtype=torch.int32, device=dev)
+    lib = build()
+    with torch.cuda.device(dev):
+        rc = lib.oryx_phase_a_i8(
+            Y8.data_ptr(), q8.data_ptr(), penalty_i.data_ptr(),
+            buckets.data_ptr() if buckets is not None else None,
+            target.data_ptr() if target is not None else None,
+            out.data_ptr(), n, w, w, b, int(max_bits), 1,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"phase_a_i8 kernel launch failed: CUDA error {rc}")
     global LAUNCHES
     with _count_lock:
         LAUNCHES += 1

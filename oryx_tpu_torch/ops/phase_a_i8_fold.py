@@ -1,6 +1,6 @@
 """Phase A over the folded int8 mirror: per-128-row-block maxima of the
 integer products, by the hand-written CUDA kernel of
-``csrc/phase_a_i8.cu`` in its folded variant.
+``csrc/phase_a_i8_fold.cu`` (``__dp4a`` on the CUDA cores).
 
 Counterpart of the Pallas kernel inside
 ``oryx_tpu/app/als/serving_model.py::_batch_top_n_twophase_pallas_i8_fold``,
@@ -18,7 +18,9 @@ it cannot, and takes the plain version for CPU tensors only.
 
 from __future__ import annotations
 
+import ctypes
 import threading
+from pathlib import Path
 
 import torch
 
@@ -27,10 +29,10 @@ from . import cuda_build
 from . import phase_a_i8 as _i8
 from .phase_a_fold import check_fold_operands, slot_queries
 
-__all__ = ["phase_a_i8_fold", "phase_a_i8_fold_reference", "LAUNCHES",
-           "BLOCK_ROWS", "SOURCE"]
+__all__ = ["phase_a_i8_fold", "phase_a_i8_fold_reference", "build",
+           "LAUNCHES", "BLOCK_ROWS", "SOURCE"]
 
-SOURCE = _i8.SOURCE
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_i8_fold.cu"
 BLOCK_ROWS = _i8.BLOCK_ROWS
 # physical rows per matmul in the plain version
 _REF_CHUNK_ROWS = 1 << 16
@@ -38,6 +40,23 @@ _REF_CHUNK_ROWS = 1 << 16
 # kernel launches since the process started (or a caller reset it)
 LAUNCHES = 0
 _count_lock = threading.Lock()
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> ctypes.CDLL:
+    """Build the kernel from its source if its library is not current,
+    and load it."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = cuda_build.load(SOURCE)
+            lib.oryx_phase_a_i8_fold.argtypes = ([ctypes.c_void_p] * 6
+                                                 + [ctypes.c_int] * 6
+                                                 + [ctypes.c_void_p])
+            lib.oryx_phase_a_i8_fold.restype = ctypes.c_int
+            _lib = lib
+        return _lib
 
 
 def phase_a_i8_fold_reference(q8: torch.Tensor, Y8f: torch.Tensor,
@@ -95,8 +114,20 @@ def phase_a_i8_fold(q8: torch.Tensor, Y8f: torch.Tensor,
     nf, width = Y8f.shape
     cuda_build.check_operand("phase_a_i8_fold", q8, "q8", torch.int8,
                              Y8f.device, (q8.shape[0], width))
-    out = _i8.launch("phase_a_i8_fold", q8, Y8f, pen_i_f, bkt_f, target,
-                     max_bits, nf * fold, w, fold)
+    b = q8.shape[0]
+    n = nf * fold
+    out = torch.empty((b, n // bs), dtype=torch.int32, device=Y8f.device)
+    lib = build()
+    with torch.cuda.device(Y8f.device):
+        rc = lib.oryx_phase_a_i8_fold(
+            Y8f.data_ptr(), q8.data_ptr(), pen_i_f.data_ptr(),
+            bkt_f.data_ptr() if bkt_f is not None else None,
+            target.data_ptr() if target is not None else None,
+            out.data_ptr(), n, w, width, b, int(max_bits), fold,
+            torch.cuda.current_stream(Y8f.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"phase_a_i8_fold kernel launch failed: CUDA error {rc}")
     global LAUNCHES
     with _count_lock:
         LAUNCHES += 1

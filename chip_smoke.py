@@ -23,10 +23,11 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    - ``phase_a_i8`` (the int8 mirror, on the tensor cores) at 5,111,808
      x 256 (250 features) and x 64 (50 features), exact and LSH: int32
      maxima bit-identical;
-   - ``phase_a_i8_fold`` (the folded int8 mirror, ``__dp4a``) at
-     20,054,016 x 32 (10 features, fold 2), exact and LSH: bit-identical
-     to its plain version and to ``phase_a_i8`` on the unfolded mirror,
-     which holds the two int8 kernels against each other;
+   - ``phase_a_i8_fold`` (the folded int8 mirror, on the tensor cores)
+     at 20,054,016 x 32 (10 features, fold 2), windows of 8, 32 and 256
+     queries, exact and LSH: bit-identical to its plain version and to
+     ``phase_a_i8`` on the unfolded mirror, which holds the two int8
+     kernels against each other;
    - ``phase_a_fold`` (the folded store, float32 and bfloat16) at the
      same 10-feature shape, multiplying the 10 feature columns, within
      the tolerances of ``phase_a``;
@@ -36,12 +37,15 @@ without a card, outside a checkout, or when any phase fails.  Phases:
      ``phase_a_i8`` at int8 widths 32 and 96 (1,048,576 rows, exact and
      LSH, 8 and 256 queries) and at 300 queries (width 256); both folded
      kernels at fold 4 (8 features, 1,048,576 rows, 8 queries), which
-     runs their 8-column path.
-   Each ``phase_a``, ``phase_a_i8`` and ``phase_a_fold`` case also prints
-   the design it ran (``body``: "wgmma" on the tensor cores, "ffma" on
-   the CUDA cores), its registers and spills from the compiler's output,
-   its shared memory and ring depth, and every case its share of the
-   bound (``bound_share``).
+     runs their 8-column path, ``phase_a_i8_fold`` there at 256 queries
+     too, and ``phase_a_i8_fold`` at fold 2 (10 features, 1,048,576
+     rows) at 300 queries (two query tiles with the queries as the M
+     side, of four m-tiles and of one) and at 272 (one tile of each
+     orientation).
+   Each case also prints the design it ran (``body``: "wgmma" on the
+   tensor cores, "ffma" on the CUDA cores), its registers and spills from
+   the compiler's output, its shared memory and ring depth, and its share
+   of the bound (``bound_share``).
    Float kernels must give the plain version's -inf pattern and no NaN.
    The int8 quantizer on the card must equal the CPU's bit for bit on
    the first 1,048,576 rows of each quantized store.
@@ -54,7 +58,8 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    launch count is set to 0 before the timed round: the kernel of the
    configuration's phase-A kind must have launched, and no other
    phase-A kernel.  One served window at each ladder size is timed
-   first.  Configurations (kind in brackets):
+   first, with the int8 kinds' bound epilogue (query quantization and
+   ``_i8_bounds``) timed apart.  Configurations (kind in brackets):
    5M x 250 float32 [pallas], 5M x 250 float32 with
    int8_selection="true" [i8], 5M x 250 bfloat16 [pallas], 1M x 250
    float32 LSH 0.3 [pallas], 5M x 50 float32 [i8], 1M x 50 float32 LSH
@@ -99,6 +104,9 @@ COVERAGE_WIDTHS = (32, 64, 96)
 I8_COVERAGE_WIDTHS = (32, 96)
 COVERAGE_WINDOWS = (8, 256)
 WIDE_WINDOW = 300
+# phase_a_i8_fold coverage: two query tiles, one of each orientation
+# (256 queries on the M side, 16 on the N side)
+MIXED_WINDOW = 272
 QUANT_CHECK_ROWS = 1 << 20
 # rows per library call of the folded and int8 yardsticks: bounds their
 # (rows, B) score tiles
@@ -581,10 +589,12 @@ def i8_cases(vecs, active, rng, gpu_name, features: int, windows,
 
 
 def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
-               label: str) -> list[dict]:
-    """``phase_a_i8_fold`` and ``phase_a_fold`` (float32 and bfloat16
-    stores) on the folded mirrors of ``vecs``, exact and LSH.  The int8
-    maxima must also equal ``phase_a_i8`` on the unfolded mirror."""
+               label: str, float_windows=None) -> list[dict]:
+    """``phase_a_i8_fold`` at ``windows`` and ``phase_a_fold`` (float32 and
+    bfloat16 stores) at ``float_windows`` (default: ``windows``) on the
+    folded mirrors of ``vecs``, exact and LSH.  The int8 maxima must also
+    equal ``phase_a_i8`` on the unfolded mirror; the int8 kernel's design
+    as the built library reports it must be the one ``plan`` gives."""
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
     from oryx_tpu_torch.ops import phase_a_fold as pf
@@ -617,6 +627,10 @@ def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
             nbytes = (y8f.numel() + q8.numel() + pen_i_f.numel() * 4
                       + b * (n // 128) * 4
                       + (bkt_f.numel() * 4 + b * 4 if lsh else 0))
+            design = pi8f.plan(fold, b, lsh)
+            check(pi8f.library_plan(fold, b, lsh) == design,
+                  f"{label}: phase_a_i8_fold's library plans "
+                  f"{pi8f.library_plan(fold, b, lsh)}, plan() {design}")
             out.append(run_case(
                 torch, "phase_a_i8_fold", {"store": "int8", **base, "B": b},
                 lambda: pi8f.phase_a_i8_fold(q8, y8f, pen_i_f, bkt_f, tgt,
@@ -626,7 +640,9 @@ def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
                 lambda: int_mm_block_max(torch, y8f.view(n, w), q8_cols,
                                          pen_i.view(-1), buckets, tgt, mb),
                 nbytes, 2.0 * n * features * b, i8_rate, bw, exact=True,
-                also={"phase_a_i8 on the unfolded mirror": unfolded}))
+                also={"phase_a_i8 on the unfolded mirror": unfolded},
+                extra={**design, **ptxas_usage("phase_a_i8_fold.cu",
+                                               design["variant"])}))
             del unfolded
         del y8f, pen_i_f
         pen = sm._penalty_kernel(live, 128)
@@ -634,7 +650,7 @@ def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
             name = "bfloat16" if dtype == torch.bfloat16 else "float32"
             Y = vecs if vecs.dtype == dtype else vecs.to(dtype)
             yf, pen_f = sm._fold_items_kernel(Y, live, fold, 128)
-            for b in windows:
+            for b in (windows if float_windows is None else float_windows):
                 Q = queries(torch, rng, b, features)
                 Qc = sm._q_cast(Q, Y).contiguous()
                 tgt = sm._query_buckets(Q, hp) if lsh else None
@@ -839,9 +855,11 @@ def serve_and_check(model, label: str, kind: str, n_recommend: int,
 
 
 def phase_a_program(model, kind: str, Q):
-    """(phase A, phase B) of one window of the model's kind on its own
-    cached mirrors, as zero-argument callables; phase B's input is the
-    first call's output."""
+    """(phase A, phase B, bound epilogue) of one window of the model's
+    kind on its own cached mirrors, as zero-argument callables (the
+    epilogue, the query quantization and ``_i8_bounds``, None for the
+    float kinds); phase B's and the epilogue's input is the first phase-A
+    call's output."""
     from oryx_tpu_torch.app.als import serving_model as sm
     mods = wrappers()
     vecs, active, version = model.Y.device_arrays_versioned()
@@ -870,7 +888,13 @@ def phase_a_program(model, kind: str, Q):
             y8 = y8f
             run_a = lambda: mods["phase_a_i8_fold"].phase_a_i8_fold(  # noqa
                 q8, y8f, pen_i_f, bkt_f, tgt, mb, fold)
-        M = sm._i8_bounds(run_a(), sy, l1y, sq, l1q, int(y8.shape[1]))
+        M_int = run_a()
+
+        def run_e():
+            _, sq_, l1q_ = sm._quantize_queries(Qc)
+            return sm._i8_bounds(M_int, sy, l1y, sq_, l1q_, int(y8.shape[1]))
+
+        M = run_e()
     elif kind == "fold":
         yf, pen_f, bkt_f = model._cached_fold(vecs, active, buckets, version,
                                               fold, bs)
@@ -882,14 +906,16 @@ def phase_a_program(model, kind: str, Q):
         run_a = lambda: mods["phase_a"].phase_a(  # noqa: E731
             Qc, vecs, pen, buckets, tgt, mb)
         M = run_a()
-    return run_a, lambda: sm._phase_b(vecs, Qc, active, buckets, tgt, M, k,
-                                      bs, ksel, mb)
+    return (run_a, lambda: sm._phase_b(vecs, Qc, active, buckets, tgt, M, k,
+                                       bs, ksel, mb),
+            run_e if kind in ("i8", "i8_fold") else None)
 
 
 def window_times(model, rng, label: str, kind: str) -> list[dict]:
     """One served window at each ladder size: ``top_n_batch`` end to
     end (host clock around a synchronised call), and its phase A
-    (kernel) and phase B alone (CUDA events) on the same queries."""
+    (kernel), phase B and, for the int8 kinds, the bound epilogue alone
+    (CUDA events) on the same queries."""
     import torch
     out = []
     for b in WINDOWS:
@@ -907,12 +933,13 @@ def window_times(model, rng, label: str, kind: str) -> list[dict]:
             t0 = time.perf_counter()
             served()
             walls.append((time.perf_counter() - t0) * 1e3)
-        run_a, run_b = phase_a_program(model, kind,
-                                       torch.from_numpy(q).to(DEVICE))
+        run_a, run_b, run_e = phase_a_program(model, kind,
+                                              torch.from_numpy(q).to(DEVICE))
         row = {"phase": "window", "config": label, "kind": kind, "B": b,
                "top_n_batch_ms": statistics.median(walls),
                "phase_a_ms": time_ms(torch, run_a),
                "phase_b_ms": time_ms(torch, run_b),
+               **({"epilogue_ms": time_ms(torch, run_e)} if run_e else {}),
                "fallback_rows": model.twophase_fallbacks - fb0}
         log(row)
         out.append(row)
@@ -1029,8 +1056,8 @@ def main() -> int:
         10, Y, X, known_20m, "20M_10f_f32_auto", "i8_fold", "float32", 1.0,
         "auto", (32, 4, 4), rng, y_ids)
     vecs, active = model.Y.device_arrays()
-    cases += fold_cases(vecs, active, rng, gpu_name, 10, (8, 256),
-                        "20M_10f")
+    cases += fold_cases(vecs, active, rng, gpu_name, 10, WINDOWS, "20M_10f",
+                        float_windows=(8, 256))
     del model, vecs, active
     free()
     model, serves["20M_10f_f32_noint8"] = serve_config(
@@ -1040,17 +1067,21 @@ def main() -> int:
     free()
 
     # coverage, not a configuration: phase_a at narrow widths and a
-    # window above 256 queries; fold 4 runs the folded 8-column path
+    # window above 256 queries; fold 4 runs the folded 8-column path, and
+    # the folded int8 kernel a window of two query tiles at fold 2
     cases += coverage_cases(rng, gpu_name)
     cases += i8_coverage_cases(rng, gpu_name)
-    vecs = torch.zeros((COVERAGE_ROWS, 32), device=DEVICE)
-    vecs[:, :COVERAGE_FEATURES] = torch.from_numpy(rng.standard_normal(
-        (COVERAGE_ROWS, COVERAGE_FEATURES), dtype=np.float32)).to(DEVICE)
-    cases += fold_cases(vecs, torch.ones(COVERAGE_ROWS, dtype=torch.bool,
-                                         device=DEVICE),
-                        rng, gpu_name, COVERAGE_FEATURES, (8,), "coverage")
-    del vecs
-    free()
+    all_live = torch.ones(COVERAGE_ROWS, dtype=torch.bool, device=DEVICE)
+    for features, windows, float_windows in (
+            (COVERAGE_FEATURES, COVERAGE_WINDOWS, (8,)),
+            (10, (WIDE_WINDOW, MIXED_WINDOW), ())):
+        vecs = torch.zeros((COVERAGE_ROWS, 32), device=DEVICE)
+        vecs[:, :features] = torch.from_numpy(rng.standard_normal(
+            (COVERAGE_ROWS, features), dtype=np.float32)).to(DEVICE)
+        cases += fold_cases(vecs, all_live, rng, gpu_name, features, windows,
+                            "coverage", float_windows)
+        del vecs
+        free()
 
     def head(kernel, **want):
         return next(c for c in cases if c["kernel"] == kernel

@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the phase-A kernels (phase_a.cu,
-// phase_a_i8.cu, phase_a_fold.cu): cp.async, mbarriers, TMA tensor maps
-// and loads, wgmma descriptors and fences, the halving-butterfly max, and
-// the host helpers that size a persistent grid.  Each source includes it
-// once; nothing here launches or allocates.  cuda_build.library_path
-// hashes every header of this directory with the source, so an edit here
-// rebuilds every library.
+// phase_a_i8.cu, phase_a_i8_fold.cu, phase_a_fold.cu): cp.async,
+// mbarriers, TMA tensor maps and loads, bulk copies, wgmma descriptors and
+// fences, the halving-butterfly max, and the host helpers that size a
+// persistent grid.  Each source includes it once; nothing here launches
+// or allocates.  cuda_build.library_path hashes every header of this
+// directory with the source, so an edit here rebuilds every library.
 
 #pragma once
 
@@ -100,6 +100,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// a plain copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device to shared memory, counted on `bar` like a TMA load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -19,7 +19,8 @@
 // bit.  The float32 upper bounds phase B selects on are made from them by
 // torch code (the bound epilogue), as the reference makes them outside its
 // kernel.  The folded int8 mirror (the "i8_fold" kind) has its own kernel,
-// csrc/phase_a_i8_fold.cu.
+// csrc/phase_a_i8_fold.cu, on the same int8 wgmma engine and in the same
+// two orientations.
 //
 // What bounds it on an H100 SXM (3.35 TB/s HBM; 1,979 TOPS int8 dense on
 // the tensor cores): at 5,111,808 rows x 256 bytes (250 features) 1.31 GB
@@ -28,14 +29,15 @@
 // bound by bytes.
 //
 // Design: wgmma.mma_async m64nNk32, s8 x s8 -> s32, on the engine of
-// phase_a.cu's bf16 body (the shared pieces are in hopper.cuh): both
-// operands K-major in shared memory, as integer wgmma requires; the store
-// rows through a ring of up to 8 stages of 128 rows x CB bytes that one
-// producer lane keeps filled by TMA, each stage with a "full" and an
-// "empty" mbarrier; the query tile loaded once per thread block by TMA,
-// its rows past B zero-filled; persistent thread blocks (about one per
-// SM) walking the 128-row blocks, so each block is read from device
-// memory once per query tile of up to 256 queries (one grid per tile).
+// phase_a.cu's bf16 body (the shared pieces are in hopper.cuh, the int8
+// products in wgmma_s8.cuh): both operands K-major in shared memory, as
+// integer wgmma requires; the store rows through a ring of up to 8
+// stages of 128 rows x CB bytes that one producer lane keeps filled by
+// TMA, each stage with a "full" and an "empty" mbarrier; the query tile
+// loaded once per thread block by TMA, its rows past B zero-filled;
+// persistent thread blocks (about one per SM) walking the 128-row blocks,
+// so each block is read from device memory once per query tile of up to
+// 256 queries (one grid per tile).
 // CB = 128 bytes with the 128-byte swizzle where the width is a multiple
 // of 128 (256: the 250-feature mirror), 64 with the 64-byte swizzle where
 // it is a multiple of 64 (the 50-feature mirror), else 32 with the 32-byte
@@ -68,6 +70,7 @@
 // nothing and does not synchronise.
 
 #include "hopper.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
 
@@ -79,115 +82,6 @@ namespace tc {
 constexpr int CONSUMERS = 256;  // two warpgroups of 64 rows each
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int MAX_STAGES = 8;
-
-// d (64 x N, this thread's N / 2 int32) += A (64 x 32) . B (N x 32)^T
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<8> {
-  static __device__ __forceinline__ void mma(int32_t* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
-        "%0, %1, %2, %3"
-        "}, %4, %5, p;\n}\n"
-        :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(int32_t* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p;\n}\n"
-        :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(int32_t* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p;\n}\n"
-        :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(int32_t* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p;\n}\n"
-        :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(int32_t* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p;\n}\n"
-        :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
 
 // Shared memory of one thread block, from a 1024-byte aligned base: the
 // ring (stages of 128 rows x CB bytes), the query tile (W / CB chunks of
@@ -277,7 +171,7 @@ phase_a_i8_tc(const __grid_constant__ CUtensorMap ymap,
       const uint64_t db = desc<CB>(qs + (size_t)c * QCHUNK);
 #pragma unroll
       for (int kk = 0; kk < CB / 32; ++kk)  // 32 bytes = 2 units per step
-        Wgmma<N>::mma(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+        WgmmaS8<N>::mma(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
       wg_commit();
       if (prev >= 0) {
         // the previous stage's products are done: hand its slot back
@@ -461,7 +355,7 @@ phase_a_i8_tq(const __grid_constant__ CUtensorMap ymap,
       const uint64_t db = tc::desc<CB>(ring + (size_t)s * STAGE);
 #pragma unroll
       for (int kk = 0; kk < CB / 32; ++kk)
-        tc::Wgmma<128>::mma(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
+        tc::WgmmaS8<128>::mma(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
       tc::wg_commit();
       if (prev >= 0) {
         tc::wg_wait<1>();

@@ -50,23 +50,47 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    The int8 quantizer on the card must equal the CPU's bit for bit on
    the first 1,048,576 rows of each quantized store.
 3. Serve each configuration over HTTP through the port's HttpApp +
-   TopNBatcher + StaticModelManager: one untimed round of concurrent
-   /recommend, /recommendToMany and considerKnownItems requests (32
-   clients), then the same round timed, every answer checked against
-   the same model's top-k with every phase-A kernel swapped for its
-   plain version (and a few against the exact scan).  Every kernel's
-   launch count is set to 0 before the timed round: the kernel of the
-   configuration's phase-A kind must have launched, and no other
-   phase-A kernel.  One served window at each ladder size is timed
-   first, with the int8 kinds' bound epilogue (query quantization and
-   ``_i8_bounds``) timed apart.  Configurations (kind in brackets):
-   5M x 250 float32 [pallas], 5M x 250 float32 with
-   int8_selection="true" [i8], 5M x 250 bfloat16 [pallas], 1M x 250
-   float32 LSH 0.3 [pallas], 5M x 50 float32 [i8], 1M x 50 float32 LSH
-   0.3 [i8], 20M x 10 float32 [i8_fold], and the same with
-   int8_selection="false" [fold].
+   TopNBatcher + StaticModelManager.  After the model loads, its
+   measured-cost kernel route is installed (``refresh_route``, as the
+   serving manager does at load) and printed as a ``route`` line: the
+   exact and LSH cost tables, ``use_lsh``, the ``chosen`` kind, the
+   static first kind, the seconds the measurement took and the launches
+   it made.  The run fails if an eligible kind is missing from a table
+   or any kind errored, or if the card holds more after the route than
+   the store, the chosen kind's mirror and the LSH buckets.  Then one
+   untimed round of concurrent /recommend, /recommendToMany and
+   considerKnownItems requests (32 clients), then the same round timed,
+   every answer checked against the same model's top-k with every
+   phase-A kernel swapped for its plain version under the same route
+   (and a few against the exact scan, with LSH only where the route
+   serves it).  Every kernel's launch count is set to 0 before the
+   timed round: the kernel of the route's chosen kind must have
+   launched, and no other phase-A kernel.  One served window at each
+   ladder size is timed first, with the int8 kinds' bound epilogue
+   (query quantization and ``_i8_bounds``) timed apart.
+   Configurations (static first kind in brackets): 5M x 250 float32
+   [pallas], 5M x 250 float32 with int8_selection="true" [i8], 5M x 250
+   bfloat16 [pallas], 1M x 250 float32 LSH 0.3 [pallas], 5M x 50
+   float32 [i8], 1M x 50 float32 LSH 0.3 [i8], 20M x 10 float32
+   [i8_fold], and the same with int8_selection="false" [fold].
+4. Serve off the update topic: a ``ServingLayer`` started from
+   ``oryx_tpu_torch/conf/als-example.conf`` (update topic on a
+   temporary ``file://`` broker) replays one MODEL-REF naming a
+   1M x 50 float32 model published in 8 slices (``publish_sliced``,
+   written by a child process while phases 2-3 run), with sample rate
+   0.3, then UP records for the 1,000 users with their known items.
+   Once ``/ready`` answers and the route is measured, the load
+   counters must read 8 slice loads, 0 fallbacks and a load time, both
+   Gramian solvers must exist, the route must hold every eligible kind
+   and no error, and the rounds of phase 3 run through the layer's own
+   HTTP server and batcher, with the same checks.
 
-The line before the last is a JSON ``{"kernels": [...]}`` summary; the
+An exception that ends any thread of the run fails it.  The line
+before the last is a JSON ``{"kernels": [...]}`` summary: each kernel's
+``launches`` are the timed round of the first configuration whose
+route chose it (``served_config``; the head configuration where its
+route did), and ``route_launches`` that configuration's route
+measurement; a kernel that served no timed round fails the run.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -77,10 +101,14 @@ import contextlib
 import gc
 import http.client
 import json
+import multiprocessing
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -113,6 +141,16 @@ QUANT_CHECK_ROWS = 1 << 20
 LIBRARY_CHUNK_ROWS = 1 << 22
 REPS = 10
 DEVICE = "cuda"
+# phase 4: the update-topic load, at the reference's published 1M x 50
+# LSH setting (BASELINE.md:37)
+N_TOPIC_ITEMS = 1_000_000
+TOPIC_FEATURES = 50
+TOPIC_RING = 8
+TOPIC_SEED = SEED + 4
+TOPIC_WAIT_S = 900.0
+# what the card may hold after a route beyond the store, the chosen
+# kind's mirror and the LSH buckets (allocator rounding, solver factors)
+ROUTE_SLACK_BYTES = 32 << 20
 # float32: summation order only; bfloat16: the certificate's own margin
 RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
 # (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s,
@@ -131,6 +169,18 @@ KERNELS = {
     "phase_a_i8": (f"{REFERENCE}:804", "oryx_tpu_torch/csrc/phase_a_i8.cu",
                    "i8"),
 }
+
+
+# exceptions that ended a thread of this process (the serving layer's
+# consumer, the solver recomputes, the HTTP workers): any fails the run
+THREAD_ERRORS: list[str] = []
+
+
+def thread_failed(args) -> None:
+    if not issubclass(args.exc_type, SystemExit):
+        THREAD_ERRORS.append(f"{getattr(args.thread, 'name', '?')}: "
+                             f"{args.exc_type.__name__}: {args.exc_value}")
+    threading.__excepthook__(args)
 
 
 def log(obj) -> None:
@@ -240,9 +290,12 @@ def build_model(features, Y, X, known, dtype, sample_rate=1.0,
 
 
 def free() -> None:
-    """Return the card memory of what the caller has dropped."""
+    """Return the card memory of what the caller has dropped, and the
+    cuBLAS workspaces (one per thread and stream that ran a product; the
+    allocator counts them as allocated)."""
     import torch
     gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -681,11 +734,116 @@ def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
 
 # -- phase 3: the served path ------------------------------------------------
 
-def served_kind(model) -> str:
-    vecs, _ = model.Y.device_arrays()
+def route_lsh(model) -> bool:
+    """Whether the model's drains run the LSH mask under its route."""
+    n_rows = len(model.Y.row_ids())
+    return model._lsh_active() and model._route_use_lsh(n_rows)
+
+
+def static_kinds(model) -> list[str]:
     from oryx_tpu_torch.app.als import serving_model as sm
+    vecs, _ = model.Y.device_arrays()
     return model._phase_a_kinds(int(vecs.shape[0]), int(vecs.shape[1]),
-                                sm._BLOCK_ROWS)[0][0]
+                                sm._BLOCK_ROWS)[0]
+
+
+def routed_kind(model) -> str:
+    """The kind ``_dispatch_twophase`` takes for a drain of this model."""
+    return model._route_order(static_kinds(model), len(model.Y.row_ids()),
+                              lsh_on=route_lsh(model))[0]
+
+
+def tensor_bytes(*objs) -> int:
+    import torch
+    total = 0
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            total += obj.numel() * obj.element_size()
+        elif isinstance(obj, (tuple, list)):
+            total += tensor_bytes(*obj)
+    return total
+
+
+def mirror_bytes(model) -> int:
+    """Card bytes of the model's phase-A mirror caches and LSH buckets."""
+    from oryx_tpu_torch.app.als import serving_model as sm
+    return tensor_bytes(*(getattr(model, a) for a in sm._MIRROR_CACHES),
+                        model._item_buckets)
+
+
+def model_bytes(model, solvers) -> int:
+    """Card bytes of everything the model keeps: both stores' snapshots,
+    the LSH hyperplanes, the mirrors and buckets, the solver factors."""
+    return (tensor_bytes(model.X._device, model.X._device_active,
+                         model.Y._device, model.Y._device_active,
+                         [s.cholesky for s in solvers])
+            + (tensor_bytes(model.lsh._hp_dev) if model.lsh else 0)
+            + mirror_bytes(model))
+
+
+def check_route(model, label: str, route, seconds: float,
+                launches: dict) -> dict:
+    """Print the route line and fail on a missing kind, an error, a
+    kept loser mirror, or a route the dispatch would not follow."""
+    check(route is not None and route.get("measured"),
+          f"{label}: no route measured")
+    check("errors" not in route,
+          f"{label}: route errors {route.get('errors')}")
+    static = static_kinds(model)
+    eligible = [k for k in static if k != "scan"]
+    tables = [route["costs_exact_ms"]] + (
+        [route["costs_lsh_ms"]] if route["lsh_configured"] else [])
+    for table in tables:
+        check(sorted(table) == sorted(eligible)
+              and all(table[k] is not None for k in eligible),
+              f"{label}: route table {table} lacks one of {eligible}")
+    from oryx_tpu_torch.app.als import serving_model as sm
+    chosen = route["chosen"]
+    check(chosen in sm._KIND_MIRRORS, f"{label}: route chose {chosen!r}")
+    check(routed_kind(model) == chosen,
+          f"{label}: dispatch takes {routed_kind(model)!r}, route chose "
+          f"{chosen!r}")
+    kept = [a for a in sm._MIRROR_CACHES if getattr(model, a) is not None]
+    check(set(kept) <= set(sm._KIND_MIRRORS[chosen]),
+          f"{label}: mirrors {kept} kept beside the chosen {chosen}")
+    for kind in eligible:
+        wrapper = next(k for k, v in KERNELS.items() if v[2] == kind)
+        check(launches[wrapper] > 0,
+              f"{label}: measuring {kind} launched {wrapper} no time")
+    line = {"phase": "route", "config": label, "static_kind": static[0],
+            "chosen": chosen, "use_lsh": route["use_lsh"],
+            "costs_exact_ms": route["costs_exact_ms"],
+            "costs_lsh_ms": route.get("costs_lsh_ms"),
+            "seconds": seconds, "launches": launches, "kept": kept}
+    log(line)
+    return line
+
+
+def route_model(model, label: str) -> dict:
+    """Install the model's route as the serving manager does at load,
+    and check that the card then holds only the chosen kind's mirror
+    beyond what it held before."""
+    import torch
+    free()
+    torch.cuda.synchronize()
+    before, mirrors_before = torch.cuda.memory_allocated(), \
+        mirror_bytes(model)
+    reset_launches()
+    t0 = time.perf_counter()
+    route = model.refresh_route()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    free()
+    grown = torch.cuda.memory_allocated() - before
+    kept = mirror_bytes(model) - mirrors_before
+    check(abs(grown - kept) <= ROUTE_SLACK_BYTES,
+          f"{label}: the card grew by {grown} bytes over the route, the "
+          f"kept mirrors are {kept}")
+    line = check_route(model, label, route, seconds, launches)
+    log({"phase": "route_memory", "config": label, "grown_bytes": grown,
+         "kept_mirror_bytes": kept})
+    return line
 
 
 def reference_top_n_batch(model, how_many: int, Q: np.ndarray,
@@ -712,7 +870,7 @@ def exact_top_n(model, how_many: int, Q: np.ndarray, excl):
     n_rows = int(vecs.shape[0])
     k = min(sm._pad_k(max(how_many + len(e) for e in excl)), n_rows)
     _, chunk = sm._stream_plan(n_rows, 8)
-    lsh_on = model._lsh_active()
+    lsh_on = route_lsh(model)
     buckets = model._cached_buckets(vecs, version) if lsh_on else None
     hp = model.lsh._device_hyperplanes() if lsh_on else None
     mb = model.lsh.max_bits_differing if lsh_on else 0
@@ -731,19 +889,15 @@ def same_answers(got, want, rtol: float, what: str) -> None:
                                rtol=rtol, err_msg=what)
 
 
-def serve_and_check(model, label: str, kind: str, n_recommend: int,
-                    n_many: int, n_consider: int, rtol: float,
-                    n_exact: int) -> dict:
-    import torch
+@contextlib.contextmanager
+def static_server(model):
+    """The model behind the port's HttpApp + TopNBatcher +
+    StaticModelManager: yields (port, batcher)."""
     from oryx_tpu_torch.bench.load import StaticModelManager
     from oryx_tpu_torch.lambda_rt.http import HttpApp, make_server
     from oryx_tpu_torch.serving import als as als_routes
     from oryx_tpu_torch.serving import framework
     from oryx_tpu_torch.serving.batcher import TopNBatcher
-
-    check(served_kind(model) == kind,
-          f"{label}: serves {served_kind(model)!r}, expected {kind!r}")
-    expected = next(k for k, v in KERNELS.items() if v[2] == kind)
 
     class Manager(StaticModelManager):
         pass
@@ -757,9 +911,36 @@ def serve_and_check(model, label: str, kind: str, n_recommend: int,
                            "top_n_batcher": batcher},
                   read_only=True)
     server = make_server(app, 0)
-    port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
+    try:
+        yield server.server_address[1], batcher
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(30)
+
+
+def serve_and_check(model, label: str, route: dict, n_recommend: int,
+                    n_many: int, n_consider: int, rtol: float,
+                    n_exact: int, layer=None) -> dict:
+    """The untimed and the timed round over HTTP, through ``layer``'s
+    server and batcher when given, else through ``static_server``."""
+    with (contextlib.nullcontext((layer.port, layer.top_n_batcher))
+          if layer is not None else static_server(model)) as (port, batcher):
+        return serve_rounds(model, label, route, port, batcher, n_recommend,
+                            n_many, n_consider, rtol, n_exact)
+
+
+def serve_rounds(model, label: str, route: dict, port: int, batcher,
+                 n_recommend: int, n_many: int, n_consider: int,
+                 rtol: float, n_exact: int) -> dict:
+    import torch
+    kind = route["chosen"]
+    check(routed_kind(model) == kind,
+          f"{label}: serves {routed_kind(model)!r}, the route chose {kind!r}")
+    expected = next(k for k, v in KERNELS.items() if v[2] == kind)
 
     requests = [(f"/recommend/u{u}?howMany=10", [f"u{u}"], False)
                 for u in range(n_recommend)]
@@ -780,36 +961,30 @@ def serve_and_check(model, label: str, kind: str, n_recommend: int,
         finally:
             conn.close()
 
-    try:
-        status, _, _ = fetch("/ready")
-        check(status == 204, f"{label}: /ready gave {status}")
-        with concurrent.futures.ThreadPoolExecutor(32) as pool:
-            # one untimed round first: the batcher learns its pacing
-            # from completed dispatches, and until then it lets every
-            # dispatcher thread take a request of its own
-            for path, (status, body, _) in zip(
-                    [r[0] for r in requests],
-                    pool.map(fetch, [r[0] for r in requests])):
-                check(status == 200, f"{label}: warm-up {path} gave "
-                      f"{status}: {body[:300]}")
-            torch.cuda.synchronize()
-            drains0 = len(batcher.batch_sizes)
-            fallbacks0 = model.twophase_fallbacks
-            reset_launches()
-            t0 = time.perf_counter()
-            results = list(pool.map(fetch, [r[0] for r in requests]))
-            wall = time.perf_counter() - t0
-            launches = read_launches()
-            fallbacks = model.twophase_fallbacks - fallbacks0
-        sizes = batcher.batch_sizes[drains0:]
-        stats = batcher.stats()
-        status, _, _ = fetch("/recommend/nobody")
-        check(status == 404, f"{label}: unknown user gave {status}")
-    finally:
-        server.shutdown()
-        server.server_close()
-        batcher.close()
-        thread.join(30)
+    status, _, _ = fetch("/ready")
+    check(status == 204, f"{label}: /ready gave {status}")
+    with concurrent.futures.ThreadPoolExecutor(32) as pool:
+        # one untimed round first: the batcher learns its pacing
+        # from completed dispatches, and until then it lets every
+        # dispatcher thread take a request of its own
+        for path, (status, body, _) in zip(
+                [r[0] for r in requests],
+                pool.map(fetch, [r[0] for r in requests])):
+            check(status == 200, f"{label}: warm-up {path} gave "
+                  f"{status}: {body[:300]}")
+        torch.cuda.synchronize()
+        drains0 = len(batcher.batch_sizes)
+        fallbacks0 = model.twophase_fallbacks
+        reset_launches()
+        t0 = time.perf_counter()
+        results = list(pool.map(fetch, [r[0] for r in requests]))
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        fallbacks = model.twophase_fallbacks - fallbacks0
+    sizes = batcher.batch_sizes[drains0:]
+    stats = batcher.stats()
+    status, _, _ = fetch("/recommend/nobody")
+    check(status == 404, f"{label}: unknown user gave {status}")
 
     for (path, _, _), (status, body, _) in zip(requests, results):
         check(status == 200, f"{label}: {path} gave {status}: {body[:300]}")
@@ -838,8 +1013,11 @@ def serve_and_check(model, label: str, kind: str, n_recommend: int,
 
     lat = sorted(r[2] for r in results)
     summary = {"phase": "serve", "config": label, "kind": kind,
+               "static_kind": route["static_kind"],
+               "use_lsh": route["use_lsh"],
                "requests": len(requests), "concurrency": 32,
                "launches": launches,
+               "route_launches": route["launches"],
                "batcher_dispatches": len(sizes),
                "mean_batch": float(np.mean(sizes)),
                "queue_wait_ms": stats["queue_wait_ms"],
@@ -865,7 +1043,7 @@ def phase_a_program(model, kind: str, Q):
     vecs, active, version = model.Y.device_arrays_versioned()
     n_rows, width = int(vecs.shape[0]), int(vecs.shape[1])
     bs = sm._BLOCK_ROWS
-    lsh_on = model._lsh_active()
+    lsh_on = route_lsh(model)
     buckets = model._cached_buckets(vecs, version) if lsh_on else None
     hp = model.lsh._device_hyperplanes() if lsh_on else None
     mb = model.lsh.max_bits_differing if lsh_on else 0
@@ -950,10 +1128,191 @@ def serve_config(features, Y, X, known, label: str, kind: str, dtype,
                  sample_rate, int8_selection, counts, rng, y_ids=None):
     model = build_model(features, Y, X, known, dtype, sample_rate,
                         int8_selection, y_ids)
-    window_times(model, rng, label, kind)
-    summary = serve_and_check(model, label, kind, *counts, RTOL[dtype],
+    route = routed_config(model, label, kind)
+    window_times(model, rng, label, route["chosen"])
+    summary = serve_and_check(model, label, route, *counts, RTOL[dtype],
                               counts[0] // 8)
     return model, summary
+
+
+def routed_config(model, label: str, kind: str) -> dict:
+    """Route the model and check that its static first kind is the
+    configuration's."""
+    route = route_model(model, label)
+    check(route["static_kind"] == kind,
+          f"{label}: static first kind {route['static_kind']!r}, expected "
+          f"{kind!r}")
+    return route
+
+
+# -- phase 4: serve off the update topic -------------------------------------
+
+def topic_data(seed: int):
+    """(Y, X, known items) of the update-topic configuration."""
+    rng = np.random.default_rng(seed)
+    Y = rng.standard_normal((N_TOPIC_ITEMS, TOPIC_FEATURES), dtype=np.float32)
+    X = rng.standard_normal((N_USERS, TOPIC_FEATURES), dtype=np.float32)
+    known = {f"u{u}": sorted({f"i{j}" for j in rng.integers(
+        0, N_TOPIC_ITEMS, KNOWN_PER_USER)}) for u in range(N_USERS)}
+    return Y, X, known
+
+
+def publish_topic_model(model_dir: str, seed: int) -> None:
+    """Write the model directory a MODEL-REF names: the PMML document
+    and the sliced artifacts.  Runs in a child process while the card
+    works on phases 2-3; touches no card."""
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.common import pmml as pmml_io
+    t0 = time.perf_counter()
+    Y, X, known = topic_data(seed)
+    y_ids = [f"i{j}" for j in range(N_TOPIC_ITEMS)]
+    x_ids = [f"u{u}" for u in range(N_USERS)]
+    doc = pmml_io.build_skeleton_pmml()
+    pmml_io.add_extension(doc, "features", TOPIC_FEATURES)
+    pmml_io.add_extension(doc, "implicit", True)
+    pmml_io.add_extension_content(doc, "XIDs", x_ids)
+    pmml_io.add_extension_content(doc, "YIDs", y_ids)
+    pmml_io.write(doc, os.path.join(model_dir, "model.pmml.xml"))
+    slim = slices.publish_sliced(model_dir, y_ids, Y, x_ids, X, known,
+                                 TOPIC_RING)
+    with open(os.path.join(model_dir, "published.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"manifest": slim,
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+def wait_for(cond, what: str, timeout: float) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def serve_update_topic(publisher, work_dir: str, rng) -> dict:
+    """Phase 4: a ServingLayer from the port's example config replays
+    a MODEL-REF and the users' UP records from a file:// update topic,
+    measures its route, and serves the rounds of phase 3."""
+    import torch
+    from oryx_tpu_torch.app.als import kernel_router, slices
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+
+    label = "1M_50f_f32_lsh0.3_topic"
+    model_dir = os.path.join(work_dir, "model")
+    t_wait = time.perf_counter()
+    publisher.join(TOPIC_WAIT_S)
+    check(publisher.exitcode == 0,
+          f"{label}: publishing the model failed ({publisher.exitcode})")
+    with open(os.path.join(model_dir, "published.json"),
+              encoding="utf-8") as f:
+        published = json.load(f)
+    log({"phase": "publish", "config": label, "items": N_TOPIC_ITEMS,
+         "features": TOPIC_FEATURES, "ring": TOPIC_RING,
+         "seconds": published["seconds"],
+         "waited_s": time.perf_counter() - t_wait,
+         "slice_bytes": sum(e["bytes"]
+                            for e in published["manifest"]["slices"])})
+    _, X, known = topic_data(TOPIC_SEED)
+    broker = "file://" + os.path.join(work_dir, "broker")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "oryx_tpu_torch", "conf", "als-example.conf")
+    cfg = overlay_on({"oryx.update-topic.broker": broker,
+                      "oryx.input-topic.broker": None,
+                      "oryx.als.sample-rate": LSH_RATE}, from_file(conf))
+
+    measured = []
+    real_measure = kernel_router.measure_routes
+
+    def timed_measure(model, *args, **kwargs):
+        before = read_launches()
+        t0 = time.perf_counter()
+        route = real_measure(model, *args, **kwargs)
+        torch.cuda.synchronize()
+        measured.append((route, time.perf_counter() - t0,
+                         {k: v - before[k]
+                          for k, v in read_launches().items()}))
+        return route
+
+    free()
+    baseline = torch.cuda.memory_allocated()
+    kernel_router.measure_routes = timed_measure
+    layer = ServingLayer(cfg, port=0)
+    try:
+        layer.start()
+        mgr = layer.model_manager
+        producer = InProcTopicProducer(
+            broker, cfg.get_string("oryx.update-topic.message.topic"))
+        reset_launches()
+        t0 = time.perf_counter()
+        producer.send("MODEL-REF", slices.model_ref_message(
+            os.path.join(model_dir, "model.pmml.xml"), model_dir,
+            published["manifest"]))
+        for u in range(N_USERS):
+            producer.send("UP", json.dumps(
+                ["X", f"u{u}", [float(v) for v in X[u]], known[f"u{u}"]]))
+
+        def ready() -> bool:
+            conn = http.client.HTTPConnection("127.0.0.1", layer.port,
+                                              timeout=60)
+            try:
+                conn.request("GET", "/ready")
+                resp = conn.getresponse()
+                resp.read()
+                return resp.status == 204
+            finally:
+                conn.close()
+
+        wait_for(ready, f"{label}: /ready", TOPIC_WAIT_S)
+        ready_s = time.perf_counter() - t0
+        model = mgr.get_model()
+        last = f"u{N_USERS - 1}"
+        wait_for(lambda: model._route is not None
+                 and np.array_equal(model.get_user_vector(last), X[-1])
+                 and model.get_known_items(last) == set(known[last]),
+                 f"{label}: the route and the UP records", TOPIC_WAIT_S)
+        load_s = time.perf_counter() - t0
+        # the manager computes both Gramian solvers on threads of their
+        # own at load; a failed one leaves its cache without a solver
+        solvers = (model.get_xtx_solver(), model.get_yty_solver())
+        check(None not in solvers, f"{label}: a Gramian solver is missing "
+              f"after the load: {solvers}")
+        check(mgr.model_load_s > 0, f"{label}: model_load_s not set")
+        check(mgr.slice_loads == TOPIC_RING,
+              f"{label}: {mgr.slice_loads} slice loads")
+        check(mgr.slice_load_fallbacks == 0,
+              f"{label}: {mgr.slice_load_fallbacks} slice load fallbacks")
+        check(mgr.rejected_updates == 0 and mgr.rejected_models == 0,
+              f"{label}: rejected {mgr.rejected_updates} updates, "
+              f"{mgr.rejected_models} models")
+        check(len(model.Y) == N_TOPIC_ITEMS and len(model.X) == N_USERS,
+              f"{label}: {len(model.Y)} items, {len(model.X)} users")
+        routes = [m for m in measured if m[0] is not None]
+        check(len(routes) == 1, f"{label}: {len(routes)} routes measured")
+        route, seconds, route_launches = routes[0]
+        check(model._route is route, f"{label}: the route is not installed")
+        torch.cuda.synchronize()
+        free()
+        held = torch.cuda.memory_allocated() - baseline
+        kept = model_bytes(model, solvers)
+        check(abs(held - kept) <= ROUTE_SLACK_BYTES,
+              f"{label}: the card holds {held} bytes for the model, its "
+              f"store, mirrors, buckets and solvers are {kept}")
+        line = check_route(model, label, route, seconds, route_launches)
+        log({"phase": "topic", "config": label, "load_s": load_s,
+             "ready_s": ready_s, "model_load_s": mgr.model_load_s,
+             "slice_loads": mgr.slice_loads,
+             "slice_load_fallbacks": mgr.slice_load_fallbacks,
+             "held_bytes": held, "model_bytes": kept,
+             "rows": len(model.Y.row_ids())})
+        window_times(model, rng, label, line["chosen"])
+        summary = serve_and_check(model, label, line, 32, 4, 4,
+                                  RTOL["float32"], 4, layer=layer)
+    finally:
+        kernel_router.measure_routes = real_measure
+        layer.close()
+    check(not layer.consuming, f"{label}: the consumer outlived close()")
+    return summary
 
 
 def known_items(rng, n_items: int) -> dict:
@@ -970,6 +1329,7 @@ def main() -> int:
     from oryx_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
+    threading.excepthook = thread_failed
     # phase 1: environment and build
     log(gpu_line())
     gpu_name = torch.cuda.get_device_name(0)
@@ -988,6 +1348,24 @@ def main() -> int:
     for name, text in cuda_build.LOGS.items():
         print(f"--- {name}\n{text}", file=sys.stderr)
 
+    # phase 4's model directory is written while phases 2-3 run
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.makedirs(os.path.join(work_dir, "model"))
+    publisher = multiprocessing.get_context("spawn").Process(
+        target=publish_topic_model,
+        args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
+    publisher.start()
+    try:
+        return run_phases(torch, gpu_name, t_start, publisher, work_dir)
+    finally:
+        if publisher.is_alive():
+            publisher.terminate()
+        publisher.join(30)
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def run_phases(torch, gpu_name: str, t_start: float, publisher,
+               work_dir: str) -> int:
     rng = np.random.default_rng(SEED)
     cases = []
     serves = {}
@@ -998,10 +1376,11 @@ def main() -> int:
     X = rng.standard_normal((N_USERS, FEATURES), dtype=np.float32)
     known = known_items(rng, N_ITEMS)
     model = build_model(FEATURES, Y, X, known, "float32")
+    route = routed_config(model, "5M_f32_exact", "pallas")
     cases += float_cases(model, rng, gpu_name, False, [torch.float32])
-    window_times(model, rng, "5M_f32_exact", "pallas")
+    window_times(model, rng, "5M_f32_exact", route["chosen"])
     serves["5M_f32_exact"] = serve_and_check(
-        model, "5M_f32_exact", "pallas", 64, 8, 8, RTOL["float32"], 8)
+        model, "5M_f32_exact", route, 64, 8, 8, RTOL["float32"], 8)
     vecs, active = model.Y.device_arrays()
     cases += i8_cases(vecs, active, rng, gpu_name, FEATURES, WINDOWS)
     del model, vecs, active
@@ -1012,21 +1391,23 @@ def main() -> int:
     del model
     free()
     model = build_model(FEATURES, Y, X, known, "bfloat16")
+    route = routed_config(model, "5M_bf16_exact", "pallas")
     cases += float_cases(model, rng, gpu_name, False, [torch.bfloat16])
-    window_times(model, rng, "5M_bf16_exact", "pallas")
+    window_times(model, rng, "5M_bf16_exact", route["chosen"])
     serves["5M_bf16_exact"] = serve_and_check(
-        model, "5M_bf16_exact", "pallas", 32, 4, 4, RTOL["bfloat16"], 4)
+        model, "5M_bf16_exact", route, 32, 4, 4, RTOL["bfloat16"], 4)
     del model
     free()
     known_lsh = {u: [f"i{int(i[1:]) % N_LSH_ITEMS}" for i in items]
                  for u, items in known.items()}
     model = build_model(FEATURES, Y[:N_LSH_ITEMS], X, known_lsh, "float32",
                         sample_rate=LSH_RATE)
+    route = routed_config(model, "1M_f32_lsh0.3", "pallas")
     cases += float_cases(model, rng, gpu_name, True,
                          [torch.float32, torch.bfloat16])
-    window_times(model, rng, "1M_f32_lsh0.3", "pallas")
+    window_times(model, rng, "1M_f32_lsh0.3", route["chosen"])
     serves["1M_f32_lsh0.3"] = serve_and_check(
-        model, "1M_f32_lsh0.3", "pallas", 32, 4, 4, RTOL["float32"], 4)
+        model, "1M_f32_lsh0.3", route, 32, 4, 4, RTOL["float32"], 4)
     del model, Y
     free()
 
@@ -1083,42 +1464,59 @@ def main() -> int:
         del vecs
         free()
 
+    # phase 4: the serving layer loads the 1M x 50 LSH model off the
+    # update topic (BASELINE.md:37)
+    serves["1M_50f_f32_lsh0.3_topic"] = serve_update_topic(publisher,
+                                                           work_dir, rng)
+
     def head(kernel, **want):
         return next(c for c in cases if c["kernel"] == kernel
                     and not c["lsh"] and c["B"] == 256
                     and c.get("label") != "coverage"
                     and all(c[k] == v for k, v in want.items()))
 
-    # summary entry: (wrapper, head case, served configuration, the cases
-    # whose largest error it reports)
+    # summary entry: (wrapper, head case, the configurations that may
+    # serve it, head configuration first, the cases whose largest error
+    # it reports)
+    f32_configs = [c for c in serves if c != "5M_bf16_exact"]
     heads = {
         "phase_a": ("phase_a", head("phase_a", store="float32"),
-                    "5M_f32_exact", {"store": "float32"}),
+                    f32_configs, {"store": "float32"}),
         "phase_a_bf16": ("phase_a", head("phase_a", store="bfloat16"),
-                         "5M_bf16_exact", {"store": "bfloat16"}),
+                         ["5M_bf16_exact"], {"store": "bfloat16"}),
         "phase_a_i8": ("phase_a_i8", head("phase_a_i8", features=50),
-                       "5M_50f_f32_auto", {}),
+                       ["5M_50f_f32_auto", *f32_configs], {}),
         "phase_a_fold": ("phase_a_fold", head("phase_a_fold",
                                               store="float32"),
-                         "20M_10f_f32_noint8", {}),
+                         ["20M_10f_f32_noint8", *f32_configs], {}),
         "phase_a_i8_fold": ("phase_a_i8_fold", head("phase_a_i8_fold"),
-                            "20M_10f_f32_auto", {})}
+                            ["20M_10f_f32_auto", *f32_configs], {})}
+    # each kernel's served configuration is the first of its list whose
+    # route chose it, so its timed round launched it (a route may leave
+    # the static order); the route measurement's launches stand apart
+    served = {name: next((c for c in dict.fromkeys(configs)
+                          if serves[c]["launches"][wrapper] > 0), None)
+              for name, (wrapper, _, configs, _) in heads.items()}
+    check(None not in served.values(),
+          f"a kernel served no configuration's timed round: {served}")
+    check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start})
     log({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[wrapper][1],
         "replaces": KERNELS[wrapper][0],
-        "launches": serves[config]["launches"][wrapper],
+        "launches": serves[served[name]]["launches"][wrapper],
+        "route_launches": serves[served[name]]["route_launches"][wrapper],
         "max_abs_err": max(c["max_abs_err"] for c in cases
                            if c["kernel"] == wrapper
                            and all(c[k] == v for k, v in of.items())),
         "ms": h["ms"], "plain_ms": h["plain_ms"],
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-        "library_ms": h["library_ms"], "served_config": config,
+        "library_ms": h["library_ms"], "served_config": served[name],
         **({"body": h["body"]} if "body" in h else {}),
         "shape": {"rows": h["rows"], "width": h["width"],
                   "features": h["features"], "B": h["B"],
                   "store": h["store"]}}
-        for name, (wrapper, h, config, of) in heads.items()]})
+        for name, (wrapper, h, _, of) in heads.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
                                 "count": torch.cuda.device_count()}})
     return 0

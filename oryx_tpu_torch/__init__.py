@@ -10,7 +10,10 @@ Every entry point that places data takes ``device=None``, which means
 ``cuda``; without a CUDA device such a call raises unless the caller
 passes ``device="cpu"``.  The phase-A scoring kernels are hand-written
 CUDA (``csrc/phase_a.cu``, ``csrc/phase_a_fold.cu``,
-``csrc/phase_a_i8.cu``), built at first use into ``build/kernels/``.
+``csrc/phase_a_i8.cu``, ``csrc/phase_a_i8_fold.cu``), built at first use
+into ``build/kernels/``.  ``lambda_rt.serving.ServingLayer`` serves a
+model replayed off the update topic, from a config such as
+``conf/als-example.conf`` (of this package).
 """
 
 __version__ = "0.1.0"

@@ -2,18 +2,19 @@
 
 Counterpart of ``oryx_tpu/api/serving.py`` (reference:
 ServingModelManager.java:35-76, ServingModel.java:23,
-OryxServingException.java:26, HasCSV.java:25), without the
-update-topic types: the Kafka/update-topic model load comes with a
-later slice, so ``consume`` takes any iterable of updates.
+AbstractServingModelManager.java:35, OryxServingException.java:26,
+HasCSV.java:25).
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Iterable
+from typing import Any, Iterator
 
-__all__ = ["ServingModel", "ServingModelManager", "OryxServingException",
-           "HasCSV"]
+from ..kafka.api import KeyMessage
+
+__all__ = ["ServingModel", "ServingModelManager",
+           "AbstractServingModelManager", "OryxServingException", "HasCSV"]
 
 
 class ServingModel(abc.ABC):
@@ -24,16 +25,46 @@ class ServingModel(abc.ABC):
 
 
 class ServingModelManager(abc.ABC):
-    """Consumes models/updates and exposes the current servable model."""
+    """Consumes models/updates from the update topic and exposes the
+    current servable model.  Configured via
+    ``oryx.serving.model-manager-class``."""
 
     @abc.abstractmethod
-    def consume(self, updates: Iterable[Any]) -> None: ...
+    def consume(self, updates: Iterator[KeyMessage]) -> None: ...
 
     @abc.abstractmethod
     def get_model(self) -> Any: ...
 
+    def get_config(self):
+        return None
+
     def is_read_only(self) -> bool:
         return False
+
+    def close(self) -> None:
+        pass
+
+
+class AbstractServingModelManager(ServingModelManager):
+    """Adapts the stream contract to a per-message callback (reference:
+    AbstractServingModelManager.java:35)."""
+
+    def __init__(self, config):
+        self._config = config
+        self._read_only = config.get_bool("oryx.serving.api.read-only")
+
+    def get_config(self):
+        return self._config
+
+    def is_read_only(self) -> bool:
+        return self._read_only
+
+    def consume(self, updates: Iterator[KeyMessage]) -> None:
+        for km in updates:
+            self.consume_key_message(km.key, km.message)
+
+    @abc.abstractmethod
+    def consume_key_message(self, key: str | None, message: str) -> None: ...
 
 
 class OryxServingException(Exception):

@@ -348,6 +348,18 @@ class FeatureVectorStore:
                 self._row_ids_mutations = self._mutations
             return self._row_ids_cache
 
+    def vtv(self) -> np.ndarray:
+        """V^T V over the live vectors, one float32 matmul on the device
+        (retired rows are zero; the padding columns are sliced off).
+        Reference: FeatureVectors.getVTV."""
+        vecs, _ = self.device_arrays()
+        v = vecs.to(torch.float32)
+        if v.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("vtv needs full float32 products; "
+                               "torch.backends.cuda.matmul.allow_tf32 is set")
+        out = (v.T @ v).cpu().numpy()
+        return out[:self.features, :self.features]
+
     def host_arrays(self) -> tuple[np.ndarray, np.ndarray, list[str | None]]:
         """Copy of (vectors, active, row->id) for host-side iteration."""
         with self._lock.read():

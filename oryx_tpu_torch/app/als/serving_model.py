@@ -33,6 +33,7 @@ certificate's margin and change answers.
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
 from typing import Callable, Iterable, Sequence
@@ -53,6 +54,8 @@ from .lsh import LocalitySensitiveHash, _bucket_kernel, _popcount
 from .rescorer import Rescorer
 
 __all__ = ["ALSServingModel"]
+
+_log = logging.getLogger(__name__)
 
 _NEG_INF = float("-inf")
 
@@ -548,6 +551,16 @@ def _penalty_kernel(active, bs: int):
         -1, bs)
 
 
+# the phase-A mirror caches each kind serves from (each with an
+# ``<attr>_version``), and all of them
+_KIND_MIRRORS = {"i8_fold": ("_i8_fold", "_fold_bkt"),
+                "i8": ("_i8", "_penalty_i"),
+                "fold": ("_fold", "_fold_bkt"),
+                "pallas": ("_penalty",)}
+_MIRROR_CACHES = tuple(dict.fromkeys(
+    a for attrs in _KIND_MIRRORS.values() for a in attrs))
+
+
 def _fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
     return [t.cpu().numpy() for t in tensors]
 
@@ -598,6 +611,12 @@ class ALSServingModel(FactorModelBase, ServingModel):
         self._i8_fold_version: int = -1
         self._fold_bkt: torch.Tensor | None = None
         self._fold_bkt_version: int = -1
+        # measured-cost route (kernel_router.measure_routes), keyed on
+        # the Y store's padded capacity: UP-stream version bumps do not
+        # re-measure
+        self._route: dict | None = None
+        self._route_capacity: int = -1
+        self._route_lock = threading.Lock()
         self._bucket_lock = threading.Lock()
         # exact-scan recomputes forced by a failed two-phase certificate
         self.twophase_fallbacks = 0
@@ -612,23 +631,51 @@ class ALSServingModel(FactorModelBase, ServingModel):
         with self._known_lock.read():
             return set(self._known_items.get(user_id, ()))
 
+    def retain_recent_and_known_items(self, user_ids: Sequence[str],
+                                      item_ids: Sequence[str]) -> None:
+        """Prune known items on a MODEL swap: keep the entries of users
+        in the new model or recently updated in X, and within each set
+        the items in the new model or recently updated in Y (reference:
+        ALSServingModel.retainRecentAndKnownItems :350-383).  Runs
+        before retain_recent_and_user/item_ids, which clear the recent
+        sets."""
+        keep_users = set(user_ids) | self.X.recent_ids()
+        keep_items = set(item_ids) | self.Y.recent_ids()
+        with self._known_lock.write():
+            for u in [u for u in self._known_items if u not in keep_users]:
+                del self._known_items[u]
+            for items in self._known_items.values():
+                items &= keep_items
+
     # -- scoring -------------------------------------------------------------
 
     def metrics(self) -> dict:
         """App-level gauges."""
-        return {
+        out = {
             "users": len(self.X),
             "items": len(self.Y),
             # exact-scan recomputes forced by a failed streaming top-k
             # certificate; nonzero is worth an operator's attention
             "twophase_fallbacks": self.twophase_fallbacks,
         }
+        # the measured-cost route: which kind serves this shape and the
+        # costs the choice was made from
+        r = self._route
+        if r is not None:
+            out["kernel_route"] = r
+        return out
 
     @property
     def kernel_route_label(self) -> str | None:
-        """Label of the measured-cost route serving this shape: None, as
-        the measured-cost router is not part of this package yet."""
-        return None
+        """Label of the measured-cost route serving this shape: the
+        route's ``chosen`` kind, with ``+lsh`` when the Hamming-ball mask
+        is honored.  None before a route is measured, or when it chose
+        nothing."""
+        r = self._route
+        if not r or r.get("chosen") is None:
+            return None
+        return f"{r['chosen']}+lsh" if r.get("use_lsh") \
+            else str(r["chosen"])
 
     def _lsh_active(self) -> bool:
         """True when this model's LSH configuration actually prunes."""
@@ -697,6 +744,18 @@ class ALSServingModel(FactorModelBase, ServingModel):
                 if buckets is not None else None
             return y8f, pen_i_f, bkt_f, sy_b, l1y_b
 
+    def _evict_unused_mirrors(self, keep_kind: str | None) -> None:
+        """Drop the phase-A mirror caches the routed kind does not use:
+        route measurement builds every kind's mirror, and the losers
+        must not stay on the card beside the store.  Version-keyed
+        caches rebuild on demand."""
+        keep = _KIND_MIRRORS.get(keep_kind, ())
+        with self._bucket_lock:
+            for attr in _MIRROR_CACHES:
+                if attr not in keep:
+                    setattr(self, attr, None)
+                    setattr(self, attr + "_version", -1)
+
     def _fold_bkt_locked(self, buckets, version, fold: int,
                          bs: int) -> torch.Tensor:
         """Folded LSH bucket side input, shared by the folded store and
@@ -747,10 +806,11 @@ class ALSServingModel(FactorModelBase, ServingModel):
         scores = _dot_scores(vecs, torch.from_numpy(q).to(self.device))
         if lowest:
             scores = -scores
+        n_rows = int(vecs.shape[0])
+        use_lsh = use_lsh and self._route_use_lsh(n_rows)
         mask = self._lsh_mask(q if use_lsh else None, vecs, version, active)
 
         exclude = set(exclude)
-        n_rows = int(vecs.shape[0])
         if rescorer is not None or allowed is not None:
             # device-side top-M, rescore the M candidates on host; falls
             # back to the full pull only when filtering eats the window
@@ -818,7 +878,8 @@ class ALSServingModel(FactorModelBase, ServingModel):
         # pow2 floor of 8 for the flat path's sizing decision, as the
         # reference sizes it
         b_pad = 1 << max(3, (n_req - 1).bit_length())
-        lsh_on = use_lsh and self._lsh_active()
+        lsh_on = (use_lsh and self._lsh_active()
+                  and self._route_use_lsh(n_rows))
         buckets = self._cached_buckets(vecs, version) if lsh_on else None
         big, chunk = _stream_plan(n_rows, b_pad)
         bs = _BLOCK_ROWS
@@ -877,11 +938,16 @@ class ALSServingModel(FactorModelBase, ServingModel):
                            hp, k: int, chunk: int, bs: int, ksel: int,
                            mb: int) -> list:
         """Run every window's two-phase program on the first kind of the
-        phase-A chain and fetch the results together.  There is no
-        fallback to another kind: a kernel that fails to build or launch
-        raises, and the batcher surfaces it per request."""
-        kinds, fold = self._phase_a_kinds(int(vecs.shape[0]),
-                                          int(vecs.shape[1]), bs)
+        phase-A chain — ordered by measured cost once a route for this
+        shape exists (``_route_order``) — and fetch the results together.
+        There is no fallback to another kind: a kernel that fails to
+        build or launch raises, and the batcher surfaces it per
+        request."""
+        n_rows = int(vecs.shape[0])
+        static_kinds, fold = self._phase_a_kinds(n_rows, int(vecs.shape[1]),
+                                                 bs)
+        kinds = self._route_order(static_kinds, n_rows,
+                                  lsh_on=buckets is not None)
         ctx: dict = {}
         handles = [self._dispatch_kind(kinds[0], qw, vecs, active, version,
                                        buckets, hp, k, bs, ksel, mb, fold,
@@ -960,6 +1026,85 @@ class ALSServingModel(FactorModelBase, ServingModel):
                 kinds.append("pallas")
         kinds.append("scan")
         return kinds, fold
+
+    # -- measured-cost routing (kernel_router) -------------------------------
+
+    def _ann_route_key(self):
+        """The IVF half of the route's re-measure key; constant until
+        the IVF kind is part of this package."""
+        return None
+
+    def _route_order(self, kinds: list[str], n_rows: int,
+                     lsh_on: bool = False) -> list[str]:
+        """The eligible phase-A kinds ordered by measured ascending cost
+        for the live shape, from the drain's own variant's cost table
+        (the mask can invert the ranking between builds).  Kinds without
+        a measurement keep their static order after the measured ones;
+        without a current route the static order stands."""
+        r = self._route_current(n_rows)
+        if not r:
+            return kinds
+        costs = (r.get("costs_lsh_ms") if lsh_on
+                 else r.get("costs_exact_ms")) \
+            or r.get("phase_a_costs_ms") or {}
+        measured = [kk for kk in kinds if costs.get(kk) is not None]
+        if not measured:
+            return kinds
+        measured.sort(key=lambda kk: costs[kk])
+        return measured + [kk for kk in kinds if costs.get(kk) is None]
+
+    def _route_use_lsh(self, n_rows: int) -> bool:
+        """False when the measured route found the Hamming-mask build
+        slower than the exact scan for the live shape; the configuration
+        decides where LSH wins or nothing was measured."""
+        r = self._route_current(n_rows)
+        if not r or r.get("use_lsh") is None:
+            return True
+        return bool(r["use_lsh"])
+
+    def refresh_route(self, force: bool = False) -> dict | None:
+        """Measure per-path cost for the live shape and install the
+        route (``kernel_router.measure_routes``).  Called at model load
+        and on hot-swap; concurrent callers serialize.  A route is
+        reused while the padded capacity and the LSH configuration are
+        unchanged; ``force`` re-measures."""
+        from .kernel_router import measure_routes
+        with self._route_lock:
+            n_rows = len(self.Y.row_ids())
+            r = self._route
+            if (not force and r is not None
+                    and self._route_capacity == n_rows
+                    and r.get("lsh_configured") == self._lsh_active()
+                    and r.get("ann_key") == self._ann_route_key()):
+                return r
+            try:
+                route = measure_routes(self)
+            except Exception:  # noqa: BLE001 — measurement is advisory
+                # routing is an optimization, never a load gate: an
+                # escaped exception would trap the update consumer in
+                # replay-from-0 against the same failure.  Serving keeps
+                # the static chain, whose kernels raise per request if
+                # they are broken
+                _log.exception(
+                    "kernel route measurement failed; serving keeps "
+                    "the static kernel order")
+                return self._route
+            self._route = route
+            self._route_capacity = n_rows
+            self._evict_unused_mirrors(
+                (route or {}).get("chosen") if (route or {}).get(
+                    "path") == "streaming" else None)
+        return route
+
+    def _route_current(self, n_rows: int) -> dict | None:
+        """The installed route if it matches the live padded capacity
+        and LSH configuration (a hot-swap that regrew the store, or a
+        new sample rate, invalidates it)."""
+        r = self._route
+        return r if (r is not None and self._route_capacity == n_rows
+                     and r.get("lsh_configured") == self._lsh_active()
+                     and r.get("ann_key") == self._ann_route_key()) \
+            else None
 
     def _decode_top_n(self, top_scores, top_idx, hm: list[int],
                       excl: list[set[str]], n_req: int, window_partial: bool,

@@ -1,0 +1,35 @@
+"""Filesystem helpers.
+
+Counterpart of ``oryx_tpu/common/io_utils.py`` (reference:
+IOUtils.java), cut down to what the local artifact store uses.  Paths
+may carry a ``file:`` scheme.
+"""
+
+from __future__ import annotations
+
+import glob as _glob
+import os
+
+__all__ = ["strip_scheme", "list_files", "mkdirs"]
+
+
+def strip_scheme(path: str) -> str:
+    """``file:/tmp/x`` or ``file:///tmp/x`` -> ``/tmp/x``; other schemes
+    kept."""
+    if path.startswith("file://"):
+        rest = path[len("file://"):]
+        return rest if rest.startswith("/") else "/" + rest
+    if path.startswith("file:"):
+        return path[len("file:"):]
+    return path
+
+
+def list_files(dir_path: str, pattern: str = "*") -> list[str]:
+    """Sorted glob under a directory (reference: IOUtils.listFiles)."""
+    return sorted(_glob.glob(os.path.join(strip_scheme(dir_path), pattern)))
+
+
+def mkdirs(path: str) -> str:
+    path = strip_scheme(path)
+    os.makedirs(path, exist_ok=True)
+    return path

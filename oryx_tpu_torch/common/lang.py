@@ -1,17 +1,100 @@
-"""Concurrency utilities.
+"""Concurrency and reflection utilities.
 
 Counterpart of ``oryx_tpu/common/lang.py``, cut down to
-``AutoReadWriteLock`` (reference: AutoReadWriteLock.java:37), which the
-feature-vector stores and the serving model's known-items map use.
+``AutoReadWriteLock`` (reference: AutoReadWriteLock.java:37), the
+plugin loader ``load_instance`` (ClassUtils.java:89), ``RateLimitCheck``
+(RateLimitCheck.java:28) and ``logging_call`` (LoggingCallable.java:31).
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
+import inspect
+import logging
 import threading
-from typing import Iterator
+import time
+from typing import Any, Callable, Iterator, TypeVar
 
-__all__ = ["AutoReadWriteLock"]
+_log = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+__all__ = ["AutoReadWriteLock", "load_class", "load_instance",
+           "RateLimitCheck", "logging_call"]
+
+# the package a configured class path must name: a config written for
+# the JAX package (``oryx_tpu.…``) would load that package's classes
+_PACKAGE = __name__.split(".")[0]
+
+
+def load_class(name: str) -> type:
+    """Load a class by its ``pkg.module.Class`` path (the
+    ``model-manager-class`` plugin mechanism).  Only classes of this
+    package load: any other path raises ``ValueError``."""
+    module_name, _, cls_name = name.rpartition(".")
+    if not module_name:
+        raise ValueError(f"not a qualified class name: {name!r}")
+    if module_name.split(".")[0] != _PACKAGE:
+        raise ValueError(
+            f"class {name!r} is not part of {_PACKAGE}: configure the "
+            f"{_PACKAGE} classes (for example "
+            f"{_PACKAGE}.app.als.serving_manager.ALSServingModelManager)")
+    module = importlib.import_module(module_name)
+    try:
+        return getattr(module, cls_name)
+    except AttributeError as e:
+        raise ImportError(
+            f"no class {cls_name!r} in module {module_name!r}") from e
+
+
+def load_instance(name: str, *args: Any) -> Any:
+    """Instantiate by name, with the given args when the constructor
+    takes them and with none otherwise (reference:
+    ClassUtils.loadInstanceOf).  The choice is made by signature, so an
+    error raised inside the constructor propagates."""
+    cls = load_class(name)
+    if args:
+        try:
+            inspect.signature(cls).bind(*args)
+            accepts = True
+        except TypeError:
+            accepts = False
+        if accepts:
+            return cls(*args)
+    return cls()
+
+
+class RateLimitCheck:
+    """True at most once per interval (reference: RateLimitCheck.java:28)."""
+
+    def __init__(self, interval_sec: float):
+        self._interval = interval_sec
+        self._next = time.monotonic()
+        self._lock = threading.Lock()
+
+    def test(self) -> bool:
+        with self._lock:
+            now = time.monotonic()
+            if now >= self._next:
+                self._next = now + self._interval
+                return True
+            return False
+
+
+def logging_call(fn: Callable[[], T],
+                 name: str = "task") -> Callable[[], T | None]:
+    """Wrap a callable to log, not raise, its exceptions — for
+    fire-and-forget threads (reference: LoggingCallable.java:31)."""
+
+    def _wrapped() -> T | None:
+        try:
+            return fn()
+        except Exception:  # noqa: BLE001 — background task
+            _log.exception("Unexpected error in %s", name)
+            return None
+
+    return _wrapped
 
 
 class _RWLock:

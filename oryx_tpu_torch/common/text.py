@@ -1,0 +1,78 @@
+"""Text codecs for the framework's wire formats.
+
+Counterpart of ``oryx_tpu/common/text.py`` (reference: TextUtils.java),
+cut down to the forms the update topic and the model documents use:
+JSON arrays (``["X","userId",[0.1,...],["knownItem"]]``) and PMML
+space-delimited tokens.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Iterable, Sequence
+
+__all__ = ["parse_pmml_delimited", "join_pmml_delimited", "join_json",
+           "read_json"]
+
+
+def _render(e: Any) -> str:
+    if isinstance(e, bool):
+        return "true" if e else "false"
+    if isinstance(e, float):
+        return repr(e)
+    return str(e)
+
+
+def parse_pmml_delimited(line: str) -> list[str]:
+    """PMML space-delimited values: quoted tokens may contain spaces and
+    ``\\"``-escaped quotes; unquoted runs of spaces collapse
+    (reference: TextUtils.parsePMMLDelimited)."""
+    tokens: list[str] = []
+    i, n = 0, len(line)
+    while i < n:
+        if line[i] == " ":
+            i += 1
+            continue
+        if line[i] == '"':
+            i += 1
+            buf: list[str] = []
+            while i < n:
+                c = line[i]
+                if c == "\\" and i + 1 < n and line[i + 1] == '"':
+                    buf.append('"')
+                    i += 2
+                elif c == '"':
+                    i += 1
+                    break
+                else:
+                    buf.append(c)
+                    i += 1
+            tokens.append("".join(buf))
+        else:
+            j = line.find(" ", i)
+            if j < 0:
+                j = n
+            tokens.append(line[i:j])
+            i = j
+    return tokens
+
+
+def join_pmml_delimited(elements: Iterable[Any]) -> str:
+    """Space-delimited with PMML quoting: tokens holding spaces or
+    quotes (or empty ones) are quoted, with ``\\"`` escaping quotes
+    inside (reference: TextUtils.joinPMMLDelimited)."""
+    out = []
+    for e in elements:
+        tok = _render(e)
+        if tok == "" or " " in tok or '"' in tok:
+            tok = '"' + tok.replace('"', '\\"') + '"'
+        out.append(tok)
+    return " ".join(out)
+
+
+def join_json(elements: Sequence[Any]) -> str:
+    return json.dumps(list(elements), separators=(",", ":"))
+
+
+def read_json(s: str) -> Any:
+    return json.loads(s)

@@ -72,7 +72,14 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    [pallas], 5M x 250 float32 with int8_selection="true" [i8], 5M x 250
    bfloat16 [pallas], 1M x 250 float32 LSH 0.3 [pallas], 5M x 50
    float32 [i8], 1M x 50 float32 LSH 0.3 [i8], 20M x 10 float32
-   [i8_fold], and the same with int8_selection="false" [fold].
+   [i8_fold], and the same with int8_selection="false" [fold].  At
+   20M x 10 [i8_fold] one more timed round (32 clients) serves
+   /recommendToAnonymous with contexts of 1-8 items: each context's
+   vector from the port's fold-in on the card must equal a host float64
+   loop of the reference's formula (rtol 1e-4, atol 1e-5, and rtol 1e-4
+   on the whole vector), each answer the model's top-k of that vector
+   with the plain phase-A versions, and only the routed kind's kernel may
+   launch; the Y^T Y solver is computed before the round.
 4. Serve off the update topic: a ``ServingLayer`` started from
    ``oryx_tpu_torch/conf/als-example.conf`` (update topic on a
    temporary ``file://`` broker) replays one MODEL-REF naming a
@@ -83,7 +90,20 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    counters must read 8 slice loads, 0 fallbacks and a load time, both
    Gramian solvers must exist, the route must hold every eligible kind
    and no error, and the rounds of phase 3 run through the layer's own
-   HTTP server and batcher, with the same checks.
+   HTTP server and batcher, with the same checks.  Then, through the
+   same layer: the fold-in round of phase 3 with /recommendToAnonymous
+   and /recommendWithContext mixed; /similarity (2 and 5 items),
+   /similarityToItem, /estimate, /estimateForAnonymous, /because,
+   /mostSurprising, /mostActiveUsers, /mostPopularItems,
+   /popularRepresentativeItems, /user/allIDs and /item/allIDs, each held
+   against plain NumPy on the model's own arrays (the LSH ball, where
+   the route serves it, from the model's item buckets); and POST and
+   DELETE /pref and /ingest (plain, gzip, zip, multipart) onto the input
+   topic the layer created on the same broker, read back from its
+   ``file://`` log: every line exactly once, with the reference's key,
+   in the partition ``partition_for_key`` gives, and a body with one bad
+   line refused with 400 and nothing appended.  Each route prints a
+   ``route_serve`` line with its request count, p50 and p99.
 
 An exception that ends any thread of the run fails it.  The line
 before the last is a JSON ``{"kernels": [...]}`` summary: each kernel's
@@ -148,6 +168,13 @@ TOPIC_FEATURES = 50
 TOPIC_RING = 8
 TOPIC_SEED = SEED + 4
 TOPIC_WAIT_S = 900.0
+# the fold-in routes: contexts of 1-8 items with strengths, each
+# context's vector held against a host float64 loop of the reference's
+# formula; the other routes of phase 4 take a few requests each
+CONTEXT_SEED = SEED + 7
+MAX_CONTEXT = 8
+FOLD_RTOL, FOLD_ATOL = 1e-4, 1e-5
+N_SURFACE = 8
 # what the card may hold after a route beyond the store, the chosen
 # kind's mirror and the LSH buckets (allocator rounding, solver factors)
 ROUTE_SLACK_BYTES = 32 << 20
@@ -924,13 +951,18 @@ def static_server(model):
 
 def serve_and_check(model, label: str, route: dict, n_recommend: int,
                     n_many: int, n_consider: int, rtol: float,
-                    n_exact: int, layer=None) -> dict:
+                    n_exact: int, layer=None, then=None) -> dict:
     """The untimed and the timed round over HTTP, through ``layer``'s
-    server and batcher when given, else through ``static_server``."""
+    server and batcher when given, else through ``static_server``; then
+    ``then(port)``, on the same server, when given."""
     with (contextlib.nullcontext((layer.port, layer.top_n_batcher))
           if layer is not None else static_server(model)) as (port, batcher):
-        return serve_rounds(model, label, route, port, batcher, n_recommend,
-                            n_many, n_consider, rtol, n_exact)
+        summary = serve_rounds(model, label, route, port, batcher,
+                               n_recommend, n_many, n_consider, rtol,
+                               n_exact)
+        if then is not None:
+            then(port)
+        return summary
 
 
 def serve_rounds(model, label: str, route: dict, port: int, batcher,
@@ -951,15 +983,7 @@ def serve_rounds(model, label: str, route: dict, port: int, batcher,
                   [f"u{u}"], True) for u in range(500, 500 + n_consider)]
 
     def fetch(path):
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-        try:
-            t0 = time.perf_counter()
-            conn.request("GET", path, headers={"Accept": "application/json"})
-            resp = conn.getresponse()
-            body = resp.read()
-            return resp.status, body, (time.perf_counter() - t0) * 1e3
-        finally:
-            conn.close()
+        return http_call(port, "GET", path)
 
     status, _, _ = fetch("/ready")
     check(status == 204, f"{label}: /ready gave {status}")
@@ -1030,6 +1054,423 @@ def serve_rounds(model, label: str, route: dict, port: int, batcher,
                "max_ms": lat[-1]}
     log(summary)
     return summary
+
+
+# -- the fold-in routes and the rest of the ALS surface ----------------------
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None,
+              headers: dict | None = None, accept="application/json"):
+    """(status, body, milliseconds) of one request on a new connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body,
+                     headers={"Accept": accept, **(headers or {})})
+        resp = conn.getresponse()
+        out = resp.read()
+        return resp.status, out, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def route_serve(label: str, route: str, times_ms: list[float],
+                **extra) -> dict:
+    lat = sorted(times_ms)
+    line = {"phase": "route_serve", "config": label, "route": route,
+            "requests": len(lat), "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            **extra}
+    log(line)
+    return line
+
+
+def gramian64(model) -> np.ndarray:
+    """Y^T Y of the model's live item rows, in float64 on the host."""
+    host, active, _ = model.Y.host_arrays()
+    f = model.features
+    g = np.zeros((f, f))
+    for s in range(0, host.shape[0], 1 << 22):
+        b = host[s:s + (1 << 22), :f].astype(np.float64)
+        b[~active[s:s + (1 << 22)]] = 0.0
+        g += b.T @ b
+    return g
+
+
+def target_qui(implicit: bool, value: float, current: float) -> float:
+    """ALSUtils.computeTargetQui; NaN means no change."""
+    if not implicit:
+        return value
+    if value > 0.0 and current < 1.0:
+        return current + (value / (1.0 + value)) * (1.0 - max(0.0, current))
+    if value < 0.0 and current > 0.0:
+        return current + (value / (value - 1.0)) * (-min(1.0, current))
+    return float("nan")
+
+
+def fold_in_f64(gram: np.ndarray, model, ctx, xu):
+    """The reference's context fold-in (als_fold_in.py:101-117, one
+    event after another) as a plain host float64 loop over the Gramian."""
+    x = None if xu is None else np.asarray(xu, np.float64)
+    for item, value in ctx:
+        y = model.get_item_vector(item)
+        if y is None:
+            continue
+        y = y.astype(np.float64)
+        qui = float(x @ y) if x is not None else 0.0
+        target = target_qui(model.implicit, value,
+                            qui if x is not None else 0.5)
+        if np.isnan(target):
+            continue
+        d = np.linalg.solve(gram, y * (target - qui))
+        x = d if x is None else x + d
+    return x
+
+
+def contexts(rng, n_items: int, n: int) -> list[list[tuple[str, float]]]:
+    """``n`` contexts of 1-8 distinct items with strengths (3 decimals,
+    so the path spells the value exactly)."""
+    out = []
+    for _ in range(n):
+        m = int(rng.integers(1, MAX_CONTEXT + 1))
+        items = rng.choice(n_items, m, replace=False)
+        out.append([(f"i{j}", float(f"{rng.uniform(0.2, 3.0):.3f}"))
+                    for j in items])
+    return out
+
+
+def context_path(ctx) -> str:
+    return "/".join(f"{i}={v}" for i, v in ctx)
+
+
+def anonymous_round(model, label: str, port: int, gram: np.ndarray,
+                    ctxs, users, rtol: float) -> list[dict]:
+    """One timed concurrent round (32 clients) of /recommendToAnonymous
+    (``users[i]`` None) and /recommendWithContext.  Each context's vector
+    from the port's fold-in on the card is held against the float64 loop;
+    each answer against the model's own top-k of that vector with every
+    phase-A kernel swapped for its plain version; only the routed kind's
+    kernel may have launched."""
+    from oryx_tpu_torch.ops import als_fold_in
+    import torch
+    kind = routed_kind(model)
+    expected = next(k for k, v in KERNELS.items() if v[2] == kind)
+    solver = model.get_yty_solver(blocking=True)
+    check(solver is not None, f"{label}: no Y^T Y solver")
+    paths = [f"/recommendToAnonymous/{context_path(c)}?howMany=10"
+             if u is None else
+             f"/recommendWithContext/{u}/{context_path(c)}?howMany=10"
+             for c, u in zip(ctxs, users)]
+    torch.cuda.synchronize()
+    reset_launches()
+    with concurrent.futures.ThreadPoolExecutor(32) as pool:
+        results = list(pool.map(lambda p: http_call(port, "GET", p), paths))
+    launches = read_launches()
+    for path, (status, body, _) in zip(paths, results):
+        check(status == 200, f"{label}: {path} gave {status}: {body[:300]}")
+    check(launches[expected] > 0,
+          f"{label}: {expected} launched no time in the fold-in round: "
+          f"{launches}")
+    check(all(v == 0 for k, v in launches.items() if k != expected),
+          f"{label}: another phase-A kernel than {expected} launched in the "
+          f"fold-in round: {launches}")
+    Q, excl, abs_err, rel_err, fold_ms = [], [], 0.0, 0.0, []
+    for ctx, u in zip(ctxs, users):
+        xu0 = None if u is None else model.get_user_vector(u)
+        # one request's fold-in alone, on an idle card (it ends in a
+        # fetch, so the host clock holds its device time)
+        t0 = time.perf_counter()
+        got = als_fold_in.fold_in_sequential(
+            solver, ctx, model.get_item_vector, xu0, model.implicit,
+            model.features)
+        fold_ms.append((time.perf_counter() - t0) * 1e3)
+        want = fold_in_f64(gram, model, ctx, xu0)
+        check(got is not None and want is not None,
+              f"{label}: a context folded into no vector: {ctx}")
+        np.testing.assert_allclose(got, want, rtol=FOLD_RTOL, atol=FOLD_ATOL,
+                                   err_msg=f"{label} fold-in {ctx}")
+        abs_err = max(abs_err, float(np.max(np.abs(got - want))))
+        if xu0 is None:
+            # an anonymous vector is small next to FOLD_ATOL: hold its
+            # relative error too
+            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            check(rel <= FOLD_RTOL, f"{label}: fold-in relative error {rel}")
+            rel_err = max(rel_err, rel)
+        Q.append(got)
+        known = set() if u is None else model.get_known_items(u)
+        excl.append(known | {i for i, _ in ctx})
+    want_all, _ = reference_top_n_batch(model, 10, np.asarray(Q, np.float32),
+                                        excl)
+    for path, (_, body, _), w in zip(paths, results, want_all):
+        got = [(d["id"], d["value"]) for d in json.loads(body)]
+        check(len(got) == 10, f"{label}: {path} gave {len(got)} items")
+        same_answers(got, w, rtol, f"{label} {path}")
+    out = []
+    for route, user_kind in (("/recommendToAnonymous", False),
+                             ("/recommendWithContext", True)):
+        times = [r[2] for r, u in zip(results, users)
+                 if (u is not None) == user_kind]
+        if times:
+            out.append(route_serve(
+                label, route, times, concurrency=32, kind=kind,
+                launches=launches, fold_in_max_abs_err=abs_err,
+                fold_in_max_rel_err_anonymous=rel_err,
+                fold_in_alone_p50_ms=statistics.median(fold_ms),
+                context_items=sum(len(c) for c in ctxs) / len(ctxs)))
+    return out
+
+
+def lsh_eligible(model, q: np.ndarray, active: np.ndarray) -> np.ndarray:
+    """The rows a flat top-N of query ``q`` considers: live, and under an
+    LSH route within the Hamming ball of q's bucket (the model's item
+    buckets; the query's bucket and the ball in NumPy)."""
+    if not (route_lsh(model) and model.lsh.num_hashes > 0):
+        return active
+    vecs, _, version = model.Y.device_arrays_versioned()
+    buckets = model._cached_buckets(vecs, version).cpu().numpy()
+    signs = (model.lsh.hyperplanes @ q.astype(np.float32)) > 0
+    target = int(sum(1 << i for i, s in enumerate(signs) if s))
+    diff = np.bitwise_xor(buckets, np.int32(target)).view(np.uint32)
+    ones = np.unpackbits(diff.view(np.uint8)).reshape(-1, 32).sum(axis=1)
+    return active & (ones <= model.lsh.max_bits_differing)
+
+
+def held_top_n(got, scores: np.ndarray, eligible: np.ndarray, row_of,
+               n: int, what: str, rtol: float = 1e-4) -> None:
+    """``got`` is an exact top-n of ``scores`` over ``eligible`` rows, up
+    to ties: each score matches its row's, the list descends, it is n long
+    (or every eligible row), and no row left out scores above the lowest
+    returned by more than the tolerance."""
+    check(len(got) == min(n, int(eligible.sum())),
+          f"{what}: {len(got)} results")
+    rows = [row_of(i) for i, _ in got]
+    check(None not in rows and all(eligible[r] for r in rows),
+          f"{what}: a result is not an eligible row")
+    np.testing.assert_allclose([v for _, v in got], scores[rows], rtol=rtol,
+                               atol=1e-6, err_msg=what)
+    vals = [v for _, v in got]
+    check(all(a >= b for a, b in zip(vals, vals[1:])), f"{what}: not sorted")
+    rest = eligible.copy()
+    rest[rows] = False
+    if rest.any() and rows:
+        best_left = float(scores[rest].max())
+        low = float(min(scores[rows]))
+        check(best_left <= low + rtol * abs(low) + 1e-6,
+              f"{what}: a row scoring {best_left} was left out below {low}")
+
+
+def surface_checks(model, label: str, port: int, known: dict,
+                   rng) -> list[dict]:
+    """Every other ALS read route of phase 4, a few requests each, held
+    against plain NumPy on the model's own arrays."""
+    host, active, row_ids = model.Y.host_arrays()
+    f = model.features
+    Yh = host[:, :f].astype(np.float64)
+    y_norm = np.linalg.norm(Yh, axis=1)
+    row_of = model.Y.row_of
+    n_items = len(model.Y)
+    lines = []
+
+    def get(path, accept="application/json"):
+        status, body, ms = http_call(port, "GET", path, accept=accept)
+        check(status == 200, f"{label}: {path} gave {status}: {body[:300]}")
+        return json.loads(body), ms
+
+    def pairs(body):
+        return [(d["id"], d["value"]) for d in body]
+
+    def close(got, want, what, atol):
+        """Equal ids, values within rtol 1e-4 and ``atol`` (the float32
+        round-off of a sum of ``features`` products)."""
+        check([i for i, _ in got] == [i for i, _ in want],
+              f"{what}: ids {[i for i, _ in got]} != {[i for i, _ in want]}")
+        np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
+                                   rtol=1e-4, atol=atol, err_msg=what)
+
+    # /similarity: mean-cosine top-N, 2 and 5 items
+    times = []
+    for j in range(N_SURFACE):
+        ids = [f"i{k}" for k in rng.choice(n_items, 2 if j % 2 else 5,
+                                           replace=False)]
+        body, ms = get(f"/similarity/{'/'.join(ids)}?howMany=10")
+        times.append(ms)
+        V = np.stack([model.get_item_vector(i) for i in ids], axis=1)
+        V = V.astype(np.float64)
+        cos = (Yh @ V) / np.maximum(
+            y_norm[:, None] * np.linalg.norm(V, axis=0)[None, :], 1e-12)
+        elig = lsh_eligible(model, V.mean(axis=1), active.copy())
+        elig[[row_of(i) for i in ids]] = False
+        held_top_n(pairs(body), cos.mean(axis=1), elig, row_of, 10,
+                   f"{label} /similarity/{ids}")
+    lines.append(route_serve(label, "/similarity", times))
+
+    # /similarityToItem, /estimate, /because, /mostSurprising
+    times = {r: [] for r in ("/similarityToItem", "/estimate", "/because",
+                             "/mostSurprising", "/estimateForAnonymous")}
+    gram = gramian64(model)
+    for j in range(N_SURFACE):
+        u = f"u{int(rng.integers(0, N_USERS))}"
+        xu = model.get_user_vector(u).astype(np.float64)
+        kn = sorted(known[u])
+        to, ids = f"i{int(rng.integers(0, n_items))}", \
+            [f"i{k}" for k in rng.choice(n_items, 4, replace=False)]
+        to_v = model.get_item_vector(to).astype(np.float64)
+        body, ms = get(f"/similarityToItem/{to}/{'/'.join(ids)}")
+        times["/similarityToItem"].append(ms)
+        want = [(i, float(model.get_item_vector(i) @ to_v
+                          / (np.linalg.norm(model.get_item_vector(i))
+                             * np.linalg.norm(to_v)))) for i in ids]
+        close(pairs(body), want, f"{label} /similarityToItem", 1e-6)
+        body, ms = get(f"/estimate/{u}/{'/'.join(ids)}/nope")
+        times["/estimate"].append(ms)
+        want = [(i, float(xu @ model.get_item_vector(i))) for i in ids]
+        close(pairs(body), want + [("nope", 0.0)], f"{label} /estimate",
+              1e-4)
+        body, ms = get(f"/because/{u}/{to}?howMany=20")
+        times["/because"].append(ms)
+        sims = sorted(((i, float(model.get_item_vector(i) @ to_v
+                                 / (np.linalg.norm(model.get_item_vector(i))
+                                    * np.linalg.norm(to_v)))) for i in kn),
+                      key=lambda t: -t[1])
+        close(pairs(body), sims, f"{label} /because", 1e-6)
+        body, ms = get(f"/mostSurprising/{u}?howMany=20")
+        times["/mostSurprising"].append(ms)
+        dots = sorted(((i, float(xu @ model.get_item_vector(i)))
+                       for i in kn), key=lambda t: t[1])
+        close(pairs(body), dots, f"{label} /mostSurprising", 1e-4)
+        ctx = contexts(rng, n_items, 1)[0]
+        body, ms = get(f"/estimateForAnonymous/{to}/{context_path(ctx)}")
+        times["/estimateForAnonymous"].append(ms)
+        xa = fold_in_f64(gram, model, ctx, None)
+        # the context vector is small: its error bound, not FOLD_ATOL,
+        # scales the tolerance
+        np.testing.assert_allclose(
+            body, float(xa @ to_v), rtol=FOLD_RTOL,
+            atol=FOLD_RTOL * float(np.linalg.norm(xa) * np.linalg.norm(to_v)),
+            err_msg=f"{label} /estimateForAnonymous")
+    lines += [route_serve(label, r, t) for r, t in times.items()]
+
+    # /mostActiveUsers, /mostPopularItems: counts from the UP records
+    user_counts = {u: len(set(items)) for u, items in known.items() if items}
+    item_counts: dict[str, int] = {}
+    for items in known.values():
+        for i in set(items):
+            item_counts[i] = item_counts.get(i, 0) + 1
+    for route, want in (("/mostActiveUsers", user_counts),
+                        ("/mostPopularItems", item_counts)):
+        times = []
+        for _ in range(N_SURFACE):
+            body, ms = get(f"{route}?howMany=50")
+            times.append(ms)
+            got = [(d["id"], d["count"]) for d in body]
+            check([c for _, c in got]
+                  == sorted(want.values(), reverse=True)[:50],
+                  f"{label} {route}: counts {got[:5]}")
+            check(all(want.get(i) == c for i, c in got),
+                  f"{label} {route}: an id's count differs")
+        lines.append(route_serve(label, route, times))
+
+    # /popularRepresentativeItems: the top item along each feature axis
+    times = []
+    for _ in range(2):
+        body, ms = get("/popularRepresentativeItems")
+        times.append(ms)
+        check(len(body) == f, f"{label}: {len(body)} representatives")
+        for k, item in enumerate(body):
+            unit = np.zeros(f)
+            unit[k] = 1.0
+            elig = lsh_eligible(model, unit, active.copy())
+            held_top_n([(item, float(Yh[row_of(item), k]))], Yh[:, k], elig,
+                       row_of, 1, f"{label} representative {k}")
+    lines.append(route_serve(label, "/popularRepresentativeItems", times))
+
+    for route, want in (("/user/allIDs", {f"u{u}" for u in range(N_USERS)}),
+                        ("/item/allIDs", {i for i in row_ids if i})):
+        body, ms = get(route)
+        check(len(body) == len(want) and set(body) == want,
+              f"{label} {route}: {len(body)} ids")
+        lines.append(route_serve(label, route, [ms]))
+    return lines
+
+
+def write_path_checks(label: str, port: int, broker_dir: str,
+                      topic: str) -> list[dict]:
+    """POST and DELETE /pref and /ingest (plain, gzip, zip, multipart)
+    through the layer, then the input topic read back from its file://
+    log: every line exactly once, with the reference's key, in the
+    partition ``partition_for_key`` gives; a body with one bad line
+    answers 400 and appends nothing."""
+    import gzip
+    import io
+    import zipfile
+    import zlib
+    from oryx_tpu_torch.kafka.partitioner import partition_for_key
+
+    def log_records():
+        with open(os.path.join(broker_dir, f"{topic}.meta.json")) as fh:
+            n = json.load(fh)["partitions"]
+        out = []
+        for p in range(n):
+            name = f"{topic}.topic.jsonl" if p == 0 else \
+                f"{topic}.p{p}.topic.jsonl"
+            path = os.path.join(broker_dir, name)
+            with open(path, encoding="utf-8") as fh:
+                out.append([json.loads(line) for line in fh if line.strip()])
+        return out
+
+    zbuf = io.BytesIO()
+    with zipfile.ZipFile(zbuf, "w") as zf:
+        zf.writestr("a.csv", "z1,zi1,1\nz2,zi2,2\n")
+    mp = (b"--b0\r\nContent-Disposition: form-data; name=\"a\"; "
+          b"filename=\"a.csv\"\r\nContent-Type: text/csv\r\n\r\n"
+          b"m1,mi1,1\r\n--b0\r\nContent-Disposition: form-data; "
+          b"name=\"b\"; filename=\"b.csv.gz\"\r\nContent-Type: "
+          b"application/octet-stream\r\nContent-Transfer-Encoding: "
+          b"binary\r\n\r\n" + gzip.compress(b"m2,mi2,2\n")
+          + b"\r\n--b0--\r\n")
+    writes = [
+        ("POST /pref", "POST", "/pref/u1/i2", b"2.5", {}, ["u1,i2,2.5"]),
+        ("POST /pref", "POST", "/pref/u3/i4", b"", {}, ["u3,i4,1"]),
+        ("DELETE /pref", "DELETE", "/pref/u5/i6", None, {}, ["u5,i6,"]),
+        ("/ingest plain", "POST", "/ingest", b"p1,pi1,1\np2,pi2,2.0,17\n",
+         {"Content-Type": "text/csv"}, ["p1,pi1,1", "p2,pi2,2.0,17"]),
+        ("/ingest gzip", "POST", "/ingest",
+         gzip.compress(b"g1,gi1,1\ng2,gi2,3\n"),
+         {"Content-Encoding": "gzip"}, ["g1,gi1,1", "g2,gi2,3"]),
+        ("/ingest zip", "POST", "/ingest", zbuf.getvalue(),
+         {"Content-Type": "application/zip"}, ["z1,zi1,1", "z2,zi2,2"]),
+        ("/ingest multipart", "POST", "/ingest", mp,
+         {"Content-Type": "multipart/form-data; boundary=b0"},
+         ["m1,mi1,1", "m2,mi2,2"]),
+    ]
+    before = log_records()
+    times: dict[str, list[float]] = {}
+    expected = []
+    for name, method, path, body, headers, lines in writes:
+        status, out, ms = http_call(port, method, path, body, headers)
+        check(status in (200, 204), f"{label}: {name} gave {status}: "
+              f"{out[:300]}")
+        times.setdefault(name, []).append(ms)
+        expected += lines
+    after = log_records()
+    added = [recs[len(old):] for old, recs in zip(before, after)]
+    got = []
+    for p, recs in enumerate(added):
+        for key, message, headers in recs:
+            check(key == format(zlib.crc32(message.encode()), "x"),
+                  f"{label}: key {key} of {message!r}")
+            check(partition_for_key(key, len(added)) == p,
+                  f"{label}: {message!r} in partition {p}")
+            check(set(headers) == {"ts"}, f"{label}: headers {headers}")
+            got.append(message)
+    check(sorted(got) == sorted(expected),
+          f"{label}: the input topic holds {sorted(got)}, expected "
+          f"{sorted(expected)}")
+    status, _, ms = http_call(port, "POST", "/ingest",
+                              b"b1,bi1,1\nnot-a-record\n")
+    check(status == 400, f"{label}: a bad /ingest line gave {status}")
+    check(log_records() == after, f"{label}: a refused /ingest appended")
+    times["/ingest bad line"] = [ms]
+    return [route_serve(label, name, t) for name, t in times.items()]
 
 
 def phase_a_program(model, kind: str, Q):
@@ -1125,13 +1566,27 @@ def window_times(model, rng, label: str, kind: str) -> list[dict]:
 
 
 def serve_config(features, Y, X, known, label: str, kind: str, dtype,
-                 sample_rate, int8_selection, counts, rng, y_ids=None):
+                 sample_rate, int8_selection, counts, rng, y_ids=None,
+                 anonymous: bool = False):
+    """Build, route and serve one configuration; with ``anonymous``, a
+    timed round of /recommendToAnonymous follows the rounds, its solver
+    and float64 Gramian computed before it."""
     model = build_model(features, Y, X, known, dtype, sample_rate,
                         int8_selection, y_ids)
     route = routed_config(model, label, kind)
     window_times(model, rng, label, route["chosen"])
+    then = None
+    if anonymous:
+        check(model.get_yty_solver(blocking=True) is not None,
+              f"{label}: no Y^T Y solver")
+        gram = gramian64(model)
+        ctxs = contexts(np.random.default_rng(CONTEXT_SEED), len(Y), 32)
+
+        def then(port):
+            anonymous_round(model, label, port, gram, ctxs, [None] * 32,
+                            RTOL[dtype])
     summary = serve_and_check(model, label, route, *counts, RTOL[dtype],
-                              counts[0] // 8)
+                              counts[0] // 8, then=then)
     return model, summary
 
 
@@ -1218,7 +1673,7 @@ def serve_update_topic(publisher, work_dir: str, rng) -> dict:
     conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "oryx_tpu_torch", "conf", "als-example.conf")
     cfg = overlay_on({"oryx.update-topic.broker": broker,
-                      "oryx.input-topic.broker": None,
+                      "oryx.input-topic.broker": broker,
                       "oryx.als.sample-rate": LSH_RATE}, from_file(conf))
 
     measured = []
@@ -1308,6 +1763,18 @@ def serve_update_topic(publisher, work_dir: str, rng) -> dict:
         window_times(model, rng, label, line["chosen"])
         summary = serve_and_check(model, label, line, 32, 4, 4,
                                   RTOL["float32"], 4, layer=layer)
+        # the fold-in routes, every other read route, and the write path
+        check(layer.input_producer is not None,
+              f"{label}: the layer has no input producer")
+        ctx_rng = np.random.default_rng(CONTEXT_SEED)
+        ctxs = contexts(ctx_rng, N_TOPIC_ITEMS, 32)
+        users = [None if j % 2 == 0 else
+                 f"u{int(ctx_rng.integers(0, N_USERS))}" for j in range(32)]
+        anonymous_round(model, label, layer.port, gramian64(model), ctxs,
+                        users, RTOL["float32"])
+        surface_checks(model, label, layer.port, known, ctx_rng)
+        write_path_checks(label, layer.port, broker[len("file://"):],
+                          cfg.get_string("oryx.input-topic.message.topic"))
     finally:
         kernel_router.measure_routes = real_measure
         layer.close()
@@ -1435,7 +1902,7 @@ def run_phases(torch, gpu_name: str, t_start: float, publisher,
     y_ids = [f"i{j}" for j in range(N_FOLD_ITEMS)]
     model, serves["20M_10f_f32_auto"] = serve_config(
         10, Y, X, known_20m, "20M_10f_f32_auto", "i8_fold", "float32", 1.0,
-        "auto", (32, 4, 4), rng, y_ids)
+        "auto", (32, 4, 4), rng, y_ids, anonymous=True)
     vecs, active = model.Y.device_arrays()
     cases += fold_cases(vecs, active, rng, gpu_name, 10, WINDOWS, "20M_10f",
                         float_windows=(8, 256))

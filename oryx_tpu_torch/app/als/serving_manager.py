@@ -4,13 +4,13 @@ model.
 Counterpart of ``oryx_tpu/app/als/serving_manager.py`` (reference:
 ALSServingModelManager.java:45-160 — UP handling with known items
 :70-105, the solver trigger at the load fraction :96-103, MODEL and
-MODEL-REF handling with the retain logic :107-130).  It serves one
+MODEL-REF handling with the retain logic :107-130, the rescorer
+providers of ``oryx.als.rescorer-provider-class`` :120-137).  It serves one
 catalog shard (``0/1``): the whole catalog.  The measured-cost kernel
 route is installed when the load fraction crosses
 ``oryx.serving.min-model-load-fraction`` and re-checked on every MODEL
 (a no-op while the store's capacity is unchanged).  Not part of this
 package yet: the IVF index (``oryx.als.ann.enabled`` must be false),
-rescorer providers (``oryx.als.rescorer-provider-class`` must be null),
 item sharding over several cards (``item-shards`` 1) and the serving
 cluster's other shards.
 """
@@ -29,6 +29,7 @@ from ..pmml_utils import read_pmml_from_update_key_message
 from . import common as als_common
 from . import slices
 from .feature_vectors import resolve_dtype
+from .rescorer import load_rescorer_providers
 from .serving_model import ALSServingModel
 
 _log = logging.getLogger(__name__)
@@ -46,10 +47,8 @@ class ALSServingModelManager(AbstractServingModelManager):
         self.device = device
         self.model: ALSServingModel | None = None
         self._triggered_solver = False
-        if config.get_optional_string(
-                "oryx.als.rescorer-provider-class") is not None:
-            raise ValueError("oryx.als.rescorer-provider-class: rescorer "
-                             "providers are not part of this package yet")
+        self.rescorer_provider = load_rescorer_providers(
+            config.get_optional_string("oryx.als.rescorer-provider-class"))
         if config.get_bool("oryx.als.ann.enabled"):
             raise ValueError("oryx.als.ann.enabled: the IVF index is not "
                              "part of this package yet")
@@ -167,7 +166,8 @@ class ALSServingModelManager(AbstractServingModelManager):
             # at its own load fraction
             self._triggered_solver = False
             self.model = ALSServingModel(
-                features, implicit, self.sample_rate, None,
+                features, implicit, self.sample_rate,
+                self.rescorer_provider,
                 dtype=self.factor_dtype, device=self.device,
                 int8_selection=self.int8_selection,
                 fold_scan=self.fold_scan)

@@ -20,6 +20,10 @@ block (``ops/phase_a_i8.py``) and "i8_fold" over the folded int8 mirror
 into sound float32 upper bounds before phase B.  "scan" is the plain
 PyTorch build.
 
+``top_n`` scores by dot product with one user vector or by mean cosine
+similarity to a set of item vectors (``/similarity``).  Known items keep
+an incremental per-item popularity counter.
+
 Every top-k here has ``jax.lax.top_k``'s contract — descending, equal
 values in ascending index order — so ids come out in the reference's
 order, ties included (``torch.topk`` promises no order among ties).
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from ...api.serving import ServingModel
+from ...common.device import check_f32_matmul as _check_f32_matmul
 from ...common.lang import AutoReadWriteLock
 from ...ops.phase_a import MAX_WIDTH as PHASE_A_MAX_WIDTH
 from ...ops.phase_a import phase_a
@@ -94,14 +99,6 @@ def _window_sizes(n: int) -> list[int]:
     return out
 
 
-def _check_f32_matmul(device: torch.device) -> None:
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is set: ALS scoring needs "
-            "full float32 products (the two-phase certificate's 1e-4 margin "
-            "does not cover TF32 rounding)")
-
-
 def _q_cast(Q: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """Match the query operand to a stored factor matrix: zero-pad its
     columns to the snapshot's padded width (every dot product stays
@@ -129,6 +126,24 @@ def _scores(Qc: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
 
 def _dot_scores(Y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _scores(_q_cast(x[None, :], Y), Y)[0]
+
+
+def _cosine_mean_scores(Y: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """(N,) mean cosine similarity of each row of Y to the column vectors
+    of the (features, m) V (reference: CosineAverageFunction.java:25).
+    V's rows are zero-padded to a lane-padded store's width; the rows of
+    Y widen to float32 in chunks, so a bf16 store's norms accumulate in
+    float32 as its dot products do."""
+    if V.shape[0] != Y.shape[1]:
+        V = torch.nn.functional.pad(V, (0, 0, 0, Y.shape[1] - V.shape[0]))
+    v_norm = torch.linalg.norm(V, dim=0, keepdim=True)
+    out = []
+    for s in range(0, Y.shape[0], _WIDEN_CHUNK_ROWS):
+        y = Y[s:s + _WIDEN_CHUNK_ROWS].to(torch.float32)
+        y_norm = torch.linalg.norm(y, dim=1, keepdim=True)
+        denom = torch.clamp(y_norm * v_norm, min=1e-12)
+        out.append(torch.mean((y @ V) / denom, dim=1))
+    return torch.cat(out)
 
 
 def _lsh_ok(ok, buckets, target, max_bits: int):
@@ -582,6 +597,9 @@ class ALSServingModel(FactorModelBase, ServingModel):
         super().__init__(features, implicit, dtype=dtype, device=device)
         self.rescorer_provider = rescorer_provider
         self._known_items: dict[str, set[str]] = {}
+        # item -> number of users whose known items hold it, kept with
+        # every known-items write and prune
+        self._item_pop: dict[str, int] = {}
         self._known_lock = AutoReadWriteLock()
         self.lsh = (LocalitySensitiveHash(sample_rate, features,
                                           device=self.device)
@@ -625,11 +643,26 @@ class ALSServingModel(FactorModelBase, ServingModel):
 
     def add_known_items(self, user_id: str, item_ids: Iterable[str]) -> None:
         with self._known_lock.write():
-            self._known_items.setdefault(user_id, set()).update(item_ids)
+            known = self._known_items.setdefault(user_id, set())
+            for iid in item_ids:
+                if iid not in known:
+                    known.add(iid)
+                    self._item_pop[iid] = self._item_pop.get(iid, 0) + 1
 
     def get_known_items(self, user_id: str) -> set[str]:
         with self._known_lock.read():
             return set(self._known_items.get(user_id, ()))
+
+    def get_known_item_counts(self) -> dict[str, int]:
+        """user -> number of known items (users with none left out)."""
+        with self._known_lock.read():
+            return {u: len(s) for u, s in self._known_items.items() if s}
+
+    def get_item_popularity_counts(self) -> dict[str, int]:
+        """item -> number of users that know it, from the incremental
+        counter."""
+        with self._known_lock.read():
+            return {i: c for i, c in self._item_pop.items() if c > 0}
 
     def retain_recent_and_known_items(self, user_ids: Sequence[str],
                                       item_ids: Sequence[str]) -> None:
@@ -643,9 +676,14 @@ class ALSServingModel(FactorModelBase, ServingModel):
         keep_items = set(item_ids) | self.Y.recent_ids()
         with self._known_lock.write():
             for u in [u for u in self._known_items if u not in keep_users]:
-                del self._known_items[u]
+                for iid in self._known_items.pop(u):
+                    self._item_pop[iid] -= 1
             for items in self._known_items.values():
+                for iid in items - keep_items:
+                    self._item_pop[iid] -= 1
                 items &= keep_items
+            self._item_pop = {i: c for i, c in self._item_pop.items()
+                              if c > 0}
 
     # -- scoring -------------------------------------------------------------
 
@@ -791,19 +829,34 @@ class ALSServingModel(FactorModelBase, ServingModel):
         return active & self.lsh.candidate_mask(query_vec, buckets)
 
     def top_n(self, how_many: int,
-              user_vector: np.ndarray,
+              user_vector: np.ndarray | None = None,
+              cosine_to: np.ndarray | None = None,
               exclude: Iterable[str] = (),
               rescorer: Rescorer | None = None,
               allowed: Callable[[str], bool] | None = None,
               lowest: bool = False,
               use_lsh: bool = True) -> list[tuple[str, float]]:
-        """Top (or bottom, with ``lowest``) dot-product scoring items with
-        scores (the reference's DotsFunction).  ``use_lsh=False`` forces
-        an exact scan even on an LSH-configured model."""
+        """Top (or bottom, with ``lowest``) scoring items with scores.
+        Exactly one of ``user_vector`` (dot-product scores, the
+        reference's DotsFunction) or ``cosine_to`` (a (features,) vector
+        or (features, m) columns: mean-cosine scores,
+        CosineAverageFunction) selects the scores; the cosine query's
+        LSH bucket is that of the columns' mean.  ``use_lsh=False``
+        forces an exact scan even on an LSH-configured model."""
+        if (user_vector is None) == (cosine_to is None):
+            raise ValueError("exactly one of user_vector and cosine_to")
         _check_f32_matmul(self.device)
         vecs, active, version = self.Y.device_arrays_versioned()
-        q = np.asarray(user_vector, dtype=np.float32)
-        scores = _dot_scores(vecs, torch.from_numpy(q).to(self.device))
+        if user_vector is not None:
+            q = np.asarray(user_vector, dtype=np.float32)
+            scores = _dot_scores(vecs, torch.from_numpy(q).to(self.device))
+        else:
+            V = np.asarray(cosine_to, dtype=np.float32)
+            if V.ndim == 1:
+                V = V[:, None]
+            scores = _cosine_mean_scores(
+                vecs, torch.from_numpy(V).to(self.device))
+            q = V.mean(axis=1)
         if lowest:
             scores = -scores
         n_rows = int(vecs.shape[0])
@@ -1198,6 +1251,14 @@ class ALSServingModel(FactorModelBase, ServingModel):
             out.sort(key=lambda t: t[1] if lowest else -t[1])
             return out[:how_many]
         return out
+
+    # -- misc queries --------------------------------------------------------
+
+    def all_user_ids(self) -> list[str]:
+        return self.X.all_ids()
+
+    def all_item_ids(self) -> list[str]:
+        return self.Y.all_ids()
 
     def __repr__(self):  # pragma: no cover
         return (f"ALSServingModel[features:{self.features}, "

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "check_f32_matmul"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +20,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on "
             "the CPU")
     return dev
+
+
+def check_f32_matmul(device: torch.device) -> None:
+    """Refuse to score on a CUDA device while TF32 matmuls are allowed:
+    the scoring products and the fold-in solves need full float32 (the
+    two-phase certificate's 1e-4 margin does not cover TF32 rounding)."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is set: ALS scoring needs "
+            "full float32 products (the two-phase certificate's 1e-4 margin "
+            "does not cover TF32 rounding)")

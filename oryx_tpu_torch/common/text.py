@@ -1,18 +1,33 @@
 """Text codecs for the framework's wire formats.
 
 Counterpart of ``oryx_tpu/common/text.py`` (reference: TextUtils.java),
-cut down to the forms the update topic and the model documents use:
-JSON arrays (``["X","userId",[0.1,...],["knownItem"]]``) and PMML
-space-delimited tokens.
+cut down to the forms the topics and the model documents use: JSON
+arrays (``["X","userId",[0.1,...],["knownItem"]]``), PMML
+space-delimited tokens, and the input topic's events, ``user,item,
+strength,ts`` CSV or a JSON array (``parse_input_line``, with which
+``/ingest`` validates its lines).
 """
 
 from __future__ import annotations
 
+import csv
+import io
 import json
+import re
 from typing import Any, Iterable, Sequence
 
-__all__ = ["parse_pmml_delimited", "join_pmml_delimited", "join_json",
-           "read_json"]
+__all__ = ["parse_delimited", "parse_pmml_delimited", "join_pmml_delimited",
+           "parse_json_array", "join_json", "read_json", "parse_input_line"]
+
+
+def parse_delimited(line: str, delimiter: str = ",") -> list[str]:
+    """Split one line of RFC-4180-style delimited text (quoted fields,
+    doubled-quote escaping, plus backslash escape)."""
+    reader = csv.reader(io.StringIO(line), delimiter=delimiter,
+                        quotechar='"', doublequote=True, escapechar="\\")
+    for row in reader:
+        return row
+    return [""]
 
 
 def _render(e: Any) -> str:
@@ -70,9 +85,29 @@ def join_pmml_delimited(elements: Iterable[Any]) -> str:
     return " ".join(out)
 
 
+def parse_json_array(line: str) -> list:
+    v = json.loads(line)
+    if not isinstance(v, list):
+        raise ValueError(f"not a JSON array: {line!r}")
+    return v
+
+
 def join_json(elements: Sequence[Any]) -> str:
     return json.dumps(list(elements), separators=(",", ":"))
 
 
 def read_json(s: str) -> Any:
     return json.loads(s)
+
+
+_JSON_START = re.compile(r"^\s*[\[{]")
+
+
+def parse_input_line(line: str) -> list[str]:
+    """Parse one input-topic event: JSON array if it looks like JSON,
+    else CSV (reference: app/oryx-app-common/.../fn/MLFunctions.java:34-46
+    PARSE_FN)."""
+    if _JSON_START.match(line):
+        # JSON null maps to the empty string, never the Python repr "None"
+        return ["" if x is None else _render(x) for x in parse_json_array(line)]
+    return parse_delimited(line)

@@ -2,8 +2,9 @@
 semantics, optionally backed by files.
 
 Counterpart of ``oryx_tpu/kafka/inproc.py``, cut down to what the
-serving layer's update-topic replay needs: topics, keyed partitioning,
-appends, offset reads and the blocking consume from offset 0.  Consumer
+serving layer needs: topics, keyed partitioning, appends (one record,
+or a pipelined batch in one write per partition, for the input topic's
+``/ingest``), offset reads and the blocking consume from offset 0.  Consumer
 groups and committed offsets come with the layers that resume from them
 (speed, batch).
 
@@ -26,6 +27,7 @@ import threading
 import time
 from typing import Iterator
 
+from ..resilience import faults
 from .api import KeyMessage, TopicProducer
 from .partitioner import partition_for_key
 
@@ -145,6 +147,30 @@ class _Partition:
                 self._refresh_locked()
             else:
                 self.log.append((key, message, headers))
+            offset = len(self.log) - 1
+        self._notify()
+        return offset
+
+    def append_many(self,
+                    records: list[tuple[str | None, str, dict | None]]
+                    ) -> int:
+        """Append every record in ONE write (one lock, one wake-up);
+        O_APPEND keeps the blob contiguous beside other writers.
+        Returns the last record's offset."""
+        blob = b"".join(
+            (json.dumps([k, m] if h is None else [k, m, h]) + "\n")
+            .encode("utf-8") for k, m, h in records)
+        with self._lock:
+            if self.persist_path is not None and self._fd is None:
+                self._fd = os.open(self.persist_path,
+                                   os.O_APPEND | os.O_CREAT | os.O_WRONLY,
+                                   0o644)
+            if self._fd is not None:
+                if blob:
+                    os.write(self._fd, blob)
+                self._refresh_locked()
+            else:
+                self.log.extend(records)
             offset = len(self.log) - 1
         self._notify()
         return offset
@@ -305,9 +331,41 @@ class InProcBroker:
              headers: dict | None = None) -> int:
         """Append to the key's partition; returns the record's offset
         within that partition."""
+        # chaos seam: error (broker down), delay (slow broker), drop
+        # (acked but lost) or duplicate (a producer retry's redelivery)
+        action = faults.fire("inproc-send")
+        if action == "drop":
+            return -1
         t = self._topic(topic)
-        return t.partitions[t.partition_for(key)].append(key, message,
-                                                         headers)
+        p = t.partitions[t.partition_for(key)]
+        offset = p.append(key, message, headers)
+        if action == "duplicate":
+            offset = p.append(key, message, headers)
+        return offset
+
+    def send_many(self, topic: str,
+                  entries: list[tuple[str | None, str, dict | None]]
+                  ) -> int:
+        """Pipelined produce: classify every record to its partition,
+        then append each partition's records in one write, in order.
+        The ``inproc-send`` seam fires per record, so drop and
+        duplicate keep their per-record meaning, and an error raises
+        before ANY record lands.  Returns the records appended."""
+        t = self._topic(topic)
+        groups: dict[int, list[tuple[str | None, str, dict | None]]] = {}
+        sent = 0
+        for key, message, headers in entries:
+            action = faults.fire("inproc-send")
+            if action == "drop":
+                continue
+            p = t.partition_for(key)
+            groups.setdefault(p, []).append((key, message, headers))
+            sent += 1
+            if action == "duplicate":
+                groups[p].append((key, message, headers))
+        for p, recs in groups.items():
+            t.partitions[p].append_many(recs)
+        return sent
 
     def latest_offsets(self, topic: str) -> list[int]:
         """Per-partition end offsets."""
@@ -373,6 +431,12 @@ class InProcTopicProducer(TopicProducer):
     def send(self, key: str | None, message: str,
              headers: dict | None = None) -> None:
         self._broker.send(self._topic, key, message, headers)
+
+    def send_many(self, entries: list[tuple[str | None, str,
+                                            dict | None]]) -> None:
+        """Pipelined multi-record produce (one broker call, one write
+        per partition touched)."""
+        self._broker.send_many(self._topic, entries)
 
     def get_update_broker(self) -> str:
         return self._broker_uri

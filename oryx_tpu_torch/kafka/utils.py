@@ -12,7 +12,15 @@ from .inproc import resolve_broker
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["maybe_create_topic"]
+__all__ = ["maybe_create_topic", "input_topic_partitions"]
+
+
+def input_topic_partitions(config) -> int:
+    """The configured input-topic partition count
+    (``oryx.input-topic.partitions``, 4 in reference.conf, the count
+    oryx-run.sh:343 uses): every component that may create the input
+    topic creates it with this many."""
+    return config.get_int("oryx.input-topic.partitions")
 
 
 def maybe_create_topic(broker_uri: str, topic: str,

@@ -3,16 +3,20 @@ update topic.
 
 Counterpart of ``oryx_tpu/lambda_rt/serving.py`` (reference:
 ServingLayer.java:58-339, ModelManagerListener.java:63-250 — the
-update-topic consumer from offset 0 feeding ``modelManager.consume``;
-OryxApplication.java:41-98 — resources from the configured modules).
-The layer loads its model manager from
+input producer, and the update-topic consumer from offset 0 feeding
+``modelManager.consume``; OryxApplication.java:41-98 — resources from
+the configured modules).  The layer loads its model manager from
 ``oryx.serving.model-manager-class`` (a class of this package), replays
 the update topic from offset 0 on a thread, and serves the framework
 routes plus those of ``oryx.serving.application-resources`` through
-``HttpApp`` and the ``TopNBatcher``.  Not part of this package yet:
-TLS and authentication (a configured keystore, user name or password
-raises), the input-topic producer, cluster heartbeats and the frame
-transport, the compile cache, and tracing and metrics.
+``HttpApp`` and the ``TopNBatcher``.  Unless ``read-only`` is set, a
+configured input topic is created at start with
+``oryx.input-topic.partitions`` partitions, and ``/pref`` and
+``/ingest`` append to it through a producer with retry and a circuit
+breaker, behind the ingest admission gate.  Not part of this package
+yet: TLS and authentication (a configured keystore, user name or
+password raises), cluster heartbeats and the frame transport, the
+compile cache, and tracing and metrics.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ import threading
 
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
-from ..kafka.inproc import resolve_broker
+from ..kafka.inproc import InProcTopicProducer, resolve_broker
 from ..resilience import faults
-from ..resilience.policy import run_with_resubscribe
+from ..resilience.policy import (CircuitBreaker, ResilientTopicProducer,
+                                 Retry, run_with_resubscribe)
 from ..serving.batcher import TopNBatcher
+from ..serving.ingest import IngestGate
 from .http import HttpApp, Route, make_server
 
 _log = logging.getLogger(__name__)
@@ -51,6 +57,10 @@ class ServingLayer:
             f"{api}.port")
         self.read_only = config.get_bool(f"{api}.read-only")
         self.context_path = config.get_string(f"{api}.context-path")
+        self.input_broker = config.get_optional_string(
+            "oryx.input-topic.broker")
+        self.input_topic = config.get_optional_string(
+            "oryx.input-topic.message.topic")
         self.update_broker = config.get_optional_string(
             "oryx.update-topic.broker")
         self.update_topic = config.get_optional_string(
@@ -67,6 +77,24 @@ class ServingLayer:
         self._server_thread: threading.Thread | None = None
 
         faults.configure_from_config(config)
+        # the write path: a dead input broker degrades /pref and /ingest
+        # to fast 503s through the breaker, whose half-open probe
+        # restores them without a restart
+        self.input_producer = None
+        if not self.read_only and self.input_broker and self.input_topic:
+            if not self.no_init_topics:
+                kafka_utils.maybe_create_topic(
+                    self.input_broker, self.input_topic,
+                    partitions=kafka_utils.input_topic_partitions(config))
+            self.input_producer = ResilientTopicProducer(
+                InProcTopicProducer(self.input_broker, self.input_topic),
+                retry=Retry.from_config("serving-input-send", config),
+                breaker=CircuitBreaker.from_config("serving-input", config))
+        # write-path admission (both gates 0 = off): 503 + Retry-After
+        # around the produce only, never a silently dropped record
+        self.ingest_gate = IngestGate(config)
+        if not self.ingest_gate.enabled:
+            self.ingest_gate = None
         idle_ms = config.get_int(f"{api}.batch-idle-wait-ms")
         self.top_n_batcher = TopNBatcher(
             max_batch=config.get_int(f"{api}.max-batch"),
@@ -76,7 +104,8 @@ class ServingLayer:
             self._discover_routes(),
             context={
                 "model_manager": self.model_manager,
-                "input_producer": None,
+                "input_producer": self.input_producer,
+                "ingest_gate": self.ingest_gate,
                 "config": config,
                 "min_model_load_fraction": self.min_model_load_fraction,
                 "top_n_batcher": self.top_n_batcher,
@@ -154,6 +183,8 @@ class ServingLayer:
             self._server.server_close()
         self.top_n_batcher.close()
         self.model_manager.close()
+        if self.input_producer:
+            self.input_producer.close()
         for t in (self._consume_thread, self._server_thread):
             if t:
                 t.join(10.0)

@@ -94,9 +94,14 @@ class Solver:
             return self._solve64(b)
         return self.solve(np.asarray(b, dtype=np.float64)).astype(np.float64)
 
+    def solve_f_to_f(self, b) -> np.ndarray:
+        return self.solve(np.asarray(b, dtype=np.float32)).astype(np.float32)
+
     @property
     def cholesky(self) -> torch.Tensor:
-        """Lower Cholesky factor (float32, on the device)."""
+        """Lower Cholesky factor (float32, on the device).  In float64
+        rescue mode it is the float64 factor cast to float32: the
+        fold-in solves against it, as the reference's does."""
         return self._chol
 
     def __repr__(self):  # pragma: no cover

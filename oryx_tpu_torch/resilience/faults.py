@@ -21,6 +21,8 @@ mode       effect at the call site
            :class:`InjectedFault`)
 ``delay``  sleep ``delay_sec``, then continue
 ``drop``   return ``"drop"`` — the call site discards the operation
+``duplicate`` return ``"duplicate"`` — the call site performs the
+           operation twice (a producer retry's redelivery)
 ========== ==========================================================
 
 ``fired(name)`` counts consumed activations.  Point names are the
@@ -39,7 +41,7 @@ _log = logging.getLogger(__name__)
 __all__ = ["InjectedFault", "inject", "clear", "fire", "fired",
            "configure_from_config"]
 
-_MODES = ("error", "delay", "drop")
+_MODES = ("error", "delay", "drop", "duplicate")
 
 
 class InjectedFault(Exception):
@@ -104,8 +106,9 @@ def fired(point: str) -> int:
 def fire(point: str,
          error: Callable[[], BaseException] | None = None) -> str | None:
     """Consume one activation of ``point`` if armed: raise for
-    ``error``, sleep for ``delay``, return ``"drop"`` for ``drop``, and
-    None when the point is not armed.  ``error`` is the call site's
+    ``error``, sleep for ``delay``, return the mode for ``drop`` and
+    ``duplicate`` (the call site acts), and None when the point is not
+    armed.  ``error`` is the call site's
     exception factory; a factory on the spec overrides it."""
     if not _ACTIVE:
         return None

@@ -1,36 +1,64 @@
-"""Per-request deadlines.
+"""Resilience policies: deadlines, backoff, retry, circuit breaker.
 
-Counterpart of ``oryx_tpu/resilience/policy.py``, cut down to
-``Deadline`` and ``DeadlineExceeded`` (the front end mints a deadline
-and the request batcher sheds work whose budget ran out), and
-``run_with_resubscribe`` with its ``Backoff`` (the serving layer's
-update-topic consumer).
+Counterpart of ``oryx_tpu/resilience/policy.py``, cut down to what the
+serving layer uses: ``Deadline`` and ``DeadlineExceeded`` (the front end
+mints a deadline and the request batcher sheds work whose budget ran
+out), ``run_with_resubscribe`` with its ``Backoff`` (the update-topic
+consumer), and ``Retry``, ``CircuitBreaker`` and
+``ResilientTopicProducer`` around the input-topic producer of
+``/pref`` and ``/ingest``.  The process-wide table of named retries and
+breakers that feeds ``/metrics`` is not part of this package yet.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import threading
+import time
 from typing import Any, Callable
 
 from ..common import clock as clockmod
+from .faults import InjectedFault
 
-__all__ = ["Deadline", "DeadlineExceeded", "Backoff",
+__all__ = ["Deadline", "DeadlineExceeded", "CircuitOpenError", "Backoff",
+           "Retry", "CircuitBreaker", "ResilientTopicProducer",
            "run_with_resubscribe"]
 
 _log = logging.getLogger(__name__)
 
 
 class Backoff:
-    """Exponential backoff, capped: ``initial * 2**(attempt-1)`` up to
-    ``maximum`` seconds."""
+    """Exponential backoff with full jitter on its top ``jitter``
+    fraction, capped: ``delay(attempt)`` for attempt 1, 2, ...;
+    deterministic with ``jitter=0``."""
 
-    def __init__(self, initial: float = 0.1, maximum: float = 5.0):
+    __slots__ = ("initial", "maximum", "multiplier", "jitter", "_rng")
+
+    def __init__(self, initial: float = 0.05, maximum: float = 2.0,
+                 multiplier: float = 2.0, jitter: float = 0.2,
+                 rng: random.Random | None = None):
         self.initial = initial
         self.maximum = maximum
+        self.multiplier = multiplier
+        self.jitter = jitter
+        self._rng = rng or random.Random()
 
     def delay(self, attempt: int) -> float:
-        return min(self.maximum, self.initial * (2 ** max(0, attempt - 1)))
+        base = min(self.maximum,
+                   self.initial * self.multiplier ** max(0, attempt - 1))
+        if not self.jitter:
+            return base
+        return base * (1.0 - self.jitter * self._rng.random())
+
+    @classmethod
+    def from_config(cls, config, path: str = "oryx.resilience.retry"
+                    ) -> "Backoff":
+        return cls(
+            initial=config.get_int(f"{path}.initial-backoff-ms") / 1000.0,
+            maximum=config.get_int(f"{path}.max-backoff-ms") / 1000.0,
+            multiplier=config.get_double(f"{path}.multiplier"),
+            jitter=config.get_double(f"{path}.jitter"))
 
 
 def run_with_resubscribe(fn: Callable[[], Any], stop: threading.Event,
@@ -43,7 +71,7 @@ def run_with_resubscribe(fn: Callable[[], Any], stop: threading.Event,
     recovery is the cold-start path.  A subscription that stayed up
     ``healthy_reset_sec`` resets the attempt count; the wait between
     attempts ends as soon as ``stop`` is set."""
-    backoff = backoff or Backoff()
+    backoff = backoff or Backoff(initial=0.1, maximum=5.0)
     log = log or _log
     attempt = 0
     while not stop.is_set():
@@ -65,6 +93,11 @@ class DeadlineExceeded(Exception):
     HTTP 503 at the serving surface)."""
 
 
+class CircuitOpenError(Exception):
+    """Fast-fail: the guarded dependency is presumed down and the
+    breaker is shedding calls instead of queueing them."""
+
+
 class Deadline:
     """A monotonic-clock deadline carried from the serving front end
     down through the request micro-batcher: work that cannot finish in
@@ -83,6 +116,220 @@ class Deadline:
     def expired(self) -> bool:
         return clockmod.monotonic() >= self.t_end
 
+    def remaining(self) -> float:
+        return max(0.0, self.t_end - clockmod.monotonic())
+
     def check(self, what: str = "call") -> None:
         if self.expired:
             raise DeadlineExceeded(f"deadline exceeded in {what}")
+
+
+class Retry:
+    """Bounded retry of transient failures with backoff.
+
+    ``retryable`` is an exception tuple or a predicate; anything else
+    propagates at once.  An optional :class:`Deadline` bounds the whole
+    call, sleeps included: when no time is left for the next pause the
+    last failure is raised."""
+
+    def __init__(self, name: str,
+                 retryable: tuple | Callable[[BaseException], bool]
+                 = (ConnectionError, OSError, TimeoutError,
+                    InjectedFault),
+                 max_attempts: int = 5,
+                 backoff: Backoff | None = None,
+                 sleep: Callable[[float], None] = time.sleep):
+        self.name = name
+        self._retryable = retryable
+        self.max_attempts = max(1, max_attempts)
+        self.backoff = backoff or Backoff()
+        self._sleep = sleep
+        self._lock = threading.Lock()
+        self.calls = 0
+        self.retries = 0
+        self.give_ups = 0
+
+    @classmethod
+    def from_config(cls, name: str, config, retryable=None) -> "Retry":
+        kw = {} if retryable is None else {"retryable": retryable}
+        return cls(name,
+                   max_attempts=config.get_int(
+                       "oryx.resilience.retry.max-attempts"),
+                   backoff=Backoff.from_config(config), **kw)
+
+    def _is_retryable(self, e: BaseException) -> bool:
+        r = self._retryable
+        # an exception class is callable too: a bare class means
+        # isinstance, not a predicate
+        if isinstance(r, tuple) or (isinstance(r, type)
+                                    and issubclass(r, BaseException)):
+            return isinstance(e, r)
+        return bool(r(e))
+
+    def call(self, fn: Callable, *args,
+             deadline: Deadline | None = None, **kwargs):
+        with self._lock:
+            self.calls += 1
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                return fn(*args, **kwargs)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not self._is_retryable(e) or attempt >= self.max_attempts:
+                    with self._lock:
+                        self.give_ups += 1
+                    raise
+                pause = self.backoff.delay(attempt)
+                if deadline is not None and deadline.remaining() <= pause:
+                    with self._lock:
+                        self.give_ups += 1
+                    raise
+                with self._lock:
+                    self.retries += 1
+                _log.debug("%s: retrying after %s (attempt %d/%d)",
+                           self.name, e, attempt, self.max_attempts)
+                self._sleep(pause)
+
+
+class CircuitBreaker:
+    """Closed -> open after ``failure_threshold`` consecutive failures;
+    open sheds calls (CircuitOpenError) for ``reset_timeout_sec``; then
+    half-open admits ``half_open_probes`` probe calls — success closes,
+    failure re-opens.  ``clock`` is injectable, so a test controls time
+    instead of sleeping through it."""
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+    def __init__(self, name: str, failure_threshold: int = 5,
+                 reset_timeout_sec: float = 1.0,
+                 half_open_probes: int = 1,
+                 clock: Callable[[], float] = clockmod.monotonic):
+        self.name = name
+        self.failure_threshold = max(1, failure_threshold)
+        self.reset_timeout_sec = reset_timeout_sec
+        self.half_open_probes = max(1, half_open_probes)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+        self._probes_in_flight = 0
+        self.opens = 0
+        self.rejected = 0
+        self.calls = 0
+
+    @classmethod
+    def from_config(cls, name: str, config,
+                    path: str = "oryx.resilience.breaker"
+                    ) -> "CircuitBreaker":
+        return cls(
+            name,
+            failure_threshold=config.get_int(f"{path}.failure-threshold"),
+            reset_timeout_sec=config.get_int(
+                f"{path}.reset-timeout-ms") / 1000.0,
+            half_open_probes=config.get_int(f"{path}.half-open-probes"))
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def _admit(self) -> bool:
+        """Reserve the right to make one call; False sheds it."""
+        with self._lock:
+            self.calls += 1
+            if self._state == self.CLOSED:
+                return True
+            if self._state == self.OPEN:
+                if (self._clock() - self._opened_at
+                        < self.reset_timeout_sec):
+                    self.rejected += 1
+                    return False
+                self._state = self.HALF_OPEN
+                self._probes_in_flight = 0
+            # half-open: a bounded number of concurrent probes
+            if self._probes_in_flight >= self.half_open_probes:
+                self.rejected += 1
+                return False
+            self._probes_in_flight += 1
+            return True
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            if self._state == self.HALF_OPEN:
+                self._state = self.CLOSED
+                _log.info("%s: circuit closed (probe succeeded)",
+                          self.name)
+            self._probes_in_flight = 0
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._failures += 1
+            if self._state == self.HALF_OPEN \
+                    or self._failures >= self.failure_threshold:
+                if self._state != self.OPEN:
+                    self.opens += 1
+                    _log.warning("%s: circuit OPEN after %d failure(s)",
+                                 self.name, self._failures)
+                self._state = self.OPEN
+                self._opened_at = self._clock()
+                self._probes_in_flight = 0
+
+    def call(self, fn: Callable, *args, **kwargs):
+        if not self._admit():
+            raise CircuitOpenError(f"{self.name}: circuit open, call shed")
+        try:
+            out = fn(*args, **kwargs)
+        except BaseException:
+            # BaseException too: a probe killed mid-call must release
+            # its slot, or the breaker sheds every later call
+            self.record_failure()
+            raise
+        self.record_success()
+        return out
+
+
+class ResilientTopicProducer:
+    """Retry + circuit breaker around a TopicProducer.
+
+    The breaker sits outside the retry: one exhausted retry sequence is
+    ONE breaker failure, so the threshold measures a sustained outage.
+    With the breaker open, sends shed at once (CircuitOpenError), which
+    the serving routes map to 503."""
+
+    def __init__(self, inner, retry: Retry,
+                 breaker: CircuitBreaker | None = None):
+        self._inner = inner
+        self._retry = retry
+        self._breaker = breaker
+
+    def _call(self, fn: Callable, *args, **kwargs) -> None:
+        if self._breaker is None:
+            self._retry.call(fn, *args, **kwargs)
+        else:
+            self._breaker.call(self._retry.call, fn, *args, **kwargs)
+
+    def send(self, key: str | None, message: str,
+             headers: dict | None = None) -> None:
+        kw = {} if headers is None else {"headers": headers}
+        self._call(self._inner.send, key, message, **kw)
+
+    def send_many(self, entries: list[tuple[str | None, str,
+                                            dict | None]]) -> None:
+        """A pipelined multi-record send under ONE retry and breaker
+        admission: a failure retries the whole batch (at least once;
+        the update topic's set semantics absorb duplicates)."""
+        entries = list(entries)
+        if entries:
+            self._call(self._inner.send_many, entries)
+
+    def get_update_broker(self) -> str:
+        return self._inner.get_update_broker()
+
+    def get_topic(self) -> str:
+        return self._inner.get_topic()
+
+    def close(self) -> None:
+        self._inner.close()

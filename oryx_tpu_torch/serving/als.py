@@ -1,11 +1,16 @@
-"""ALS serving REST resources: the routes that go through the request
-batcher.
+"""ALS serving REST resources.
 
 Counterpart of ``oryx_tpu/serving/als.py`` (reference:
-app/oryx-app-serving/.../serving/als/Recommend.java:74-113,
-RecommendToMany.java:57, KnownItems.java:35, DTO IDValue), cut down to
-``/recommend/{userID}``, ``/recommendToMany/{userIDs:+}`` and
-``/knownItems/{userID}``.
+app/oryx-app-serving/src/main/java/com/cloudera/oryx/app/serving/als/ —
+Recommend.java:74-113, RecommendToMany.java:57,
+RecommendToAnonymous.java:59, RecommendWithContext.java:59,
+Similarity.java:60, SimilarityToItem.java:44, Estimate.java:51,
+EstimateForAnonymous.java:48 (buildTemporaryUserVector :74-96),
+Because.java:52, KnownItems.java:35, MostActiveUsers.java:47,
+MostPopularItems.java:52, MostSurprising.java:54,
+PopularRepresentativeItems.java:43, AllUserIDs/AllItemIDs.java:34,
+Preference.java:42-76, Ingest.java:61, DTOs IDValue/IDCount), with the
+reference's paths, status codes and JSON/CSV shapes.
 
 howMany/offset behaviour follows Recommend: compute howMany+offset
 results, return the slice [offset, offset+howMany).
@@ -14,17 +19,23 @@ results, return the slice [offset, offset+howMany).
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import io
 import json
 import math
+import zipfile
 
 import numpy as np
 
 from ..api.serving import OryxServingException
 from ..app.als.serving_model import ALSServingModel
+from ..common import text as text_utils
 from ..lambda_rt.http import Request, Route
-from .framework import get_serving_model
+from ..ops import als_fold_in
+from . import console
+from .framework import get_serving_model, send_input, send_input_many
 
-__all__ = ["ROUTES", "IDValue"]
+__all__ = ["ROUTES", "IDValue", "IDCount"]
 
 
 @dataclasses.dataclass
@@ -46,6 +57,20 @@ class IDValue:
             return json.dumps({"id": self.id, "value": v},
                               separators=(",", ":"))
         return f'{{"id":{json.dumps(self.id)},"value":{v!r}}}'
+
+
+@dataclasses.dataclass
+class IDCount:
+    """Response DTO (reference: IDCount.java, HasCSV)."""
+
+    id: str
+    count: int
+
+    def to_csv(self) -> str:
+        return f"{self.id},{self.count}"
+
+    def to_json_fragment(self) -> str:
+        return f'{{"id":{json.dumps(self.id)},"count":{int(self.count)}}}'
 
 
 def _als_model(req: Request) -> ALSServingModel:
@@ -75,6 +100,34 @@ def _check_exists(cond: bool, what: str) -> None:
         raise OryxServingException(404, what)
 
 
+def _parse_id_value_segments(raw: str) -> list[tuple[str, float]]:
+    """Path tail ``i1=2.5/i2/i3=0.5`` -> [(id, strength)] with default 1.0
+    (reference: EstimateForAnonymous.parsePathSegments)."""
+    out = []
+    for seg in raw.split("/"):
+        if "=" in seg:
+            id_, val = seg.split("=", 1)
+            out.append((id_, float(val)))
+        else:
+            out.append((seg, 1.0))
+    return out
+
+
+def _build_temporary_user_vector(model: ALSServingModel,
+                                 item_values: list[tuple[str, float]],
+                                 xu: np.ndarray | None) -> np.ndarray | None:
+    """Sequentially fold context items into a (possibly absent) user
+    vector (reference: EstimateForAnonymous.buildTemporaryUserVector),
+    on the model's device against the Y^T Y solver's factor
+    (ops.als_fold_in.fold_in_sequential)."""
+    solver = model.get_yty_solver(blocking=True)
+    if solver is None:
+        raise OryxServingException(503, "No solver available for model yet")
+    return als_fold_in.fold_in_sequential(
+        solver, list(item_values), model.get_item_vector, xu,
+        model.implicit, model.features)
+
+
 def _rescorer(model: ALSServingModel, hook: str, req: Request, *args):
     provider = model.rescorer_provider
     if provider is None:
@@ -99,6 +152,8 @@ def _dot_top_n(req: Request, model: ALSServingModel, how_many: int,
     return model.top_n(how_many, user_vector=user_vector, exclude=exclude,
                        rescorer=rescorer)
 
+
+# -- recommend ---------------------------------------------------------------
 
 def _recommend(req: Request):
     model = _als_model(req)
@@ -134,13 +189,318 @@ def _recommend_to_many(req: Request):
     return _slice(pairs, how_many, offset)
 
 
+def _recommend_to_anonymous(req: Request):
+    model = _als_model(req)
+    item_values = _parse_id_value_segments(req.params["itemIDs"])
+    how_many, offset = _how_many_offset(req)
+    xu = _build_temporary_user_vector(model, item_values, None)
+    _check_exists(xu is not None, req.params["itemIDs"])
+    known = {i for i, _ in item_values}
+    rescorer = _rescorer(model, "get_recommend_to_anonymous_rescorer", req,
+                         sorted(known))
+    pairs = _dot_top_n(req, model, how_many + offset, xu, known, rescorer)
+    return _slice(pairs, how_many, offset)
+
+
+def _recommend_with_context(req: Request):
+    model = _als_model(req)
+    user_id = req.params["userID"]
+    item_values = _parse_id_value_segments(req.params["itemIDs"])
+    how_many, offset = _how_many_offset(req)
+    xu = model.get_user_vector(user_id)
+    _check_exists(xu is not None, user_id)
+    xu = _build_temporary_user_vector(model, item_values, xu)
+    exclude = model.get_known_items(user_id) | {i for i, _ in item_values}
+    rescorer = _rescorer(model, "get_recommend_rescorer", req, user_id)
+    pairs = _dot_top_n(req, model, how_many + offset, xu, exclude, rescorer)
+    return _slice(pairs, how_many, offset)
+
+
+# -- similarity --------------------------------------------------------------
+
+def _similarity(req: Request):
+    model = _als_model(req)
+    item_ids = req.params["itemIDs"].split("/")
+    how_many, offset = _how_many_offset(req)
+    vectors = []
+    for iid in item_ids:
+        v = model.get_item_vector(iid)
+        _check_exists(v is not None, iid)
+        vectors.append(v)
+    rescorer = _rescorer(model, "get_most_similar_items_rescorer", req)
+    pairs = model.top_n(how_many + offset,
+                        cosine_to=np.stack(vectors, axis=1),
+                        exclude=set(item_ids), rescorer=rescorer)
+    return _slice(pairs, how_many, offset)
+
+
+def _similarity_to_item(req: Request):
+    model = _als_model(req)
+    to_item = req.params["toItemID"]
+    item_ids = req.params["itemIDs"].split("/")
+    to_vec = model.get_item_vector(to_item)
+    _check_exists(to_vec is not None, to_item)
+    to_norm = float(np.linalg.norm(to_vec))
+    out = []
+    for iid in item_ids:
+        v = model.get_item_vector(iid)
+        _check_exists(v is not None, iid)
+        denom = to_norm * float(np.linalg.norm(v))
+        out.append(IDValue(iid, float(np.dot(v, to_vec)) / denom
+                           if denom > 0 else 0.0))
+    return out
+
+
+# -- estimates ---------------------------------------------------------------
+
+def _estimate(req: Request):
+    model = _als_model(req)
+    user_id = req.params["userID"]
+    item_ids = req.params["itemIDs"].split("/")
+    xu = model.get_user_vector(user_id)
+    _check_exists(xu is not None, user_id)
+    out = []
+    for iid in item_ids:
+        yi = model.get_item_vector(iid)
+        out.append(IDValue(iid, 0.0 if yi is None else float(xu @ yi)))
+    return out
+
+
+def _estimate_for_anonymous(req: Request):
+    model = _als_model(req)
+    to_item = req.params["toItemID"]
+    to_vec = model.get_item_vector(to_item)
+    _check_exists(to_vec is not None, to_item)
+    item_values = _parse_id_value_segments(req.params["itemIDs"])
+    xu = _build_temporary_user_vector(model, item_values, None)
+    return 0.0 if xu is None else float(np.dot(xu, to_vec))
+
+
+def _because(req: Request):
+    model = _als_model(req)
+    user_id = req.params["userID"]
+    item_id = req.params["itemID"]
+    how_many, offset = _how_many_offset(req)
+    item_vector = model.get_item_vector(item_id)
+    _check_exists(item_vector is not None, item_id)
+    known = model.get_known_items(user_id)
+    if not known:
+        return []
+    norm = float(np.linalg.norm(item_vector))
+    sims = []
+    for other in known:
+        ov = model.get_item_vector(other)
+        if ov is None:
+            continue
+        denom = norm * float(np.linalg.norm(ov))
+        sims.append((other, float(np.dot(ov, item_vector)) / denom
+                     if denom > 0 else 0.0))
+    sims.sort(key=lambda t: -t[1])
+    return _slice(sims, how_many, offset)
+
+
+def _most_surprising(req: Request):
+    model = _als_model(req)
+    user_id = req.params["userID"]
+    how_many, offset = _how_many_offset(req)
+    xu = model.get_user_vector(user_id)
+    _check_exists(xu is not None, user_id)
+    known = model.get_known_items(user_id)
+    if not known:
+        return []
+    dots = []
+    for iid in known:
+        yi = model.get_item_vector(iid)
+        if yi is not None:
+            dots.append((iid, float(xu @ yi)))
+    dots.sort(key=lambda t: t[1])  # ascending: most surprising first
+    return _slice(dots, how_many, offset)
+
+
+# -- popularity / enumeration ------------------------------------------------
+
+def _most_active_users(req: Request):
+    model = _als_model(req)
+    how_many, offset = _how_many_offset(req)
+    rescorer = _rescorer(model, "get_most_active_users_rescorer", req)
+    counts = sorted(model.get_known_item_counts().items(),
+                    key=lambda t: -t[1])
+    out = []
+    for uid, c in counts:
+        if rescorer is not None and rescorer.is_filtered(uid):
+            continue
+        out.append((uid, c))
+    return [IDCount(i, int(c)) for i, c in out[offset:offset + how_many]]
+
+
+def _most_popular_items(req: Request):
+    model = _als_model(req)
+    how_many, offset = _how_many_offset(req)
+    rescorer = _rescorer(model, "get_most_popular_items_rescorer", req)
+    ranked = sorted(model.get_item_popularity_counts().items(),
+                    key=lambda t: -t[1])
+    out = []
+    for iid, c in ranked:
+        if rescorer is not None and rescorer.is_filtered(iid):
+            continue
+        out.append((iid, c))
+    return [IDCount(i, int(c)) for i, c in out[offset:offset + how_many]]
+
+
+def _popular_representative_items(req: Request):
+    """Top item along each latent feature axis
+    (reference: PopularRepresentativeItems.java:43-60)."""
+    model = _als_model(req)
+    items = []
+    for i in range(model.features):
+        unit = np.zeros(model.features, dtype=np.float32)
+        unit[i] = 1.0
+        top = model.top_n(1, user_vector=unit)
+        items.append(top[0][0] if top else None)
+    return items
+
+
+def _all_user_ids(req: Request):
+    return _als_model(req).all_user_ids()
+
+
+def _all_item_ids(req: Request):
+    return _als_model(req).all_item_ids()
+
+
 def _known_items(req: Request):
     model = _als_model(req)
     return sorted(model.get_known_items(req.params["userID"]))
 
 
+# -- write path --------------------------------------------------------------
+
+def _pref_post(req: Request):
+    _als_model(req)  # 503 gate
+    user_id, item_id = req.params["userID"], req.params["itemID"]
+    body = req.body.decode().strip()
+    value = body if body else "1"
+    float(value)  # validate
+    send_input(req, f"{user_id},{item_id},{value}")
+    return None
+
+
+def _pref_delete(req: Request):
+    _als_model(req)
+    user_id, item_id = req.params["userID"], req.params["itemID"]
+    # empty strength means 'delete' on the wire
+    send_input(req, f"{user_id},{item_id},")
+    return None
+
+
+def _decode_ingest_payload(data: bytes, ctype: str, filename: str) -> str:
+    """One uploaded payload -> text, sniffing gzip/zip from the content
+    type or filename (reference: Ingest.java maybeDecompress by part
+    content type and file extension)."""
+    if "gzip" in ctype or filename.endswith(".gz"):
+        try:
+            return gzip.decompress(data).decode()
+        except gzip.BadGzipFile:
+            # transport layer may have already decoded Content-Encoding
+            return data.decode()
+    if "zip" in ctype or filename.endswith(".zip"):
+        texts = []
+        with zipfile.ZipFile(io.BytesIO(data)) as zf:
+            for name in zf.namelist():
+                texts.append(zf.read(name).decode())
+        return "\n".join(texts)
+    return data.decode()
+
+
+def _multipart_texts(body: bytes, ctype: str) -> list[str]:
+    """Decode every file part of a multipart/form-data body, each part
+    independently gzip/zip-sniffed (reference: Ingest.java:61-... via
+    the servlet fileupload parser)."""
+    import email
+    import email.policy
+
+    msg = email.message_from_bytes(
+        b"Content-Type: " + ctype.encode("utf-8") + b"\r\n\r\n" + body,
+        policy=email.policy.default)
+    if not msg.is_multipart():
+        raise OryxServingException(400, "bad multipart body")
+    texts = []
+    for part in msg.iter_parts():
+        data = part.get_payload(decode=True)
+        if data is None:
+            continue
+        texts.append(_decode_ingest_payload(
+            data, part.get_content_type(), part.get_filename() or ""))
+    if not texts:
+        raise OryxServingException(400, "no file parts in multipart body")
+    return texts
+
+
+def _ingest(req: Request):
+    """Bulk CSV ingest; accepts plain, gzip, or zip bodies, and
+    multipart/form-data uploads whose parts are each plain/gzip/zip
+    (reference: Ingest.java:61-...)."""
+    body = req.body
+    ctype = req.headers.get("Content-Type", "")
+    encoding = req.headers.get("Content-Encoding", "")
+    if ctype.startswith("multipart/form-data"):
+        text = "\n".join(_multipart_texts(body, ctype))
+    else:
+        # content type OR transfer encoding may declare the compression
+        text = _decode_ingest_payload(body, f"{ctype} {encoding}", "")
+    # validate the whole (already fully buffered) body before sending
+    # anything, so a bad line can't leave a partial ingest behind
+    lines = [ln.strip() for ln in text.splitlines() if ln.strip()]
+    for line in lines:
+        fields = text_utils.parse_input_line(line)
+        if not 2 <= len(fields) <= 4:
+            raise OryxServingException(400, f"bad line: {line}")
+    # one pipelined produce for the whole body (kafka send_many): a
+    # 200 means EVERY line is durable in the input topic
+    if lines:
+        send_input_many(req, lines)
+    return {"ingested": len(lines)}
+
+
 ROUTES = [
     Route("GET", "/recommend/{userID}", _recommend),
     Route("GET", "/recommendToMany/{userIDs:+}", _recommend_to_many),
+    Route("GET", "/recommendToAnonymous/{itemIDs:+}", _recommend_to_anonymous),
+    Route("GET", "/recommendWithContext/{userID}/{itemIDs:+}",
+          _recommend_with_context),
+    Route("GET", "/similarity/{itemIDs:+}", _similarity),
+    Route("GET", "/similarityToItem/{toItemID}/{itemIDs:+}",
+          _similarity_to_item),
+    Route("GET", "/estimate/{userID}/{itemIDs:+}", _estimate),
+    Route("GET", "/estimateForAnonymous/{toItemID}/{itemIDs:+}",
+          _estimate_for_anonymous),
+    Route("GET", "/because/{userID}/{itemID}", _because),
+    Route("GET", "/mostSurprising/{userID}", _most_surprising),
+    Route("GET", "/mostActiveUsers", _most_active_users),
+    Route("GET", "/mostPopularItems", _most_popular_items),
+    Route("GET", "/popularRepresentativeItems", _popular_representative_items),
+    # reference-exact paths (AllUserIDs.java:33-37 is @Path("/user") +
+    # @Path("/allIDs") -> /user/allIDs; likewise /item/allIDs); the
+    # flat spellings are kept as aliases
+    Route("GET", "/user/allIDs", _all_user_ids),
+    Route("GET", "/item/allIDs", _all_item_ids),
+    Route("GET", "/allUserIDs", _all_user_ids),
+    Route("GET", "/allItemIDs", _all_item_ids),
     Route("GET", "/knownItems/{userID}", _known_items),
+    Route("POST", "/pref/{userID}/{itemID}", _pref_post, mutates=True),
+    Route("DELETE", "/pref/{userID}/{itemID}", _pref_delete, mutates=True),
+    Route("POST", "/ingest", _ingest, mutates=True),
+    console.console_route("Alternating Least Squares", [
+        console.Endpoint("/recommend/{0}", ("userID",)),
+        console.Endpoint("/recommendToAnonymous/{0}", ("itemID(=strength)",)),
+        console.Endpoint("/similarity/{0}/{1}", ("itemID1", "itemID2")),
+        console.Endpoint("/estimate/{0}/{1}", ("userID", "itemID")),
+        console.Endpoint("/because/{0}/{1}", ("userID", "itemID")),
+        console.Endpoint("/knownItems/{0}", ("userID",)),
+        console.Endpoint("/mostActiveUsers"),
+        console.Endpoint("/mostPopularItems"),
+        console.Endpoint("/allUserIDs"),
+        console.Endpoint("/allItemIDs"),
+        console.Endpoint("/ready"),
+    ]),
 ]

@@ -116,7 +116,10 @@ class _Partition:
         with open(self.persist_path, "rb") as f:
             f.seek(self._read_pos)
             chunk = self._tail + f.read()
-            self._read_pos = size
+            # where the read ended, not the size seen before it: another
+            # process may have appended in between, and those bytes are
+            # in ``chunk`` already
+            self._read_pos = f.tell()
         lines = chunk.split(b"\n")
         self._tail = lines.pop()  # b"" unless the last record is partial
         appended = False
@@ -130,26 +133,7 @@ class _Partition:
 
     def append(self, key: str | None, message: str,
                headers: dict | None = None) -> int:
-        rec = [key, message] if headers is None else [key, message,
-                                                     headers]
-        record = (json.dumps(rec) + "\n").encode("utf-8")
-        with self._lock:
-            if self.persist_path is not None and self._fd is None:
-                # a closed durable broker handed back by the registry:
-                # re-open rather than ack into memory only
-                self._fd = os.open(self.persist_path,
-                                   os.O_APPEND | os.O_CREAT | os.O_WRONLY,
-                                   0o644)
-            if self._fd is not None:
-                # write, then re-read up to and past our record so the
-                # in-memory offsets follow the file's order
-                os.write(self._fd, record)
-                self._refresh_locked()
-            else:
-                self.log.append((key, message, headers))
-            offset = len(self.log) - 1
-        self._notify()
-        return offset
+        return self.append_many([(key, message, headers)])
 
     def append_many(self,
                     records: list[tuple[str | None, str, dict | None]]
@@ -162,10 +146,14 @@ class _Partition:
             .encode("utf-8") for k, m, h in records)
         with self._lock:
             if self.persist_path is not None and self._fd is None:
+                # a closed durable broker handed back by the registry:
+                # re-open rather than ack into memory only
                 self._fd = os.open(self.persist_path,
                                    os.O_APPEND | os.O_CREAT | os.O_WRONLY,
                                    0o644)
             if self._fd is not None:
+                # write, then re-read up to and past our records so the
+                # in-memory offsets follow the file's order
                 if blob:
                     os.write(self._fd, blob)
                 self._refresh_locked()

@@ -25,12 +25,6 @@ __all__ = ["compute_target_qui", "fold_in_batch", "fold_in_sequential",
            "compute_updated_xu"]
 
 
-def _pow2_bucket(n: int) -> int:
-    """Smallest power-of-two batch size >= n (floor 8), the reference's
-    padding of a batch."""
-    return max(8, 1 << max(0, n - 1).bit_length())
-
-
 def compute_target_qui(implicit: bool, value, current_value) -> torch.Tensor:
     """Elementwise target strength; NaN means "no change" (the semantics
     of ALSUtils.computeTargetQui)."""
@@ -63,20 +57,15 @@ def fold_in_batch(solver, values, xu, yi, implicit: bool):
     row meaning "no item vector" (no update).  Returns ``(new_xu,
     valid)`` as NumPy arrays: the (n, k) updated vectors and the (n,)
     mask of events that produced an update (False where the reference
-    returns null: no Yi, or a NaN target).  The batch is padded to the
-    reference's power-of-two size with no-op rows."""
+    returns null: no Yi, or a NaN target).  The reference pads the
+    batch to a power of two for XLA's compile cache; with no such
+    cache, this batch is solved at its own size."""
     chol = solver.cholesky
     dev = chol.device
     check_f32_matmul(dev)
     values = np.asarray(values, dtype=np.float32)
     xu = np.asarray(xu, dtype=np.float32)
     yi = np.asarray(yi, dtype=np.float32)
-    n = len(values)
-    m = _pow2_bucket(n)
-    if m != n:
-        values = np.pad(values, (0, m - n))
-        xu = np.pad(xu, ((0, m - n), (0, 0)), constant_values=np.nan)
-        yi = np.pad(yi, ((0, m - n), (0, 0)), constant_values=np.nan)
     has_xu = torch.from_numpy(~np.any(np.isnan(xu), axis=1)).to(dev)
     has_yi = torch.from_numpy(~np.any(np.isnan(yi), axis=1)).to(dev)
     xu_t = torch.from_numpy(np.nan_to_num(xu)).to(dev)
@@ -92,7 +81,7 @@ def fold_in_batch(solver, values, xu, yi, implicit: bool):
     d_qui = torch.where(valid, target - qui, zero)
     d_xu = _solve(chol, yi_t * d_qui[:, None])
     new_xu = torch.where(has_xu[:, None], xu_t, zero) + d_xu
-    return new_xu[:n].cpu().numpy(), valid[:n].cpu().numpy()
+    return new_xu.cpu().numpy(), valid.cpu().numpy()
 
 
 def fold_in_sequential(solver, item_values, get_item_vector,
@@ -104,8 +93,9 @@ def fold_in_sequential(solver, item_values, get_item_vector,
     buildTemporaryUserVector :74-96).  ``get_item_vector(item_id)``
     gives the item's row or None; items without one are skipped.
     Returns the new vector, or ``xu`` when nothing folded in and no
-    vector existed.  The steps run on the factor's device, and the
-    result comes back once at the end."""
+    vector existed.  The inputs go up in one copy, the steps run on the
+    factor's device with no host round trip between them, and the
+    result comes back in one fetch at the end."""
     rows = []
     for item_id, value in item_values:
         v = get_item_vector(item_id)
@@ -116,17 +106,26 @@ def fold_in_sequential(solver, item_values, get_item_vector,
     chol = solver.cholesky
     dev = chol.device
     check_f32_matmul(dev)
-    values = torch.tensor([v for v, _ in rows], dtype=torch.float32,
-                          device=dev)
-    ys = torch.from_numpy(np.asarray([y for _, y in rows], np.float32)
-                          .reshape(len(rows), features)).to(dev)
-    cur = torch.zeros(features, dtype=torch.float32, device=dev) \
-        if xu is None else torch.from_numpy(
-            np.asarray(xu, dtype=np.float32)).to(dev)
-    has_xu = torch.tensor(xu is not None, device=dev)
+    # one upload: strengths, item rows and start vector packed into one
+    # host buffer (pinned on a card), so the copy makes the host wait
+    # for nothing
+    m = len(rows)
+    host = torch.empty(m * (features + 1) + features, dtype=torch.float32,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    buf[:m] = [v for v, _ in rows]
+    buf[m:m * (features + 1)] = np.asarray(
+        [y for _, y in rows], np.float32).reshape(-1)
+    buf[m * (features + 1):] = 0.0 if xu is None else np.asarray(
+        xu, dtype=np.float32)
+    packed = host.to(dev, non_blocking=True)
+    values = packed[:m]
+    ys = packed[m:m * (features + 1)].view(m, features)
+    cur = packed[m * (features + 1):]
+    has_xu = torch.full((), xu is not None, dtype=torch.bool, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     half = torch.full((), 0.5, dtype=torch.float32, device=dev)
-    for j in range(len(rows)):
+    for j in range(m):
         y = ys[j]
         qui = torch.where(has_xu, torch.dot(cur, y), zero)
         current = torch.where(has_xu, qui, half)
@@ -137,8 +136,9 @@ def fold_in_sequential(solver, item_values, get_item_vector,
         base = torch.where(has_xu, cur, zero)
         cur = torch.where(valid, base + d_xu, cur)
         has_xu = has_xu | valid
-    out, folded = cur.cpu().numpy(), bool(has_xu.item())
-    return out if folded else xu
+    # one fetch: the vector and whether anything folded in
+    out = torch.cat([cur, has_xu.to(cur.dtype)[None]]).cpu().numpy()
+    return out[:features] if out[features] else xu
 
 
 def compute_updated_xu(solver, value: float, xu, yi, implicit: bool):

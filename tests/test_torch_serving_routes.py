@@ -236,8 +236,10 @@ def _model_doc(x_ids, y_ids):
 
 
 def _publish(layers: Layers):
+    """MODEL + UP through the reference's producer: its layer shares the
+    writer's partition, and the port's layer tails the file."""
     y_ids, Y, x_ids, X, known = _catalog()
-    producer = tinproc.InProcTopicProducer(layers.uri, layers.topic)
+    producer = jinproc.InProcTopicProducer(layers.uri, layers.topic)
     producer.send("MODEL", _model_doc(x_ids, y_ids))
     for i, row in zip(y_ids, Y):
         producer.send("UP", json.dumps(["Y", i, [float(v) for v in row]]))
@@ -258,6 +260,13 @@ def _loaded(layer, n_users=N_USERS, n_items=N_ITEMS):
 def _ready(layers: Layers):
     for layer in (layers.jl, layers.tl):
         _wait(lambda: _loaded(layer), "the replay")
+    for layer in (layers.jl, layers.tl):
+        # a blocking get waits for a solve already in flight, which may
+        # have begun before the replay's last UP and left the cache
+        # dirty; the second get then solves the whole replay's Gramian
+        model = layer.model_manager.get_model()
+        for _ in range(2):
+            model.get_yty_solver(blocking=True)
     for p in layers.ports:
         _wait(lambda: _get(p, "/ready")[0] in (200, 204), "/ready")
 
@@ -620,7 +629,7 @@ def test_popularity_counters_across_model_swaps(fresh_layers):
     prunes (the first keeps what the UP stream touched since the last
     swap), and both layers count alike after each."""
     y_ids, _, x_ids, _, _ = _catalog()
-    producer = tinproc.InProcTopicProducer(fresh_layers.uri,
+    producer = jinproc.InProcTopicProducer(fresh_layers.uri,
                                            fresh_layers.topic)
     keep_x, keep_y = x_ids[:20], y_ids[:20] + y_ids[40:]
     for _ in range(2):

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -90,6 +91,37 @@ def test_records_from_the_other_package_arrive_while_consuming(tmp_path):
     finally:
         jinproc.drop_broker(name)
         tinproc.drop_broker(name)
+
+
+def test_a_tailing_reader_keeps_its_place_beside_a_writer(tmp_path):
+    """A reader refreshing while another writer appends sees every
+    record once, in order: a write that lands between the reader's size
+    check and its read must not be read twice or split."""
+    path = str(tmp_path / "t.topic.jsonl")
+    writer = tinproc._Partition(lambda: None, path)
+    reader = tinproc._Partition(lambda: None, path)
+    n = 3000
+    errors = []
+
+    def tail():
+        try:
+            while reader.size() < n:
+                reader.refresh()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    th = threading.Thread(target=tail, daemon=True)
+    th.start()
+    for i in range(n):
+        writer.append("UP", f'["Y","i{i}",[{i}.5,-1.25]]')
+    th.join(timeout=60)
+    try:
+        assert not th.is_alive() and not errors, errors
+        assert [reader.get(i)[1] for i in range(reader.size())] == \
+            [f'["Y","i{i}",[{i}.5,-1.25]]' for i in range(n)]
+    finally:
+        writer.close()
+        reader.close()
 
 
 def test_other_broker_schemes_are_refused():

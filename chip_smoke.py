@@ -106,6 +106,39 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    in the partition ``partition_for_key`` gives, and a body with one bad
    line refused with 400 and nothing appended.  Each route prints a
    ``route_serve`` line with its request count, p50 and p99.
+5. The batch and speed layers (their data made by a child process while
+   phases 2-4 run):
+   a. ALS trains on the card at MovieLens-20M's shape — 138,493 users x
+      26,744 items, 20,000,000 drawn interactions of the port's
+      synthesizer (seed 7), the reference bench's 5 % hold-out — as
+      implicit ALS at rank 100 with lambda and alpha from
+      reference.conf, 3 sweeps, the first untimed.  The factors must be
+      finite with no rescue rung taken; 512 sampled rows of each side of
+      the last half-sweeps must equal a float64 host solve of their
+      normal equations from the same opposite factors within 1e-3 of the
+      row's norm; the held-out AUC over 5,000 warm test users must pass
+      0.6.  A ``train`` line gives each sweep's and half-sweep's seconds,
+      the gather-and-product and solve seconds inside each half-sweep
+      (CUDA events), the host packing seconds, the peak card memory and
+      the AUC.
+   b. The lambda loop through the port's layers, from
+      ``oryx_tpu_torch/conf/als-example.conf`` on a temporary ``file://``
+      broker at rank 100, 3 sweeps and 8 slices: 1,000,000 drawn
+      interactions at the same user and item counts on the input topic;
+      one ``BatchLayer`` generation, which must commit its offsets,
+      publish a MODEL-REF whose manifest names 8 slices and write a PMML
+      with the features, lambda and implicit flag; a ``ServingLayer``
+      and a ``SpeedLayer`` loading it (``/ready``, every id in both);
+      2,000 ``/pref`` events for 256 users through the serving layer's
+      HTTP; one ``SpeedLayer.run_one_micro_batch()``, whose UP records
+      must equal a host float64 loop of the reference's fold-in on the
+      speed model's own vectors (rtol 1e-4, atol 1e-5); then the serving
+      layer must hold each user's last UP vector bit for bit, and each
+      user's ``/recommend`` must be the NumPy top-10 of that vector with
+      its known items excluded.  A ``lambda`` line gives the generation's
+      seconds by stage, each layer's load seconds, the micro-batch's
+      seconds and the milliseconds from the last ``/pref`` to the serving
+      layer answering with the new vectors.
 
 With ``--trace DIR`` the fold-in round of phase 4 runs once more, after
 the timed one, under ``torch.profiler``: its operator tables and Chrome
@@ -197,6 +230,30 @@ N_SURFACE = 8
 ROUTE_SLACK_BYTES = 32 << 20
 # float32: summation order only; bfloat16: the certificate's own margin
 RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# phase 5a: ALS training at MovieLens-20M's shape, rank 100 (BASELINE.md's
+# north star), implicit, lambda and alpha from reference.conf; the
+# reference bench's 5 % hold-out and its sample of AUC users
+ML_USERS, ML_ITEMS, ML_RATINGS = 138_493, 26_744, 20_000_000
+TRAIN_SEED = 7
+TRAIN_RANK = 100
+TRAIN_SWEEPS = 3
+TEST_FRACTION = 0.05
+AUC_USERS = 5_000
+AUC_LEARNED = 0.6
+ROW_CHECKS = 512
+ROW_RTOL = 1e-3
+# phase 5b: the lambda loop through the port's three layers on a file://
+# broker, from oryx_tpu_torch/conf/als-example.conf
+LOOP_RATINGS = 1_000_000
+LOOP_SEED = TRAIN_SEED + 1
+LOOP_T0 = 1_700_000_000_000
+LOOP_SLICES = 8
+# below the generation's PMML (its user and item ids), so the model is
+# published by reference with its slices, as a larger catalog would be
+LOOP_MAX_MESSAGE = 1 << 16
+PREF_EVENTS = 2_000
+PREF_USERS = 256
+LOOP_WAIT_S = 600.0
 # (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s,
 # int8 dense tensor-core OP/s), NVIDIA's data sheets for the SXM parts
 PEAKS = {"H200": (4.8e12, 67e12, 989e12, 1979e12),
@@ -1872,6 +1929,419 @@ def serve_update_topic(publisher, work_dir: str, rng,
     return summary
 
 
+# -- phase 5: the batch and speed layers, and the lambda loop -----------------
+
+def loop_config(work_dir: str):
+    """Phase 5b's config: the port's example config on a file:// broker
+    and directories under ``work_dir``, rank 100, 3 sweeps, 8 slices."""
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    loop = os.path.join(work_dir, "loop")
+    broker = "file://" + os.path.join(loop, "broker")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "oryx_tpu_torch", "conf", "als-example.conf")
+    return overlay_on({
+        "oryx.input-topic.broker": broker,
+        "oryx.update-topic.broker": broker,
+        "oryx.batch.storage.data-dir": os.path.join(loop, "data"),
+        "oryx.batch.storage.model-dir": os.path.join(loop, "model"),
+        "oryx.als.hyperparams.features": TRAIN_RANK,
+        "oryx.als.iterations": TRAIN_SWEEPS,
+        "oryx.als.publish.slices": LOOP_SLICES,
+        "oryx.update-topic.message.max-size": LOOP_MAX_MESSAGE,
+        # the run drives the micro-batch itself
+        "oryx.speed.streaming.generation-interval-sec": 3600,
+    }, from_file(conf))
+
+
+def lambda_data(work_dir: str) -> None:
+    """Phase 5's data, made in a child process while the card works on
+    phases 2-4; touches no card.  The MovieLens-20M-shaped interactions
+    5a trains on go to ``ml20m.npz``; 1M more drawn interactions at the
+    same user and item counts go onto 5b's input topic as
+    ``u,i,strength,ts`` lines, timestamps in random order (so the
+    generation's time split holds out a random tenth)."""
+    from oryx_tpu_torch.bench.train import synthesize_movielens
+    from oryx_tpu_torch.kafka import utils as kafka_utils
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+    t0 = time.perf_counter()
+    users, items, values, _, _ = synthesize_movielens(
+        ML_USERS, ML_ITEMS, ML_RATINGS, seed=TRAIN_SEED)
+    np.savez(os.path.join(work_dir, "ml20m.npz"), users=users, items=items,
+             values=values)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = loop_config(work_dir)
+    broker = cfg.get_string("oryx.input-topic.broker")
+    topic = cfg.get_string("oryx.input-topic.message.topic")
+    users, items, values, _, _ = synthesize_movielens(
+        ML_USERS, ML_ITEMS, LOOP_RATINGS, seed=LOOP_SEED)
+    ts = LOOP_T0 + np.random.default_rng(LOOP_SEED).permutation(
+        len(users)).astype(np.int64) * 1000
+    kafka_utils.maybe_create_topic(
+        broker, topic, partitions=kafka_utils.input_topic_partitions(cfg))
+    producer = InProcTopicProducer(broker, topic)
+    chunk = 100_000
+    for s in range(0, len(users), chunk):
+        producer.send_many([
+            (None, f"u{u},i{i},{v:g},{t}", None) for u, i, v, t in zip(
+                users[s:s + chunk].tolist(), items[s:s + chunk].tolist(),
+                values[s:s + chunk].tolist(), ts[s:s + chunk].tolist())])
+    with open(os.path.join(work_dir, "lambda_data.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"ml20m_pairs": int(np.load(os.path.join(
+            work_dir, "ml20m.npz"))["users"].shape[0]), "synth_s": synth_s,
+            "loop_lines": len(users),
+            "loop_write_s": time.perf_counter() - t0}, f)
+
+
+def row_errors(rows, cols, vals, n_rows: int, opposite: np.ndarray,
+               got: np.ndarray, lam: float, alpha: float, rng) -> dict:
+    """The relative error, on each row's norm, of ``got`` against a
+    float64 host solve of that row's implicit normal equations from the
+    same opposite factors, for ROW_CHECKS sampled rows with
+    interactions: A = Y^T Y + Y_u^T diag(alpha |r|) Y_u + lambda n_u I,
+    b = Y_u^T ((1 + alpha |r|) [r > 0])."""
+    order = np.argsort(rows, kind="stable")
+    counts = np.bincount(rows, minlength=n_rows)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    picks = rng.choice(np.nonzero(counts)[0], ROW_CHECKS, replace=False)
+    opp = opposite.astype(np.float64)
+    gram = opp.T @ opp
+    eye = np.eye(opp.shape[1])
+    errs = []
+    for r in picks:
+        idx = order[ptr[r]:ptr[r + 1]]
+        yg = opp[cols[idx]]
+        v = vals[idx].astype(np.float64)
+        w = alpha * np.abs(v)
+        a = gram + (yg * w[:, None]).T @ yg + lam * len(idx) * eye
+        x = np.linalg.solve(a, yg.T @ ((1.0 + w) * (v > 0)))
+        errs.append(float(np.linalg.norm(got[r] - x) / np.linalg.norm(x)))
+    return {"rows": len(picks), "max": max(errs),
+            "median": float(np.median(errs)),
+            "degrees": [int(counts[picks].min()), int(counts[picks].max())]}
+
+
+def train_at_scale(work_dir: str, lam: float, alpha: float) -> dict:
+    """Phase 5a: ALS on the card at MovieLens-20M's shape and rank 100,
+    the 5 % hold-out of the reference bench; the ``train`` line."""
+    import torch
+    from oryx_tpu_torch.app.als.common import ParsedRatings
+    from oryx_tpu_torch.app.als.evaluation import area_under_curve
+    from oryx_tpu_torch.app.als.trainer import train_als
+    from oryx_tpu_torch.bench.train import _split
+    data = np.load(os.path.join(work_dir, "ml20m.npz"))
+    users, items, values = data["users"], data["items"], data["values"]
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    train_mask, test_mask = _split(rng, len(users), TEST_FRACTION)
+    tu, ti, tv = users[train_mask], items[train_mask], values[train_mask]
+    ratings = ParsedRatings([str(u) for u in range(ML_USERS)],
+                            [str(i) for i in range(ML_ITEMS)], tu, ti, tv)
+    free()
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    before_last: dict = {}
+
+    def on_iteration(i, X, Y):
+        if i == TRAIN_SWEEPS - 2:
+            before_last["Y"] = Y
+
+    t0 = time.perf_counter()
+    model = train_als(ratings, TRAIN_RANK, lam, alpha, True, TRAIN_SWEEPS,
+                      seed=TRAIN_SEED, on_iteration=on_iteration,
+                      device=DEVICE, timings=timings)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    check(model.rescue is None, f"train: a rescue rung was taken: "
+          f"{model.rescue}")
+    check(bool(np.all(np.isfinite(model.X)) and np.all(np.isfinite(model.Y))),
+          "train: non-finite factors")
+    check(len(timings["sweep_s"]) == TRAIN_SWEEPS, "train: sweeps missing")
+    # the last half-sweeps against float64 solves of the same systems:
+    # X from the Y before it, Y from that X
+    t0 = time.perf_counter()
+    row_rng = np.random.default_rng(TRAIN_SEED + 2)
+    errs = {"X": row_errors(tu, ti, tv, ML_USERS, before_last["Y"], model.X,
+                            lam, alpha, row_rng),
+            "Y": row_errors(ti, tu, tv, ML_ITEMS, model.X, model.Y, lam,
+                            alpha, row_rng)}
+    row_s = time.perf_counter() - t0
+    for side, e in errs.items():
+        check(e["max"] <= ROW_RTOL, f"train: a sampled {side} row is "
+              f"{e['max']} from its float64 solve (limit {ROW_RTOL})")
+    # held-out AUC over the reference bench's sample of warm test users
+    seen_u = np.zeros(ML_USERS, bool)
+    seen_i = np.zeros(ML_ITEMS, bool)
+    seen_u[tu] = True
+    seen_i[ti] = True
+    warm = test_mask & seen_u[users] & seen_i[items]
+    eu, ei = users[warm], items[warm]
+    chosen = rng.choice(np.unique(eu), AUC_USERS, replace=False)
+    keep = np.isin(eu, chosen)
+    t0 = time.perf_counter()
+    auc = area_under_curve(model.X, model.Y, eu[keep], ei[keep],
+                           device=DEVICE)
+    auc_s = time.perf_counter() - t0
+    check(auc > AUC_LEARNED, f"train: held-out AUC {auc} <= {AUC_LEARNED}")
+    sweeps = timings["sweep_s"]
+    line = {"phase": "train", "users": ML_USERS, "items": ML_ITEMS,
+            "drawn": ML_RATINGS, "pairs": int(len(users)),
+            "train_pairs": int(len(tu)), "rank": TRAIN_RANK, "lambda": lam,
+            "alpha": alpha, "sweeps": TRAIN_SWEEPS,
+            "untimed_sweep_s": sweeps[0], "sweep_s": sweeps[1:],
+            "epoch_s": statistics.mean(sweeps[1:]),
+            "half_sweep_s": timings["half_sweep_s"],
+            "products_s": timings["products_s"],
+            "solve_s": timings["solve_s"], "pack_s": timings["pack_s"],
+            "train_s": train_s, "peak_bytes": peak,
+            "row_rel_err": errs, "row_check_s": row_s,
+            "auc": auc, "auc_users": AUC_USERS,
+            "auc_pairs": int(keep.sum()), "auc_s": auc_s,
+            "rescue": model.rescue}
+    log(line)
+    return line
+
+
+def post_prefs(port: int, events) -> float:
+    """POST each (user, item, strength) to /pref on one kept-alive
+    connection; returns the host clock after the last answer."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        for user, item, value in events:
+            conn.request("POST", f"/pref/{user}/{item}",
+                         body=f"{value}".encode())
+            resp = conn.getresponse()
+            resp.read()
+            check(resp.status == 204, f"lambda: /pref/{user}/{item} "
+                  f"answered {resp.status}")
+        return time.perf_counter()
+    finally:
+        conn.close()
+
+
+def expected_ups(new_data, snap: dict, implicit: bool) -> dict:
+    """The reference's micro-batch (ALSSpeedModelManager.buildUpdates,
+    app/als/speed.py:191-246) as a plain host float64 loop: events summed
+    per (user, item), then each pair's user vector folded against the
+    float64 Y^T Y and its item vector against X^T X, from the speed
+    model's vectors before the batch.  Keyed (kind, id, other id)."""
+    sums: dict = {}
+    for km in new_data:
+        user, item, value = km.message.split(",")[:3]
+        sums[(user, item)] = sums.get((user, item), 0.0) + float(value)
+    out = {}
+    for (user, item), value in sums.items():
+        value = float(np.float32(value))
+        xu = snap["X"].get(user)
+        yi = snap["Y"].get(item)
+        for kind, vec, other, gram, key in (
+                ("X", xu, yi, snap["YtY"], (user, item)),
+                ("Y", yi, xu, snap["XtX"], (item, user))):
+            if other is None:
+                continue
+            qui = float(vec @ other) if vec is not None else 0.0
+            target = target_qui(implicit, value,
+                                qui if vec is not None else 0.5)
+            if np.isnan(target):
+                continue
+            d = np.linalg.solve(gram, other * (target - qui))
+            out[(kind, *key)] = d if vec is None else vec + d
+    return out
+
+
+def lambda_loop(work_dir: str, lam: float) -> dict:
+    """Phase 5b: one batch generation, the serving and speed layers
+    loading it, /pref events through the serving layer's HTTP, one speed
+    micro-batch, and the serving layer answering with its UP vectors;
+    the ``lambda`` line."""
+    import torch
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.common import pmml as pmml_io
+    from oryx_tpu_torch.kafka.inproc import resolve_broker
+    from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+    from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
+
+    cfg = loop_config(work_dir)
+    broker = resolve_broker(cfg.get_string("oryx.input-topic.broker"))
+    in_topic = cfg.get_string("oryx.input-topic.message.topic")
+    up_topic = cfg.get_string("oryx.update-topic.message.topic")
+    with open(os.path.join(work_dir, "lambda_data.json"),
+              encoding="utf-8") as f:
+        prepared = json.load(f)
+    check(sum(broker.latest_offsets(in_topic)) == prepared["loop_lines"],
+          "lambda: the input topic does not hold the prepared lines")
+    free()
+
+    # the batch generation
+    batch = BatchLayer(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    batch.run_one_generation()
+    generation_s = time.perf_counter() - t0
+    stages = dict(batch.update_instance.stage_s)
+    check(broker.get_offsets(batch._group, in_topic)
+          == broker.latest_offsets(in_topic),
+          "lambda: the generation did not commit its offsets")
+    ups_end = broker.latest_offsets(up_topic)
+    published = broker.read_ranges(up_topic, [0] * len(ups_end), ups_end)
+    check([m.key for m in published] == ["MODEL-REF"],
+          f"lambda: the generation published {[m.key for m in published]}")
+    pmml_path, _, manifest = slices.parse_model_ref(published[0].message)
+    check(manifest is not None and manifest["ring"] == LOOP_SLICES
+          and len(manifest["slices"]) == LOOP_SLICES,
+          "lambda: the MODEL-REF manifest does not name 8 slices")
+    doc = pmml_io.read(pmml_path)
+    check(pmml_io.get_extension_value(doc, "features") == str(TRAIN_RANK)
+          and float(pmml_io.get_extension_value(doc, "lambda")) == lam
+          and pmml_io.get_extension_value(doc, "implicit") == "true",
+          "lambda: the PMML lacks the features, lambda or implicit flag")
+    x_ids = pmml_io.get_extension_content(doc, "XIDs")
+    y_ids = pmml_io.get_extension_content(doc, "YIDs")
+
+    # the serving and speed layers load it off the update topic
+    serving = ServingLayer(cfg, port=0, device=DEVICE)
+    speed = SpeedLayer(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    serving.start()
+    speed.start()
+    try:
+        smgr, pmgr = serving.model_manager, speed.model_manager
+
+        # loaded: every slice read (the counters move once a manifest's
+        # load, known items included, is done) and every id held
+        def ready() -> bool:
+            status, _, _ = http_call(serving.port, "GET", "/ready")
+            model = smgr.get_model()
+            return status == 204 and smgr.slice_loads == LOOP_SLICES \
+                and model.user_count() == len(x_ids) \
+                and model.item_count() == len(y_ids)
+
+        wait_for(ready, "lambda: the serving layer's load", LOOP_WAIT_S)
+        serving_load_s = time.perf_counter() - t0
+        wait_for(lambda: pmgr.slice_loads == LOOP_SLICES
+                 and pmgr.model.user_count() == len(x_ids)
+                 and pmgr.model.item_count() == len(y_ids),
+                 "lambda: the speed layer's load", LOOP_WAIT_S)
+        speed_load_s = time.perf_counter() - t0
+        check(smgr.slice_loads == pmgr.slice_loads == LOOP_SLICES
+              and smgr.slice_load_fallbacks == 0
+              and pmgr.slice_load_fallbacks == 0,
+              f"lambda: slice loads {smgr.slice_loads}/{pmgr.slice_loads}")
+        model, smodel = smgr.get_model(), pmgr.model
+
+        # /pref events through the serving layer, from now on
+        broker.set_offsets(speed._group, in_topic,
+                           broker.latest_offsets(in_topic))
+        in_before = broker.latest_offsets(in_topic)
+        rng = np.random.default_rng(LOOP_SEED + 1)
+        pref_users = [x_ids[j] for j in rng.choice(len(x_ids), PREF_USERS,
+                                                   replace=False)]
+        events = [(pref_users[j % PREF_USERS],
+                   y_ids[int(rng.integers(len(y_ids)))],
+                   f"{rng.uniform(0.5, 3.0):.3f}")
+                  for j in range(PREF_EVENTS)]
+        t0 = time.perf_counter()
+        t_last_pref = post_prefs(serving.port, events)
+        pref_s = t_last_pref - t0
+        new_data = broker.read_ranges(in_topic, in_before,
+                                      broker.latest_offsets(in_topic))
+        check(len(new_data) == PREF_EVENTS,
+              f"lambda: {len(new_data)} of {PREF_EVENTS} /pref records")
+        # the speed model's vectors before the micro-batch
+        snap = {"X": {}, "Y": {}}
+        for side, store in (("X", smodel.X), ("Y", smodel.Y)):
+            host, active, row_ids = store.host_arrays()
+            rows = host[active].astype(np.float64)
+            snap[f"{side}t{side}"] = rows.T @ rows
+            snap[side] = {row_ids[r]: host[r].astype(np.float64)
+                          for r in np.nonzero(active)[0]}
+        up_before = broker.latest_offsets(up_topic)
+        t0 = time.perf_counter()
+        speed.run_one_micro_batch()
+        micro_batch_s = time.perf_counter() - t0
+        check(speed.last_micro_batch["records"] == PREF_EVENTS,
+              f"lambda: the micro-batch read {speed.last_micro_batch}")
+        ups = [json.loads(m.message) for m in broker.read_ranges(
+            up_topic, up_before, broker.latest_offsets(up_topic))]
+        want = expected_ups(new_data, snap, smodel.implicit)
+        got = {(u[0], u[1], u[3][0]): np.asarray(u[2], np.float32)
+               for u in ups}
+        check(len(got) == len(ups) and set(got) == set(want),
+              f"lambda: {len(ups)} UP records for {len(want)} expected "
+              f"updates ({len(set(got) ^ set(want))} differ)")
+        err = max(float(np.max(np.abs(got[k] - v) / (FOLD_ATOL + FOLD_RTOL
+                                                    * np.abs(v))))
+                  for k, v in want.items())
+        check(err <= 1.0, f"lambda: an UP vector is {err} times the fold-in "
+              f"tolerance from the float64 loop")
+        max_abs = max(float(np.max(np.abs(got[k] - v)))
+                      for k, v in want.items())
+        # each user's last X record is what serving ends up holding
+        last_x = {}
+        for u in ups:
+            if u[0] == "X":
+                last_x[u[1]] = np.asarray(u[2], np.float32)
+        check(set(last_x) == set(pref_users),
+              f"lambda: {len(last_x)} of {PREF_USERS} users got an X update")
+        wait_for(lambda: all(np.array_equal(model.get_user_vector(u), v)
+                             for u, v in last_x.items()),
+                 "lambda: serving to apply the UP records", LOOP_WAIT_S)
+        applied_ms = (time.perf_counter() - t_last_pref) * 1e3
+        status, body, _ = http_call(serving.port, "GET",
+                                    f"/recommend/{events[-1][0]}?howMany=10")
+        answer_ms = (time.perf_counter() - t_last_pref) * 1e3
+        check(status == 200, f"lambda: /recommend answered {status}")
+        # every pref user's answer: the NumPy top-k of its UP vector, its
+        # known items excluded
+        host, active, row_ids = model.Y.host_arrays()
+        row_of = {iid: r for r, iid in enumerate(row_ids) if iid is not None}
+        same = 0
+        for user in pref_users:
+            status, body, _ = http_call(serving.port, "GET",
+                                        f"/recommend/{user}?howMany=10")
+            check(status == 200, f"lambda: /recommend/{user}: {status}")
+            answer = [(r["id"], r["value"]) for r in json.loads(body)]
+            eligible = active.copy()
+            for iid in model.get_known_items(user):
+                eligible[row_of[iid]] = False
+            scores = host.astype(np.float64) @ last_x[user].astype(
+                np.float64)
+            held_top_n(answer, scores, eligible, row_of.get, 10,
+                       f"lambda: /recommend/{user}", RTOL["float32"])
+            top = np.argsort(-np.where(eligible, scores, -np.inf),
+                             kind="stable")[:10]
+            same += [row_ids[r] for r in top] == [i for i, _ in answer]
+    finally:
+        speed.close()
+        serving.close()
+    check(not serving.consuming and not speed.consuming,
+          "lambda: a consumer outlived close()")
+    line = {"phase": "lambda", "input_lines": prepared["loop_lines"],
+            "users": len(x_ids), "items": len(y_ids),
+            "generation_s": generation_s,
+            **{f"{k}_s": v for k, v in sorted(stages.items())},
+            "other_s": generation_s - sum(stages.values()),
+            "slices": len(manifest["slices"]),
+            "serving_load_s": serving_load_s,
+            "serving_model_load_s": smgr.model_load_s,
+            "speed_load_s": speed_load_s,
+            "speed_model_load_s": pmgr.model_load_s,
+            "pref_events": PREF_EVENTS, "pref_users": PREF_USERS,
+            "pref_post_s": pref_s, "micro_batch_s": micro_batch_s,
+            "up_records": len(ups), "up_max_abs_err": max_abs,
+            "up_err_of_tolerance": err,
+            "pref_to_applied_ms": applied_ms,
+            "pref_to_answer_ms": answer_ms,
+            "recommend_checked": len(pref_users),
+            "recommend_same_ids": same,
+            "synth_s": prepared["synth_s"],
+            "input_write_s": prepared["loop_write_s"]}
+    log(line)
+    return line
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -1912,24 +2382,30 @@ def main(argv=None) -> int:
     for name, text in cuda_build.LOGS.items():
         print(f"--- {name}\n{text}", file=sys.stderr)
 
-    # phase 4's model directory is written while phases 2-3 run
+    # phase 4's model directory and phase 5's data are made by child
+    # processes while phases 2-3 run
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     os.makedirs(os.path.join(work_dir, "model"))
-    publisher = multiprocessing.get_context("spawn").Process(
+    spawn = multiprocessing.get_context("spawn")
+    publisher = spawn.Process(
         target=publish_topic_model,
         args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
+    preparer = spawn.Process(target=lambda_data, args=(work_dir,),
+                             daemon=True)
     publisher.start()
+    preparer.start()
     try:
-        return run_phases(torch, gpu_name, t_start, publisher, work_dir,
-                          args.trace)
+        return run_phases(torch, gpu_name, t_start, publisher, preparer,
+                          work_dir, args.trace)
     finally:
-        if publisher.is_alive():
-            publisher.terminate()
-        publisher.join(30)
+        for child in (publisher, preparer):
+            if child.is_alive():
+                child.terminate()
+            child.join(30)
         shutil.rmtree(work_dir, ignore_errors=True)
 
 
-def run_phases(torch, gpu_name: str, t_start: float, publisher,
+def run_phases(torch, gpu_name: str, t_start: float, publisher, preparer,
                work_dir: str, trace_dir: str | None) -> int:
     rng = np.random.default_rng(SEED)
     cases = []
@@ -2033,6 +2509,23 @@ def run_phases(torch, gpu_name: str, t_start: float, publisher,
     # update topic (BASELINE.md:37)
     serves["1M_50f_f32_lsh0.3_topic"] = serve_update_topic(
         publisher, work_dir, rng, trace_dir)
+
+    # phase 5: ALS training at MovieLens-20M's shape, then the lambda
+    # loop through the port's batch, speed and serving layers
+    from oryx_tpu_torch.common.config import get_default
+    defaults = get_default()
+    t_wait = time.perf_counter()
+    preparer.join(LOOP_WAIT_S)
+    check(preparer.exitcode == 0,
+          f"phase 5: preparing the data failed ({preparer.exitcode})")
+    log({"phase": "lambda_data", "waited_s": time.perf_counter() - t_wait})
+    train_at_scale(work_dir,
+                   defaults.get_double("oryx.als.hyperparams.lambda"),
+                   defaults.get_double("oryx.als.hyperparams.alpha"))
+    free()
+    lambda_loop(work_dir, loop_config(work_dir).get_double(
+        "oryx.als.hyperparams.lambda"))
+    free()
 
     def head(kernel, **want):
         return next(c for c in cases if c["kernel"] == kernel

@@ -14,17 +14,12 @@ from xml.etree.ElementTree import Element
 
 from ..common import pmml as pmml_io
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF
+from ..ml.integrity import ModelIntegrityError
 from ..resilience.faults import fire as _fault
 
 _log = logging.getLogger(__name__)
 
 __all__ = ["read_pmml_from_update_key_message", "ModelIntegrityError"]
-
-
-class ModelIntegrityError(Exception):
-    """A model artifact failed an integrity check (truncated or corrupt
-    document).  Consumers treat it like a lost message: log, count,
-    keep serving the previous model."""
 
 
 def read_pmml_from_update_key_message(key: str,

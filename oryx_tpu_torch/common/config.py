@@ -13,7 +13,8 @@ from typing import Any
 
 from . import hocon
 
-__all__ = ["Config", "get_default", "overlay_on", "from_file", "from_dict"]
+__all__ = ["Config", "get_default", "overlay_on", "from_file", "from_dict",
+           "refuse_configured"]
 
 _DEFAULTS_PATH = os.path.join(os.path.dirname(__file__), "reference.conf")
 _default_config: "Config | None" = None
@@ -82,6 +83,9 @@ class Config:
     def get_optional_string(self, path: str) -> str | None:
         return self._optional(path, self.get_string)
 
+    def get_optional_double(self, path: str) -> float | None:
+        return self._optional(path, self.get_double)
+
     def __repr__(self):  # pragma: no cover
         return f"Config({sorted(self._root)})"
 
@@ -130,3 +134,16 @@ def overlay_on(overlay: dict | str, base: Config) -> Config:
                 cur = cur.setdefault(p, {})
             cur[parts[-1]] = v
     return Config(hocon.resolve(hocon.merge(base._root, root)))
+
+
+def refuse_configured(config: Config, paths, why: str) -> None:
+    """Raise ``ValueError`` naming the first of ``paths`` that is set
+    (neither missing, null nor false): a key of a feature this package
+    does not have yet must not be quietly ignored."""
+    for path in paths:
+        try:
+            v = config.get(path)
+        except KeyError:
+            continue
+        if v is not None and v is not False:
+            raise ValueError(f"{path}: {why}")

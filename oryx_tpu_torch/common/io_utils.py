@@ -7,10 +7,12 @@ may carry a ``file:`` scheme.
 
 from __future__ import annotations
 
+import contextlib
 import glob as _glob
 import os
+import shutil
 
-__all__ = ["strip_scheme", "list_files", "mkdirs"]
+__all__ = ["strip_scheme", "list_files", "mkdirs", "delete_recursively"]
 
 
 def strip_scheme(path: str) -> str:
@@ -33,3 +35,12 @@ def mkdirs(path: str) -> str:
     path = strip_scheme(path)
     os.makedirs(path, exist_ok=True)
     return path
+
+
+def delete_recursively(path: str) -> None:
+    path = strip_scheme(path)
+    if os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)
+    elif os.path.exists(path):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(path)

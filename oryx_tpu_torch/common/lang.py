@@ -3,7 +3,8 @@
 Counterpart of ``oryx_tpu/common/lang.py``, cut down to
 ``AutoReadWriteLock`` (reference: AutoReadWriteLock.java:37), the
 plugin loader ``load_instance`` (ClassUtils.java:89), ``RateLimitCheck``
-(RateLimitCheck.java:28) and ``logging_call`` (LoggingCallable.java:31).
+(RateLimitCheck.java:28), ``logging_call`` (LoggingCallable.java:31)
+and ``collect_in_parallel`` (ExecUtils.java:93).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import inspect
 import logging
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator, TypeVar
 
 _log = logging.getLogger(__name__)
@@ -21,7 +23,7 @@ _log = logging.getLogger(__name__)
 T = TypeVar("T")
 
 __all__ = ["AutoReadWriteLock", "load_class", "load_instance",
-           "RateLimitCheck", "logging_call"]
+           "RateLimitCheck", "logging_call", "collect_in_parallel"]
 
 # the package a configured class path must name: a config written for
 # the JAX package (``oryx_tpu.…``) would load that package's classes
@@ -95,6 +97,19 @@ def logging_call(fn: Callable[[], T],
             return None
 
     return _wrapped
+
+
+def collect_in_parallel(num_items: int, fn: Callable[[int], T],
+                        parallelism: int | None = None) -> list[T]:
+    """``fn`` over the indices ``0..num_items-1`` on up to
+    ``parallelism`` threads, the results in index order."""
+    if num_items <= 0:
+        return []
+    parallelism = num_items if parallelism is None else max(1, parallelism)
+    if parallelism == 1 or num_items == 1:
+        return [fn(i) for i in range(num_items)]
+    with ThreadPoolExecutor(max_workers=min(parallelism, num_items)) as pool:
+        return list(pool.map(fn, range(num_items)))
 
 
 class _RWLock:

@@ -39,6 +39,16 @@ class RandomManager:
             return gen
 
     @classmethod
+    def random_seed(cls) -> int:
+        """A seed for APIs that take an integer: the test seed in test
+        mode, else fresh entropy (the reference's stream, so a seeded
+        trainer draws the same initial factors)."""
+        with cls._lock:
+            if cls._use_test_seed:
+                return _TEST_SEED
+            return int(np.random.SeedSequence().entropy) & 0x7FFFFFFFFFFFFFFF
+
+    @classmethod
     def use_test_seed(cls) -> None:
         """Switch to fixed-seed mode and retroactively reset generators
         already handed out."""

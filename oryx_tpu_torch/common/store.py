@@ -16,8 +16,8 @@ from . import io_utils
 from .io_utils import strip_scheme
 from ..resilience.faults import fire as _fault
 
-__all__ = ["is_local", "open_read", "open_write", "exists", "glob",
-           "mkdirs", "join"]
+__all__ = ["is_local", "open_read", "open_write", "exists", "getsize",
+           "glob", "mkdirs", "join", "delete_recursively", "rename"]
 
 
 def _scheme(uri: str) -> str | None:
@@ -65,6 +65,10 @@ def exists(uri: str) -> bool:
     return os.path.exists(_local(uri))
 
 
+def getsize(uri: str) -> int:
+    return os.path.getsize(_local(uri))
+
+
 def glob(dir_uri: str, pattern: str = "*") -> list[str]:
     """Sorted entries under a directory matching a glob pattern."""
     _local(dir_uri)
@@ -75,3 +79,16 @@ def mkdirs(uri: str) -> str:
     """Ensure the directory exists; returns the bare path."""
     _local(uri)
     return io_utils.mkdirs(uri)
+
+
+def delete_recursively(uri: str) -> None:
+    io_utils.delete_recursively(_local(uri))
+
+
+def rename(src_uri: str, dst_uri: str) -> None:
+    """Publish by rename (reference: MLUpdate.java:205-211 renames the
+    winning candidate into model-dir); atomic on POSIX."""
+    # chaos seam: transient rename failure on the publish edge
+    _fault("store-rename", error=lambda: OSError(
+        f"injected rename failure for {dst_uri}"))
+    os.replace(_local(src_uri), _local(dst_uri))

@@ -2,11 +2,12 @@
 semantics, optionally backed by files.
 
 Counterpart of ``oryx_tpu/kafka/inproc.py``, cut down to what the
-serving layer needs: topics, keyed partitioning, appends (one record,
-or a pipelined batch in one write per partition, for the input topic's
-``/ingest``), offset reads and the blocking consume from offset 0.  Consumer
-groups and committed offsets come with the layers that resume from them
-(speed, batch).
+three layers need: topics, keyed partitioning, appends (one record, or
+a pipelined batch in one write per partition, for the input topic's
+``/ingest``), offset reads, range reads of every partition (the batch
+and speed layers' drains), the blocking consume from offset 0, and
+committed per-(group, topic, partition) offsets, from which the batch
+and speed layers resume.
 
 Brokers are addressed by URI: ``memory://<name>`` is a shared named
 broker in this process; ``file://<dir>`` keeps each partition as an
@@ -14,8 +15,10 @@ append-only JSONL file under ``<dir>`` in the reference's on-disk
 format — one ``[key, message]`` (or ``[key, message, headers]``) JSON
 array per line, partition 0 in ``<topic>.topic.jsonl``, partitions
 1.. in ``<topic>.p<i>.topic.jsonl``, the partition count in
-``<topic>.meta.json`` when above 1 — so a topic written by either
-package is read by the other.  A ``kafka://`` or ``host:port`` address
+``<topic>.meta.json`` when above 1, the committed offsets in an
+``offsets.json`` sidecar written behind with a short throttle (and on
+``flush``) — so a topic and a group's offsets written by either package
+are read by the other.  A ``kafka://`` or ``host:port`` address
 (a wire-protocol broker) is not part of this package yet.
 """
 
@@ -25,6 +28,7 @@ import json
 import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 from ..resilience import faults
@@ -36,6 +40,9 @@ __all__ = ["InProcBroker", "get_broker", "resolve_broker", "drop_broker",
 
 _REGISTRY: dict[str, "InProcBroker"] = {}
 _REGISTRY_LOCK = threading.Lock()
+
+# write-behind interval for the offsets sidecar of a persisted broker
+_OFFSET_FLUSH_SEC = 0.1
 
 
 def get_broker(name: str = "default",
@@ -182,6 +189,13 @@ class _Partition:
             self._refresh_locked()
             return len(self.log)
 
+    def read_range(self, start: int, end: int) -> list[KeyMessage]:
+        if end <= start:
+            return []
+        with self._lock:
+            self._refresh_locked()
+            return [KeyMessage(k, m, h) for k, m, h in self.log[start:end]]
+
     def close(self) -> None:
         with self._lock:
             if self._fd is not None:
@@ -248,7 +262,8 @@ def _meta_partitions(persist_dir: str | None, topic: str) -> int:
 
 
 class InProcBroker:
-    """Named in-process broker of partitioned topics."""
+    """Named in-process broker of partitioned topics and per-group
+    committed per-partition offsets."""
 
     def __init__(self, name: str = "default",
                  persist_dir: str | None = None):
@@ -258,6 +273,15 @@ class InProcBroker:
         self._persist_dir = persist_dir or None
         self._topics: dict[str, _Topic] = {}
         self._lock = threading.Lock()
+        # (group, topic, partition) -> the next offset to read
+        self._offsets: dict[tuple[str, str, int], int] = {}
+        self._offsets_path = (os.path.join(self._persist_dir, "offsets.json")
+                              if self._persist_dir else None)
+        self._offsets_dirty = False
+        self._offsets_last_write = 0.0
+        if self._offsets_path and os.path.exists(self._offsets_path):
+            with open(self._offsets_path, encoding="utf-8") as f:
+                self._offsets = _decode_offsets(json.load(f))
         if self._persist_dir:
             # a ".p<i>" suffix marks a partition file only when the
             # stripped name has a meta sidecar
@@ -359,6 +383,26 @@ class InProcBroker:
         """Per-partition end offsets."""
         return [p.latest_offset() for p in self._topic(topic).partitions]
 
+    def read_ranges(self, topic: str, starts: list[int | None],
+                    ends: list[int]) -> list[KeyMessage]:
+        """Drain [start, end) of every partition (a None start is 0),
+        the partitions read concurrently, the records concatenated in
+        partition order: order within a partition is kept, order across
+        partitions is unspecified (Kafka's guarantee)."""
+        faults.fire("inproc-read")  # chaos seam: drain failure mid-fetch
+        t = self._topic(topic)
+        n = t.num_partitions
+        if len(starts) != n or len(ends) != n:
+            raise ValueError(f"expected {n} starts/ends for topic {topic!r}")
+        jobs = [(p, 0 if s is None else s, e)
+                for p, s, e in zip(t.partitions, starts, ends)]
+        if n == 1:
+            return jobs[0][0].read_range(jobs[0][1], jobs[0][2])
+        with ThreadPoolExecutor(max_workers=n) as pool:
+            chunks = list(pool.map(lambda j: j[0].read_range(j[1], j[2]),
+                                   jobs))
+        return [km for chunk in chunks for km in chunk]
+
     def consume(self, topic: str, from_beginning: bool = False,
                 poll_timeout_sec: float = 0.1,
                 stop: threading.Event | None = None,
@@ -400,11 +444,72 @@ class InProcBroker:
             if stop is not None and stop.is_set():
                 return
 
-    def close(self) -> None:
-        """Release the topic log file handles."""
+    # -- committed offsets ---------------------------------------------------
+
+    def get_offsets(self, group: str, topic: str) -> list[int | None]:
+        """The group's committed offset of every partition (None where
+        it has none)."""
+        n = self.num_partitions(topic)
         with self._lock:
+            return [self._offsets.get((group, topic, p)) for p in range(n)]
+
+    def set_offsets(self, group: str, topic: str,
+                    offsets: list[int]) -> None:
+        """Commit the group's next offset of every partition."""
+        faults.fire("inproc-commit")  # chaos seam: commit failure
+        with self._lock:
+            for p, off in enumerate(offsets):
+                self._offsets[(group, topic, p)] = int(off)
+            if self._offsets_path:
+                # written behind: losing the last interval's commits in
+                # a crash only redelivers, which at-least-once allows;
+                # flush() bounds the window
+                self._offsets_dirty = True
+                if (time.monotonic() - self._offsets_last_write
+                        >= _OFFSET_FLUSH_SEC):
+                    self._write_offsets_locked()
+
+    def _write_offsets_locked(self) -> None:
+        # merged with the file's entries, so processes sharing the
+        # broker directory keep each other's groups
+        merged: dict[tuple[str, str, int], int] = {}
+        if os.path.exists(self._offsets_path):
+            try:
+                with open(self._offsets_path, encoding="utf-8") as f:
+                    merged = _decode_offsets(json.load(f))
+            except (OSError, ValueError):
+                pass
+        merged.update(self._offsets)
+        tmp = self._offsets_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({f"{g}\x00{t}\x00{p}": v
+                       for (g, t, p), v in merged.items()}, f)
+        os.replace(tmp, self._offsets_path)
+        self._offsets_dirty = False
+        self._offsets_last_write = time.monotonic()
+
+    def flush(self) -> None:
+        """Write committed offsets that are still behind to the sidecar."""
+        with self._lock:
+            if self._offsets_dirty:
+                self._write_offsets_locked()
+
+    def close(self) -> None:
+        """Flush the offsets and release the topic log file handles."""
+        with self._lock:
+            if self._offsets_dirty:
+                self._write_offsets_locked()
             for topic in self._topics.values():
                 topic.close()
+
+
+def _decode_offsets(raw: dict[str, int]) -> dict[tuple[str, str, int], int]:
+    """The offsets sidecar's ``group\0topic\0partition`` keys."""
+    out: dict[tuple[str, str, int], int] = {}
+    for k, v in raw.items():
+        group, topic, partition = k.split("\x00")
+        out[(group, topic, int(partition))] = v
+    return out
 
 
 class InProcTopicProducer(TopicProducer):

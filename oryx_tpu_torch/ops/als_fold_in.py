@@ -59,18 +59,32 @@ def fold_in_batch(solver, values, xu, yi, implicit: bool):
     mask of events that produced an update (False where the reference
     returns null: no Yi, or a NaN target).  The reference pads the
     batch to a power of two for XLA's compile cache; with no such
-    cache, this batch is solved at its own size."""
+    cache, this batch is solved at its own size.  The inputs go up in
+    one copy from one host buffer (pinned on a card), and the vectors
+    and the mask come back in one fetch."""
     chol = solver.cholesky
     dev = chol.device
     check_f32_matmul(dev)
     values = np.asarray(values, dtype=np.float32)
     xu = np.asarray(xu, dtype=np.float32)
     yi = np.asarray(yi, dtype=np.float32)
-    has_xu = torch.from_numpy(~np.any(np.isnan(xu), axis=1)).to(dev)
-    has_yi = torch.from_numpy(~np.any(np.isnan(yi), axis=1)).to(dev)
-    xu_t = torch.from_numpy(np.nan_to_num(xu)).to(dev)
-    yi_t = torch.from_numpy(np.nan_to_num(yi)).to(dev)
-    v_t = torch.from_numpy(values).to(dev)
+    n, k = xu.shape
+    nk = n * k
+    # one upload: [values | xu | yi | has_xu | has_yi], NaN rows as zeros
+    host = torch.empty(2 * nk + 3 * n, dtype=torch.float32,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    buf[:n] = values
+    buf[n:n + nk] = np.nan_to_num(xu).reshape(-1)
+    buf[n + nk:n + 2 * nk] = np.nan_to_num(yi).reshape(-1)
+    buf[n + 2 * nk:2 * n + 2 * nk] = ~np.any(np.isnan(xu), axis=1)
+    buf[2 * n + 2 * nk:] = ~np.any(np.isnan(yi), axis=1)
+    packed = host.to(dev, non_blocking=True)
+    v_t = packed[:n]
+    xu_t = packed[n:n + nk].view(n, k)
+    yi_t = packed[n + nk:n + 2 * nk].view(n, k)
+    has_xu = packed[n + 2 * nk:2 * n + 2 * nk] > 0.5
+    has_yi = packed[2 * n + 2 * nk:] > 0.5
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     # Qui: the current estimated strength, 0 for a new user, whose
     # "don't know" state is 0.5
@@ -81,7 +95,10 @@ def fold_in_batch(solver, values, xu, yi, implicit: bool):
     d_qui = torch.where(valid, target - qui, zero)
     d_xu = _solve(chol, yi_t * d_qui[:, None])
     new_xu = torch.where(has_xu[:, None], xu_t, zero) + d_xu
-    return new_xu.cpu().numpy(), valid.cpu().numpy()
+    # one fetch: the vectors and the mask
+    out = torch.cat([new_xu.reshape(-1), valid.to(new_xu.dtype)])
+    out = out.cpu().numpy()
+    return out[:nk].reshape(n, k), out[nk:] > 0.5
 
 
 def fold_in_sequential(solver, item_values, get_item_vector,

@@ -29,26 +29,34 @@ from ..resilience.faults import fire as _fault
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["Solver", "SingularMatrixSolverException", "get_solver"]
+__all__ = ["Solver", "SingularMatrixSolverException", "get_solver",
+           "linalg_call"]
 
 _SINGULARITY_THRESHOLD_RATIO = 1.0e-5
 
 # torch loads its CUDA linear-algebra library on the first such call, and
 # two threads making that first call at once fail ("lazy wrapper should
 # be called at most once"): both solver caches recompute on threads of
-# their own, so the first factorization on a card is serialized
+# their own, and the batch layer may train candidates on several, so the
+# first linear-algebra call of the process on a card is serialized
 _cuda_linalg_lock = threading.Lock()
 _cuda_linalg_loaded = False
 
 
-def _cholesky_ex(a: torch.Tensor):
+def linalg_call(fn, a: torch.Tensor, *args):
+    """``fn(a, *args)`` for a ``torch.linalg`` function; the first call
+    on a CUDA tensor holds a lock until the library is loaded."""
     global _cuda_linalg_loaded
     if a.device.type != "cuda" or _cuda_linalg_loaded:
-        return torch.linalg.cholesky_ex(a)
+        return fn(a, *args)
     with _cuda_linalg_lock:
-        out = torch.linalg.cholesky_ex(a)
+        out = fn(a, *args)
         _cuda_linalg_loaded = True
     return out
+
+
+def _cholesky_ex(a: torch.Tensor):
+    return linalg_call(torch.linalg.cholesky_ex, a)
 
 
 class SingularMatrixSolverException(Exception):

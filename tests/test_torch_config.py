@@ -83,12 +83,15 @@ def test_port_example_conf_differs_only_in_its_classes():
         "oryx_tpu_torch.app.als.serving_manager.ALSServingModelManager"
     assert port["oryx"]["serving"]["application-resources"] == \
         "oryx_tpu_torch.serving.als"
+    assert port["oryx"]["batch"]["update-class"] == \
+        "oryx_tpu_torch.app.als.update.ALSUpdate"
+    assert port["oryx"]["speed"]["model-manager-class"] == \
+        "oryx_tpu_torch.app.als.speed.ALSSpeedModelManager"
     for tree in (port, ref):
         for key in ("model-manager-class", "application-resources"):
             del tree["oryx"]["serving"][key]
-        # the batch and speed layers are not part of the port yet
-        tree["oryx"]["batch"]["update-class"] = None
-        tree["oryx"]["speed"]["model-manager-class"] = None
+        del tree["oryx"]["batch"]["update-class"]
+        del tree["oryx"]["speed"]["model-manager-class"]
     assert port == ref
 
 

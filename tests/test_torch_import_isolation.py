@@ -1,6 +1,6 @@
-"""oryx_tpu_torch stands alone: it imports and serves with JAX, ml_dtypes
-and the reference package blocked, and its entry points refuse to fall
-back to the CPU silently."""
+"""oryx_tpu_torch stands alone: it imports, serves, trains and folds a
+speed micro-batch with JAX, ml_dtypes and the reference package blocked,
+and its entry points refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -46,6 +46,45 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
         known_items={"u0": ["i1"]}, device="cpu")
     out = model.top_n_batch(5, X)
     assert len(out) == 4 and all(len(r) == 5 for r in out)
+
+    # the batch and speed layers: train a tiny model from an input
+    # topic, then fold one micro-batch into UP deltas
+    import json
+    import tempfile
+    from oryx_tpu_torch.common.config import from_dict
+    from oryx_tpu_torch.kafka.inproc import get_broker
+    from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+    from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
+    td = tempfile.mkdtemp()
+    cfg = from_dict({
+        "oryx.input-topic.broker": "memory://iso",
+        "oryx.input-topic.partitions": 1,
+        "oryx.update-topic.broker": "memory://iso",
+        "oryx.batch.update-class": "oryx_tpu_torch.app.als.update.ALSUpdate",
+        "oryx.speed.model-manager-class":
+            "oryx_tpu_torch.app.als.speed.ALSSpeedModelManager",
+        "oryx.batch.storage.data-dir": td + "/data",
+        "oryx.batch.storage.model-dir": td + "/model",
+        "oryx.als.iterations": 2, "oryx.als.hyperparams.features": 3,
+        "oryx.ml.eval.test-fraction": 0.0})
+    broker = get_broker("iso")
+    for j in range(120):
+        broker.send("OryxInput", None, f"u{j % 15},i{(7 * j) % 11},1,{j}")
+    BatchLayer(cfg, device="cpu").run_one_generation()
+    speed = SpeedLayer(cfg, device="cpu")
+    for km in broker.consume("OryxUpdate", from_beginning=True,
+                             max_idle_sec=0.2):
+        speed.model_manager.consume_key_message(km.key, km.message)
+    assert speed.model_manager.model.get_fraction_loaded() == 1.0
+    before = broker.latest_offsets("OryxUpdate")
+    broker.set_offsets(speed._group, "OryxInput",
+                       broker.latest_offsets("OryxInput"))
+    broker.send("OryxInput", None, "newbie,i3,1,999")
+    speed.run_one_micro_batch()
+    ups = broker.read_ranges("OryxUpdate", before,
+                             broker.latest_offsets("OryxUpdate"))
+    assert any(json.loads(km.message)[:2] == ["X", "newbie"] for km in ups)
+    speed.close()
     leaked = sorted(m for m in sys.modules
                     if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

@@ -139,6 +139,54 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       seconds by stage, each layer's load seconds, the micro-batch's
       seconds and the milliseconds from the last ``/pref`` to the serving
       layer answering with the new vectors.
+6. The IVF index and the k-means app (6b's generation made by a child
+   process while the earlier phases run):
+   a. The IVF index at the reference's protocol catalog, 10,485,760 x 50
+      float32 items from a gaussian mixture of 256 components
+      (bench/gateway.py's draw), with reference.conf's ANN settings:
+      the serving manager's path trains the centroids, builds the mirror
+      and measures the recall certificate, which must reach min-recall
+      with no fallback; the route must time ``ivf``, ``i8`` and
+      ``pallas`` with no error.  An ``ann`` line gives the recall, the
+      index bytes, the build's seconds by stage, ``bpc``, the largest and
+      mean cell, the cost table and the chosen kind.  At 8, 32 and 256
+      queries a ``window`` line times the ``ivf`` kind, its probe and its
+      phase B apart, ``i8`` and the routed kind, and the served window
+      end to end; every row the IVF window certifies must be the exact
+      top-k over its probed cells (ids in order, scores within rtol
+      1e-5), and the ``i8`` kind's served answer (its own where it
+      certifies, the exact rescan where not) wherever the exact top-k
+      lies inside them.  With ``nprobe == cells``
+      (64) on the first 2^20 items, every certified row must be the exact
+      kernel's answer (``ann_exact`` line).
+   b. (run last) A generation of 131,072 x 50 mixture items, published by
+      the port's ``ALSUpdate`` with ``oryx.als.ann.publish-index`` (centroids
+      and per-slice cells in an 8-slice manifest), loaded by a
+      ``ServingLayer`` with the index on off a ``file://`` update topic
+      (its streaming threshold lowered so the catalog takes the two-phase
+      path): it must build the index from the published artifacts (no
+      local k-means), with no fallback, a routable certificate and ``ivf``
+      timed, and every user's ``/recommend`` must be the NumPy top-10
+      over the rows the served kind considers (``ann_topic`` line).
+   c. k-means on the card at the reference bench's shape (5,000,000 x 20,
+      k = 100, 10 iterations, the bench's points) with the app's 3 runs,
+      for ``random`` and ``k-means||``: each must pass the bench's gate,
+      mean squared distance below 0.1 x the baseline variance; each Lloyd
+      step of the random run's first run must match a float64 step from
+      the same centers (plain torch on the card) within rtol 1e-4, and the
+      four evaluation
+      metrics on 20,000
+      sampled points float64 NumPy's within rtol 1e-4 (``kmeans`` line:
+      initialization and Lloyd seconds, seconds per metric, peak card
+      memory).
+   d. The k-means lambda loop from ``oryx_tpu_torch/conf/kmeans-example.conf``
+      on a ``file://`` broker: 100,000 points on the input topic, one
+      ``BatchLayer`` generation publishing the PMML, ``ServingLayer`` and
+      ``SpeedLayer`` loading it; ``/assign`` (GET and POST) and
+      ``/distanceToNearest`` against NumPy nearest centers; ``/add`` lines
+      read back from the input topic; one speed micro-batch whose UP
+      records must equal float64 moving averages, then held by the
+      serving layer (``kmeans_loop`` line).
 
 With ``--trace DIR`` the fold-in round of phase 4 runs once more, after
 the timed one, under ``torch.profiler``: its operator tables and Chrome
@@ -254,6 +302,40 @@ LOOP_MAX_MESSAGE = 1 << 16
 PREF_EVENTS = 2_000
 PREF_USERS = 256
 LOOP_WAIT_S = 600.0
+# phase 6a: the IVF index at the reference's protocol catalog (10M items,
+# bench/gateway.py:87, :1878) rounded up to whole 4096-row tiles, at
+# BASELINE.md:50's 50 features, with reference.conf's ANN settings (1024
+# cells, nprobe 32, min-recall 0.95, recall@50 on 64 queries)
+ANN_ITEMS = 10_485_760
+ANN_FEATURES = 50
+ANN_SEED = SEED + 11
+# nprobe == cells on a smaller catalog: the first 2^20 items, 64 cells
+ANN_EXACT_ITEMS = 1 << 20
+ANN_EXACT_CELLS = 64
+# phase 6b: the index published with its generation (ALSUpdate with
+# oryx.als.ann.publish-index) and loaded by a ServingLayer.  The
+# generation's JSON artifacts cost about 0.6 ms of host time per item on
+# the card's machine, more under load, so the catalog is 131,072 items
+# (one 128-row block per cell at 1,024 cells), and the serving model's
+# streaming threshold is lowered for it (as the tests force it) so that
+# its windows take the two-phase path where "ivf" serves
+ANN_TOPIC_ITEMS = 131_072
+ANN_TOPIC_FLAT_LIMIT = 1 << 20
+ANN_TOPIC_USERS = 256
+ANN_TOPIC_RING = 8
+ANN_TOPIC_SEED = SEED + 12
+# phase 6c: k-means at the reference bench's shape (bench/apps.py:22,
+# BENCH_KMEANS_r05.json) with the app's default runs (reference.conf's
+# oryx.kmeans.runs); the evaluation on a sample
+KM_POINTS, KM_DIMS, KM_K, KM_ITERATIONS = 5_000_000, 20, 100, 10
+KM_SEED = 5
+KM_RUNS = 3
+KM_EVAL_SAMPLE = 20_000
+KM_RTOL = 1e-4
+# phase 6d: the k-means lambda loop from oryx_tpu_torch/conf/kmeans-example.conf
+KLOOP_POINTS = 100_000
+KLOOP_PROBES = 64
+KLOOP_SEED = SEED + 13
 # (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s,
 # int8 dense tensor-core OP/s), NVIDIA's data sheets for the SXM parts
 PEAKS = {"H200": (4.8e12, 67e12, 989e12, 1979e12),
@@ -284,7 +366,15 @@ def thread_failed(args) -> None:
     threading.__excepthook__(args)
 
 
+# the run's clock: each JSON line but the last two carries its seconds
+# since the script started (``at_s``), from which each phase's share
+# follows
+_STARTED = time.perf_counter()
+
+
 def log(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _STARTED, 3)}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -2342,6 +2432,876 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
     return line
 
 
+# -- phase 6: the IVF index and the k-means app ------------------------------
+
+@contextlib.contextmanager
+def timed_calls(targets: dict):
+    """Wrap each ``(module, name)`` of ``targets`` so that its calls add
+    their seconds (the card synchronised at both ends) to the yielded
+    dict under the target's label, and count under ``<label>_calls``."""
+    import torch
+    seconds = {label: 0.0 for label in targets}
+    seconds.update({f"{label}_calls": 0 for label in targets})
+    saved = {}
+    for label, (mod, name) in targets.items():
+        real = getattr(mod, name)
+        saved[label] = (mod, name, real)
+
+        def timed(*args, _real=real, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[_label] += time.perf_counter() - t0
+                seconds[f"{_label}_calls"] += 1
+        setattr(mod, name, timed)
+    try:
+        yield seconds
+    finally:
+        for mod, name, real in saved.values():
+            setattr(mod, name, real)
+
+
+def ann_catalog(n: int, features: int, cells: int, seed: int) -> np.ndarray:
+    """Item factors from a gaussian mixture of ``cells // 4`` components,
+    each item its component plus 0.25 standard normal noise, rounded to 4
+    decimals: bench/gateway.py:181-185's draw for its ANN rung (:1517),
+    in float32 throughout."""
+    rng = np.random.default_rng(seed)
+    comp = rng.standard_normal((max(2, cells // 4), features),
+                               dtype=np.float32)
+    y = rng.standard_normal((n, features), dtype=np.float32)
+    y *= np.float32(0.25)
+    pick = rng.integers(0, len(comp), size=n)
+    for s in range(0, n, 1 << 20):
+        y[s:s + (1 << 20)] += comp[pick[s:s + (1 << 20)]]
+    np.round(y, 4, out=y)
+    return y
+
+
+def ann_settings(**overrides):
+    """The serving config with the IVF index on, reference.conf's ANN
+    defaults (788-826) unless overridden."""
+    from oryx_tpu_torch.common.config import get_default, overlay_on
+    return overlay_on({"oryx.als.ann.enabled": True, **overrides},
+                      get_default())
+
+
+def row_cells(mirror, bs: int, n_rows: int) -> np.ndarray:
+    """The cell of every one of the store's ``n_rows`` rows (-1 for a
+    retired row), from the mirror's layout."""
+    perm = mirror.perm.cpu().numpy()
+    valid = mirror.activep.cpu().numpy()
+    cb = mirror.cell_blocks.cpu().numpy()
+    n_blocks = len(perm) // bs
+    block_cell = np.full(n_blocks, -1, np.int64)
+    for c, blocks in enumerate(cb):
+        block_cell[blocks[blocks != n_blocks - 1]] = c
+    slot_cell = np.repeat(block_cell, bs)
+    out = np.full(n_rows, -1, np.int64)
+    out[perm[valid]] = slot_cell[valid]
+    return out
+
+
+def probed_cells(torch, Q, mirror, nprobe: int):
+    """The cells a window probes: the ``nprobe`` of highest inner product
+    with each query, as ``ivf.ivf_probe`` picks them."""
+    from oryx_tpu_torch.app.als import serving_model as sm
+    Qf = sm._q_cast(Q, mirror.cents).to(torch.float32)
+    return sm._top_k(Qf @ mirror.cents.T, nprobe)[1]
+
+
+def restricted_top_k(torch, vecs, active, cell_of, probe, Q, k: int):
+    """Exact top-k of each query over the live rows of its probed cells
+    only (plain products, in query chunks): what a certified IVF row must
+    answer."""
+    from oryx_tpu_torch.app.als import serving_model as sm
+    ncells = int(cell_of.max()) + 1
+    out_s, out_i = [], []
+    for s in range(0, Q.shape[0], 8):
+        q = sm._q_cast(Q[s:s + 8], vecs)
+        scores = sm._scores(q, vecs)
+        allowed = torch.zeros((q.shape[0], ncells), dtype=torch.bool,
+                              device=vecs.device)
+        allowed.scatter_(1, probe[s:s + 8], True)
+        mask = allowed[:, cell_of.clamp_min(0)] & (cell_of >= 0)[None, :]
+        ts, ti = sm._top_k(torch.where(mask & active[None, :], scores,
+                                       float("-inf")), k)
+        out_s.append(ts)
+        out_i.append(ti)
+    return torch.cat(out_s).cpu().numpy(), torch.cat(out_i).cpu().numpy()
+
+
+def ann_windows(model, rng, label: str, route: dict) -> list[dict]:
+    """Phase 6a's windows: at each ladder size, one window through the
+    "ivf" kind, its probe and its phase B apart, the "i8" kind and the
+    routed kind (CUDA events); the IVF rows that certify must be the
+    exact top-k over their probed cells, and the "i8" kind's answer
+    wherever that lies inside the probed cells."""
+    import torch
+    from oryx_tpu_torch.app.als import ivf
+    from oryx_tpu_torch.app.als import serving_model as sm
+    vecs, active, version = model.Y.device_arrays_versioned()
+    n_rows, width = int(vecs.shape[0]), int(vecs.shape[1])
+    bs = sm._BLOCK_ROWS
+    ksel = min(sm._BLOCK_KSEL, n_rows // bs)
+    k = sm._pad_k(10)
+    _, fold = model._phase_a_kinds(n_rows, width, bs)
+    nprobe = model._ann.cfg.nprobe
+    mirror = model._cached_ivf(vecs, active, version)
+    bpc = int(mirror.cell_blocks.shape[1])
+    ksel_ivf = min(max(sm._i8_ksel(ksel, n_rows, bs), -(-k // bs)),
+                   nprobe * bpc)
+    cell_of = torch.from_numpy(row_cells(mirror, bs, n_rows)).to(DEVICE)
+    chosen = route["chosen"]
+    ctx: dict = {}
+    out = []
+    for b in WINDOWS:
+        Q = torch.from_numpy(rng.standard_normal(
+            (b, model.features), dtype=np.float32)).to(DEVICE)
+
+        def run(kind):
+            return lambda: model._dispatch_kind(
+                kind, Q, vecs, active, version, None, None, k, bs, ksel, 0,
+                fold, ctx)
+
+        reset_launches()
+        row = {"phase": "window", "config": label, "kind": "ivf", "B": b,
+               "ivf_ms": time_ms(torch, run("ivf"))}
+        Qc, bi, bound = ivf.ivf_probe(vecs, Q, mirror, bs, nprobe)
+        row["probe_ms"] = time_ms(
+            torch, lambda: ivf.ivf_probe(vecs, Q, mirror, bs, nprobe))
+        row["phase_b_ms"] = time_ms(
+            torch, lambda: ivf.ivf_phase_b(vecs, Qc, mirror, bi, bound, k,
+                                           bs, ksel_ivf))
+        row["i8_ms"] = time_ms(torch, run("i8"))
+        row["routed_kind"] = chosen
+        row["routed_ms"] = row["ivf_ms"] if chosen == "ivf" else \
+            row["i8_ms"] if chosen == "i8" else time_ms(torch, run(chosen))
+        row["launches"] = read_launches()
+        # the served window end to end on the routed kind, with the exact
+        # rescan of every row whose certificate fails
+        q = Q.cpu().numpy()
+        fb0 = model.twophase_fallbacks
+        model.top_n_batch(10, q)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.top_n_batch(10, q)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        row["top_n_batch_ms"] = statistics.median(walls)
+        row["fallback_rows"] = (model.twophase_fallbacks - fb0) // 4
+        ts, ti, cert = (t.cpu().numpy() for t in run("ivf")())
+        i8s, i8i, i8c = (t.cpu().numpy() for t in run("i8")())
+        rs, ri = restricted_top_k(torch, vecs, active, cell_of,
+                                  probed_cells(torch, Q, mirror, nprobe), Q,
+                                  k)
+        es, ei = sm._fetch(*sm._batch_top_n_chunked_kernel(
+            vecs, Q, active, None, None, k, sm._stream_plan(n_rows, b)[1],
+            0))
+        for r in np.nonzero(cert)[0]:
+            check(list(ti[r]) == list(ri[r]),
+                  f"{label}: certified IVF row {r} of B={b} is not the "
+                  f"exact top-{k} of its probed cells")
+            np.testing.assert_allclose(ts[r], rs[r], rtol=RTOL["float32"],
+                                       err_msg=f"{label}: IVF row {r}")
+        # the i8 kind's served answer: its own where its row certifies,
+        # the exact rescan where not.  A certified IVF row must equal it
+        # wherever the exact top-k lies inside the probed cells; outside
+        # them the difference is the pruning the recall certificate
+        # measures, and the row is counted
+        i8_ids = np.where(i8c[:, None], i8i, ei)
+        i8_scores = np.where(i8c[:, None], i8s, es)
+        inside = np.all(ri == ei, axis=1)
+        for r in np.nonzero(cert & inside)[0]:
+            check(list(ti[r]) == list(i8_ids[r]),
+                  f"{label}: certified IVF row {r} of B={b} differs from "
+                  f"the i8 kind's answer")
+            np.testing.assert_allclose(ts[r], i8_scores[r],
+                                       rtol=RTOL["float32"],
+                                       err_msg=f"{label}: IVF against i8")
+        row.update({"k": k, "ksel": ksel_ivf, "certified": int(cert.sum()),
+                    "i8_certified": int(i8c.sum()),
+                    "certified_same_as_i8": int(
+                        np.all(ti[cert] == i8_ids[cert], axis=1).sum()),
+                    "certified_pruned": int((cert & ~inside).sum()),
+                    # rows whose whole top-k lies in the probed cells
+                    "same_as_exact": int(np.all(ti == ei, axis=1).sum())})
+        log(row)
+        out.append(row)
+    return out
+
+
+def ann_exact(Y: np.ndarray, X: np.ndarray, rng) -> dict:
+    """Phase 6a's ``nprobe == cells`` check on a smaller catalog: every
+    row the IVF window certifies is the exact kernel's answer."""
+    import torch
+    from oryx_tpu_torch.app.als import ivf
+    from oryx_tpu_torch.app.als import serving_model as sm
+    cfg = ivf.AnnConfig.from_config(ann_settings(**{
+        "oryx.als.ann.cells": ANN_EXACT_CELLS,
+        "oryx.als.ann.nprobe": ANN_EXACT_CELLS}))
+    model = build_model(ANN_FEATURES, Y, X, {}, "float32")
+    state = ivf.AnnState(cfg, ivf.train_generation_centroids(
+        Y, cfg, device=DEVICE))
+    model.attach_ann(state)
+    vecs, active, version = model.Y.device_arrays_versioned()
+    n_rows = int(vecs.shape[0])
+    mirror = model._cached_ivf(vecs, active, version)
+    bs = sm._BLOCK_ROWS
+    k = sm._pad_k(10)
+    ksel = sm._i8_ksel(min(sm._BLOCK_KSEL, n_rows // bs), n_rows, bs)
+    _, chunk = sm._stream_plan(n_rows, 256)
+    certified = 0
+    for b in (8, 256):
+        Q = torch.from_numpy(rng.standard_normal(
+            (b, ANN_FEATURES), dtype=np.float32)).to(DEVICE)
+        ts, ti, cert = sm._fetch(*ivf.batch_top_n_ivf(
+            mirror, vecs, Q, k, bs, ksel, ANN_EXACT_CELLS))
+        es, ei = sm._fetch(*sm._batch_top_n_chunked_kernel(
+            vecs, Q, active, None, None, k, chunk, 0))
+        for r in np.nonzero(cert)[0]:
+            check(list(ti[r]) == list(ei[r]), f"ann_exact: certified row "
+                  f"{r} of B={b} is not the exact answer")
+            np.testing.assert_allclose(ts[r], es[r], rtol=RTOL["float32"],
+                                       err_msg=f"ann_exact: row {r}")
+        certified += int(cert.sum())
+    check(certified > 0, "ann_exact: no row certified")
+    line = {"phase": "ann_exact", "items": len(Y), "rows": n_rows,
+            "cells": ANN_EXACT_CELLS, "nprobe": ANN_EXACT_CELLS,
+            "queries": 264, "certified": certified,
+            "bpc": int(mirror.cell_blocks.shape[1])}
+    log(line)
+    return line
+
+
+def ann_at_scale(rng) -> dict:
+    """Phase 6a: the IVF index at the reference's protocol catalog, full
+    width, built through the serving manager's path; the ``ann`` line,
+    the ``window`` lines and the ``ann_exact`` line."""
+    import torch
+    from oryx_tpu_torch.app.als import ivf
+    from oryx_tpu_torch.app.als import serving_model as sm
+    from oryx_tpu_torch.app.als.serving_manager import \
+        ALSServingModelManager
+    from oryx_tpu_torch.ops import ann as ops_ann
+
+    label = "10M_50f_ivf"
+    mgr = ALSServingModelManager(ann_settings(), device=DEVICE)
+    cfg = mgr.ann_config
+    t0 = time.perf_counter()
+    Y = ann_catalog(ANN_ITEMS, ANN_FEATURES, cfg.cells, ANN_SEED)
+    X = rng.standard_normal((N_USERS, ANN_FEATURES), dtype=np.float32)
+    synth_s = time.perf_counter() - t0
+    model = build_model(ANN_FEATURES, Y, X, {}, "float32")
+    mgr.model = model
+    with timed_calls({"train_s": (ivf, "train_generation_centroids"),
+                      "assign_s": (ops_ann, "assign_cells"),
+                      "mirror_s": (ivf, "build_mirror"),
+                      "recall_s": (ivf, "measure_recall")}) as stage_s:
+        t0 = time.perf_counter()
+        mgr._maybe_build_ann(None)
+        build_s = time.perf_counter() - t0
+    # the mirror build's own seconds, its cell assignment apart
+    stage_s["mirror_s"] -= stage_s["assign_s"]
+    a = model._ann
+    check(mgr.ann_index_fallbacks == 0, f"{label}: the index build failed "
+          f"closed ({mgr.ann_index_fallbacks} fallbacks)")
+    check(a is not None and a.recall is not None
+          and a.recall >= cfg.min_recall,
+          f"{label}: recall certificate {a and a.recall} below "
+          f"{cfg.min_recall}")
+    vecs, active, version = model.Y.device_arrays_versioned()
+    n_rows = int(vecs.shape[0])
+    bs = sm._BLOCK_ROWS
+    mirror = model._cached_ivf(vecs, active, version)
+    cb = mirror.cell_blocks.cpu().numpy()
+    per_cell = (cb != int(mirror.y8p.shape[0]) // bs - 1).sum(axis=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    route = model.refresh_route(force=True)
+    torch.cuda.synchronize()
+    route_s = time.perf_counter() - t0
+    check(route is not None and not route.get("errors"),
+          f"{label}: route errors {route and route.get('errors')}")
+    costs = route["costs_exact_ms"]
+    for kind in ("ivf", "i8", "pallas"):
+        check(costs.get(kind) is not None, f"{label}: {kind} not timed")
+    check(route["ann"]["routable"] and route["ann"]["recall"] == a.recall,
+          f"{label}: route's ann block {route['ann']}")
+    line = {"phase": "ann", "config": label, "items": len(Y),
+            "rows": n_rows, "features": ANN_FEATURES, "cells": cfg.cells,
+            "nprobe": cfg.nprobe, "recall_at": cfg.recall_at,
+            "recall_queries": cfg.recall_queries, "recall": a.recall,
+            "min_recall": cfg.min_recall,
+            "index_bytes": mgr.ann_index_bytes,
+            "fallbacks": mgr.ann_index_fallbacks,
+            "synth_s": synth_s, "build_s": build_s,
+            **stage_s, "route_s": route_s,
+            "bpc": int(cb.shape[1]), "largest_cell_blocks": int(per_cell.max()),
+            "mean_cell_blocks": float(per_cell.mean()),
+            "empty_cells": int((per_cell == 0).sum()),
+            "costs_exact_ms": costs, "chosen": route["chosen"],
+            "route_launches": read_launches()}
+    log(line)
+    ann_windows(model, rng, label, route)
+    del model, mgr, mirror, vecs, active
+    free()
+    ann_exact(Y[:ANN_EXACT_ITEMS], X, rng)
+    return line
+
+
+def publish_ann_generation(model_dir: str, seed: int) -> None:
+    """Phase 6b's generation, written by a child process while the card
+    works on the earlier phases: the factor artifacts and PMML of a
+    mixture catalog, then ALSUpdate's MODEL-REF publish with
+    ``oryx.als.ann.publish-index``, which trains the coarse quantizer on
+    the card and writes centroids and per-slice cells with the slices."""
+    from oryx_tpu_torch.app.als.update import ALSUpdate, save_features
+    from oryx_tpu_torch.common import pmml as pmml_io
+    from oryx_tpu_torch.common.config import get_default, overlay_on
+    t0 = time.perf_counter()
+    cells = get_default().get_int("oryx.als.ann.cells")
+    Y = ann_catalog(ANN_TOPIC_ITEMS, ANN_FEATURES, cells, seed)
+    X = np.round(np.random.default_rng(seed + 1).standard_normal(
+        (ANN_TOPIC_USERS, ANN_FEATURES), dtype=np.float32), 4)
+    y_ids = [f"i{j}" for j in range(len(Y))]
+    x_ids = [f"u{u}" for u in range(len(X))]
+    save_features(os.path.join(model_dir, "Y"), y_ids, Y)
+    save_features(os.path.join(model_dir, "X"), x_ids, X)
+    doc = pmml_io.build_skeleton_pmml()
+    pmml_io.add_extension(doc, "features", ANN_FEATURES)
+    pmml_io.add_extension(doc, "implicit", True)
+    pmml_io.add_extension(doc, "X", "X/")
+    pmml_io.add_extension(doc, "Y", "Y/")
+    pmml_io.add_extension_content(doc, "XIDs", x_ids)
+    pmml_io.add_extension_content(doc, "YIDs", y_ids)
+    pmml_path = os.path.join(model_dir, "model.pmml.xml")
+    pmml_io.write(doc, pmml_path)
+    artifacts_s = time.perf_counter() - t0
+    update = ALSUpdate(overlay_on({
+        "oryx.als.ann.publish-index": True,
+        "oryx.als.publish.slices": ANN_TOPIC_RING,
+        "oryx.als.no-known-items": True}, get_default()), device=DEVICE)
+    message = update.prepare_model_ref_payload(doc, pmml_path, [], [])
+    with open(os.path.join(model_dir, "published.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"message": message, "artifacts_s": artifacts_s,
+                   "publish_s": update.stage_s.get("publish"),
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+def ann_topic(publisher, work_dir: str) -> dict:
+    """Phase 6b: a ServingLayer with the IVF index on loads phase 6b's
+    generation off a file:// update topic, builds its index from the
+    published artifacts (no local k-means) and answers /recommend over
+    HTTP, each answer held against NumPy; the ``ann_topic`` line."""
+    import torch
+    from oryx_tpu_torch.app.als import ivf, slices
+    from oryx_tpu_torch.app.als import serving_model as sm
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+
+    label = "131k_50f_ivf_topic"
+    model_dir = os.path.join(work_dir, "ann_model")
+    t_wait = time.perf_counter()
+    publisher.join(TOPIC_WAIT_S)
+    check(publisher.exitcode == 0,
+          f"{label}: publishing the generation failed ({publisher.exitcode})")
+    waited_s = time.perf_counter() - t_wait
+    with open(os.path.join(model_dir, "published.json"),
+              encoding="utf-8") as f:
+        published = json.load(f)
+    _, _, manifest = slices.parse_model_ref(published["message"])
+    check(manifest is not None and "ann" in manifest
+          and all("ann" in e for e in manifest["slices"]),
+          f"{label}: the manifest names no index artifacts")
+    broker = "file://" + os.path.join(work_dir, "ann_broker")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "oryx_tpu_torch", "conf", "als-example.conf")
+    cfg = overlay_on({"oryx.update-topic.broker": broker,
+                      "oryx.input-topic.broker": None,
+                      "oryx.als.sample-rate": 1.0,
+                      "oryx.als.ann.enabled": True}, from_file(conf))
+    free()
+    flat_limit = sm._FLAT_SCORES_LIMIT
+    sm._FLAT_SCORES_LIMIT = ANN_TOPIC_FLAT_LIMIT
+    with timed_calls({"local_train_s": (ivf, "train_generation_centroids"),
+                      "mirror_s": (ivf, "build_mirror"),
+                      "recall_s": (ivf, "measure_recall")}) as stage_s:
+        layer = ServingLayer(cfg, port=0, device=DEVICE)
+        try:
+            layer.start()
+            mgr = layer.model_manager
+            producer = InProcTopicProducer(
+                broker, cfg.get_string("oryx.update-topic.message.topic"))
+            reset_launches()
+            t0 = time.perf_counter()
+            producer.send("MODEL-REF", published["message"])
+
+            def ready() -> bool:
+                status, _, _ = http_call(layer.port, "GET", "/ready")
+                model = mgr.get_model()
+                return status == 204 and mgr.slice_loads == ANN_TOPIC_RING \
+                    and model.user_count() == ANN_TOPIC_USERS \
+                    and model._route is not None
+            wait_for(ready, f"{label}: /ready", TOPIC_WAIT_S)
+            ready_s = time.perf_counter() - t0
+            load_stage_s = dict(stage_s)
+            model = mgr.get_model()
+            route = model.metrics()["kernel_route"]
+            ann = route.get("ann") or {}
+            check(load_stage_s["local_train_s_calls"] == 0,
+                  f"{label}: the layer trained its own centroids instead of "
+                  f"reading the published ones")
+            check(mgr.ann_index_fallbacks == 0 and mgr.slice_load_fallbacks
+                  == 0, f"{label}: fallbacks {mgr.ann_index_fallbacks} "
+                  f"index, {mgr.slice_load_fallbacks} slice")
+            check(ann.get("recall") is not None
+                  and ann["recall"] >= ann["min_recall"]
+                  and ann["routable"] and ann["index_bytes"] > 0,
+                  f"{label}: kernel_route.ann {ann}")
+            check(route["costs_exact_ms"].get("ivf") is not None
+                  and not route.get("errors"),
+                  f"{label}: route {route.get('costs_exact_ms')} errors "
+                  f"{route.get('errors')}")
+            # the answers: the exact top-10 over the probed cells' rows
+            # where the served kind is "ivf" and the row certifies, else
+            # over every row
+            host, active, row_ids = model.Y.host_arrays()
+            row_of = {iid: r for r, iid in enumerate(row_ids)
+                      if iid is not None}
+            users = [f"u{u}" for u in range(ANN_TOPIC_USERS)]
+            Xu = np.stack([model.get_user_vector(u) for u in users])
+            vecs, dactive, version = model.Y.device_arrays_versioned()
+            serving_kind = model._route_order(
+                [kk for kk in model._phase_a_kinds(
+                    len(row_ids), int(vecs.shape[1]), sm._BLOCK_ROWS)[0]],
+                len(row_ids))[0]
+            mirror = model._cached_ivf(vecs, dactive, version)
+            Qd = torch.from_numpy(Xu).to(DEVICE)
+            k = sm._pad_k(10)
+            _, _, cert = sm._fetch(*model._dispatch_kind(
+                "ivf", Qd, vecs, dactive, version, None, None, k,
+                sm._BLOCK_ROWS, min(sm._BLOCK_KSEL,
+                                    len(row_ids) // sm._BLOCK_ROWS),
+                0, 1, {}))
+            probe = probed_cells(torch, Qd, mirror,
+                                 model._ann.cfg.nprobe).cpu().numpy()
+            cell_of = row_cells(mirror, sm._BLOCK_ROWS, len(row_ids))
+            host64 = host.astype(np.float64)
+            times, restricted = [], 0
+            for j, user in enumerate(users):
+                status, body, ms = http_call(layer.port, "GET",
+                                             f"/recommend/{user}?howMany=10")
+                check(status == 200, f"{label}: /recommend/{user}: {status}")
+                times.append(ms)
+                answer = [(r["id"], r["value"]) for r in json.loads(body)]
+                eligible = active.copy()
+                if serving_kind == "ivf" and cert[j]:
+                    eligible &= np.isin(cell_of, probe[j])
+                    restricted += 1
+                held_top_n(answer, host64 @ Xu[j].astype(np.float64),
+                           eligible, row_of.get, 10,
+                           f"{label}: /recommend/{user}", RTOL["float32"])
+            launches = read_launches()
+        finally:
+            layer.close()
+            sm._FLAT_SCORES_LIMIT = flat_limit
+    line = {"phase": "ann_topic", "config": label,
+            "items": ANN_TOPIC_ITEMS, "features": ANN_FEATURES,
+            "users": ANN_TOPIC_USERS, "ring": ANN_TOPIC_RING,
+            "flat_scores_limit": ANN_TOPIC_FLAT_LIMIT,
+            "publish_s": published["publish_s"],
+            "artifacts_s": published["artifacts_s"],
+            "child_s": published["seconds"], "waited_s": waited_s,
+            "ready_s": ready_s, "model_load_s": mgr.model_load_s,
+            **load_stage_s,
+            "ann": ann, "costs_exact_ms": route["costs_exact_ms"],
+            "chosen": route["chosen"], "serving_kind": serving_kind,
+            "recommend": len(users), "held_to_probed_cells": restricted,
+            "p50_ms": statistics.median(times), "p99_ms": max(times),
+            "launches": launches}
+    log(line)
+    return line
+
+
+def kmeans_points() -> np.ndarray:
+    """The reference k-means bench's points (bench/apps.py:22-34): k true
+    centers times 10 plus unit normal noise, seed 5."""
+    rng = np.random.default_rng(KM_SEED)
+    true_centers = rng.standard_normal((KM_K, KM_DIMS)).astype(
+        np.float32) * 10
+    assign = rng.integers(0, KM_K, KM_POINTS)
+    return (true_centers[assign]
+            + rng.standard_normal((KM_POINTS, KM_DIMS), dtype=np.float32))
+
+
+def nearest64(pts: np.ndarray, centers: np.ndarray, chunk: int = 500_000):
+    """(index, squared distance) of each point's nearest center, float64."""
+    c = centers.astype(np.float64)
+    cc = np.sum(c * c, axis=1)[None, :]
+    idx, d2 = [], []
+    for s in range(0, len(pts), chunk):
+        p = pts[s:s + chunk].astype(np.float64)
+        d = np.sum(p * p, axis=1, keepdims=True) - 2.0 * p @ c.T + cc
+        i = np.argmin(d, axis=1)
+        idx.append(i)
+        d2.append(np.maximum(d[np.arange(len(i)), i], 0.0))
+    return np.concatenate(idx), np.concatenate(d2)
+
+
+def card_nearest64(torch, pts64, centers64, chunk: int = 1 << 20):
+    """``nearest64`` in float64 on the card, plain torch (the host's
+    NumPy took ~9 s per pass over 5M points on the card's machine)."""
+    cc = torch.sum(centers64 * centers64, dim=1)[None, :]
+    idx, d2 = [], []
+    for s in range(0, int(pts64.shape[0]), chunk):
+        p = pts64[s:s + chunk]
+        d = torch.sum(p * p, dim=1, keepdim=True) - 2.0 * p @ centers64.T + cc
+        i = torch.argmin(d, dim=1)
+        idx.append(i)
+        d2.append(d.gather(1, i[:, None])[:, 0].clamp_min(0.0))
+    return torch.cat(idx), torch.cat(d2)
+
+
+def card_lloyd_step64(torch, pts64, centers64):
+    """One Lloyd step in float64 on the card, plain torch: nearest
+    centers, then each center the mean of its points (an empty cluster
+    keeps its center)."""
+    idx, _ = card_nearest64(torch, pts64, centers64)
+    k = int(centers64.shape[0])
+    counts = torch.bincount(idx, minlength=k).to(torch.float64)
+    sums = torch.zeros_like(centers64).index_add_(0, idx, pts64)
+    return torch.where((counts > 0)[:, None],
+                       sums / counts.clamp_min(1.0)[:, None], centers64)
+
+
+def metrics64(centers: np.ndarray, pts: np.ndarray) -> dict:
+    """The four evaluation metrics in float64 NumPy, by the reference's
+    definitions (evaluation.py): SSE, Davies-Bouldin, Dunn, silhouette
+    (size-1 clusters contributing 0)."""
+    c = centers.astype(np.float64)
+    p = pts.astype(np.float64)
+    k = len(c)
+    idx, d2 = nearest64(p, c)
+    dist = np.sqrt(d2)
+    counts = np.bincount(idx, minlength=k).astype(np.float64)
+    mean_dist = np.where(counts > 0, np.bincount(idx, weights=dist,
+                                                 minlength=k)
+                         / np.maximum(counts, 1), 0.0)
+    center_d = np.sqrt(((c[:, None, :] - c[None, :, :]) ** 2).sum(-1))
+    ratio = (mean_dist[:, None] + mean_dist[None, :]) / np.where(
+        center_d > 0, center_d, np.inf)
+    np.fill_diagonal(ratio, 0.0)
+    inter = center_d[np.triu_indices(k, 1)]
+    pp = np.sum(p * p, axis=1)
+    onehot = np.eye(k)[idx]
+    total = 0.0
+    for s in range(0, len(p), 2000):
+        q = p[s:s + 2000]
+        D = np.sqrt(np.maximum(pp[s:s + 2000, None] - 2.0 * q @ p.T
+                               + pp[None, :], 0.0))
+        sums = D @ onehot
+        rows = np.arange(len(q))
+        own = idx[s:s + 2000]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a = sums[rows, own] / (counts[own] - 1)
+            other = np.where(counts[None, :] > 0, sums / counts[None, :],
+                             np.inf)
+            other[rows, own] = np.inf
+            b = other.min(axis=1)
+            m = np.maximum(a, b)
+            term = np.where(m == 0, 0.0, (b - a) / m)
+        total += float(np.sum(np.where((counts[own] > 1) & np.isfinite(b),
+                                       term, 0.0)))
+    return {"SSE": float(d2.sum()), "DAVIES_BOULDIN": float(
+                ratio.max(axis=1).mean()),
+            "DUNN": float(inter.min() / mean_dist.max()),
+            "SILHOUETTE": total / len(p)}
+
+
+def kmeans_at_scale() -> dict:
+    """Phase 6c: k-means on the card at the reference bench's shape with
+    both initializations and the app's default runs, the bench's quality
+    gate, every Lloyd step of the random run's first run against a
+    float64 step from the same centers (plain torch on the card), and the
+    four evaluation metrics against float64 NumPy on a sample; the
+    ``kmeans`` line."""
+    import torch
+    from oryx_tpu_torch.app.kmeans import evaluation
+    from oryx_tpu_torch.app.kmeans.trainer import _lloyd, train_kmeans
+    t0 = time.perf_counter()
+    pts = kmeans_points()
+    dev = torch.from_numpy(pts).to(DEVICE)
+    dev64 = dev.to(torch.float64)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    baseline_var = float(((pts - pts.mean(axis=0)) ** 2).sum(axis=1).mean())
+    # the first call pays the library's start-up, not the training
+    train_kmeans(dev, KM_K, 1, runs=1, initialization="random",
+                 seed=KM_SEED + 1)
+    line = {"phase": "kmeans", "points": KM_POINTS, "dims": KM_DIMS,
+            "k": KM_K, "iterations": KM_ITERATIONS, "runs": KM_RUNS,
+            "data_s": data_s, "baseline_var": baseline_var,
+            "quality_gate": "mean_sq_dist < 0.1 * baseline_var"}
+    clusters = {}
+    for init in ("random", "k-means||"):
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        timings: dict = {}
+        t0 = time.perf_counter()
+        clusters[init] = train_kmeans(dev, KM_K, KM_ITERATIONS, runs=KM_RUNS,
+                                      initialization=init, seed=KM_SEED,
+                                      timings=timings)
+        train_s = time.perf_counter() - t0
+        centers = np.stack([c.center for c in clusters[init]]).astype(
+            np.float32)
+        _, d2 = card_nearest64(torch, dev64, torch.from_numpy(
+            centers.astype(np.float64)).to(DEVICE))
+        msd = float(d2.mean())
+        check(msd < 0.1 * baseline_var, f"kmeans {init}: mean squared "
+              f"distance {msd} fails the gate 0.1 * {baseline_var}")
+        line[init] = {"train_s": train_s, "init_s": timings["init_s"],
+                      "lloyd_s": timings["lloyd_s"],
+                      "iteration_s": timings["lloyd_s"]
+                      / (KM_RUNS * KM_ITERATIONS),
+                      "mean_sq_dist": msd,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    # each step of the random run's first run (its first draw of rows)
+    # against a float64 step from the same centers: a whole float32 run
+    # drifts from a float64 one by the assignments its rounding flips near
+    # cluster boundaries, which later steps carry on
+    t0 = time.perf_counter()
+    rows = np.random.default_rng(KM_SEED).choice(KM_POINTS, KM_K,
+                                                 replace=False)
+    centers = dev[torch.from_numpy(rows).to(DEVICE)]
+    worst = 0.0
+    for _ in range(KM_ITERATIONS):
+        want = card_lloyd_step64(torch, dev64, centers.to(torch.float64))
+        centers = _lloyd(dev, centers, 1)[0]
+        err = float(torch.max((centers.to(torch.float64) - want).abs()
+                              / (KM_RTOL * want.abs()
+                                 + KM_RTOL * want.abs().max())))
+        worst = max(worst, err)
+    check(worst <= 1.0, f"kmeans random: a Lloyd step is {worst} times the "
+          f"tolerance from its float64 step")
+    line["random"].update({"f64_steps": KM_ITERATIONS,
+                           "f64_step_err_of_tolerance": worst,
+                           "f64_check_s": time.perf_counter() - t0})
+    # the four metrics on a sample, against float64
+    sample = pts[np.random.default_rng(KM_SEED + 2).choice(
+        KM_POINTS, KM_EVAL_SAMPLE, replace=False)]
+    want = metrics64(np.stack([c.center for c in clusters["random"]]),
+                     sample)
+    evals = {}
+    for strategy in evaluation.EVAL_STRATEGIES:
+        t0 = time.perf_counter()
+        got_m = evaluation.evaluate(strategy, clusters["random"], sample,
+                                    device=DEVICE)
+        seconds = time.perf_counter() - t0
+        value = -got_m if strategy in ("SSE", "DAVIES_BOULDIN") else got_m
+        rel = abs(value - want[strategy]) / abs(want[strategy])
+        check(rel <= KM_RTOL, f"kmeans: {strategy} {value} is {rel} from "
+              f"float64's {want[strategy]}")
+        evals[strategy] = {"value": value, "f64": want[strategy],
+                           "rel_err": rel, "seconds": seconds}
+    line["evaluation"] = {"sample": KM_EVAL_SAMPLE, **evals}
+    log(line)
+    del dev, dev64
+    return line
+
+
+def kmeans_loop_config(work_dir: str):
+    """Phase 6d's config: the port's k-means example config on a file://
+    broker and directories under ``work_dir``."""
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    loop = os.path.join(work_dir, "kloop")
+    broker = "file://" + os.path.join(loop, "broker")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "oryx_tpu_torch", "conf", "kmeans-example.conf")
+    return overlay_on({
+        "oryx.input-topic.broker": broker,
+        "oryx.update-topic.broker": broker,
+        "oryx.batch.storage.data-dir": os.path.join(loop, "data"),
+        "oryx.batch.storage.model-dir": os.path.join(loop, "model"),
+        # the run drives the micro-batch itself
+        "oryx.speed.streaming.generation-interval-sec": 3600,
+    }, from_file(conf))
+
+
+def kmeans_loop(work_dir: str) -> dict:
+    """Phase 6d: the k-means lambda loop through the port's three layers
+    from oryx_tpu_torch/conf/kmeans-example.conf; the ``kmeans_loop``
+    line."""
+    from oryx_tpu_torch.app.kmeans import pmml as kmeans_pmml
+    from oryx_tpu_torch.common import pmml as pmml_io
+    from oryx_tpu_torch.kafka import utils as kafka_utils
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer, \
+        resolve_broker
+    from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+    from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
+
+    label = "kmeans_loop"
+    cfg = kmeans_loop_config(work_dir)
+    k = cfg.get_int("oryx.kmeans.hyperparams.k")
+    dims = cfg.get_int("oryx.input-schema.num-features")
+    broker_uri = cfg.get_string("oryx.input-topic.broker")
+    broker = resolve_broker(broker_uri)
+    in_topic = cfg.get_string("oryx.input-topic.message.topic")
+    up_topic = cfg.get_string("oryx.update-topic.message.topic")
+    rng = np.random.default_rng(KLOOP_SEED)
+    blob = rng.standard_normal((k, dims)) * 10
+    pts = blob[rng.integers(0, k, KLOOP_POINTS)] + rng.standard_normal(
+        (KLOOP_POINTS, dims))
+    kafka_utils.maybe_create_topic(
+        broker_uri, in_topic,
+        partitions=kafka_utils.input_topic_partitions(cfg))
+    InProcTopicProducer(broker_uri, in_topic).send_many(
+        [(None, ",".join(f"{v:.4f}" for v in p), None) for p in pts])
+
+    batch = BatchLayer(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    batch.run_one_generation()
+    generation_s = time.perf_counter() - t0
+    check(broker.get_offsets(batch._group, in_topic)
+          == broker.latest_offsets(in_topic),
+          f"{label}: the generation did not commit its offsets")
+    ends = broker.latest_offsets(up_topic)
+    published = broker.read_ranges(up_topic, [0] * len(ends), ends)
+    check([m.key for m in published] == ["MODEL"],
+          f"{label}: the generation published {[m.key for m in published]}")
+    trained = kmeans_pmml.read_clusters(pmml_io.from_string(
+        published[0].message))
+    # trained on the generation's train split (ml.eval.test-fraction)
+    check(len(trained) == k and sum(c.count for c in trained)
+          <= KLOOP_POINTS, f"{label}: {len(trained)} clusters")
+
+    serving = ServingLayer(cfg, port=0, device=DEVICE)
+    speed = SpeedLayer(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    serving.start()
+    speed.start()
+    try:
+        smgr, pmgr = serving.model_manager, speed.model_manager
+        wait_for(lambda: http_call(serving.port, "GET", "/ready")[0] == 204,
+                 f"{label}: /ready", LOOP_WAIT_S)
+        serving_load_s = time.perf_counter() - t0
+        wait_for(lambda: pmgr.model is not None, f"{label}: the speed load",
+                 LOOP_WAIT_S)
+        speed_load_s = time.perf_counter() - t0
+        model = smgr.get_model()
+        served = np.stack([c.center for c in model.clusters])
+        ids = [c.id for c in model.clusters]
+        probes = pts[rng.choice(KLOOP_POINTS, KLOOP_PROBES, replace=False)] \
+            + 0.5 * rng.standard_normal((KLOOP_PROBES, dims))
+        data = [",".join(f"{v:.4f}" for v in p) for p in probes]
+        vals = np.array([[float(v) for v in d.split(",")] for d in data])
+        # the speed layer's points, parsed to float32
+        vals32 = vals.astype(np.float32).astype(np.float64)
+        dist = np.sqrt(((vals[:, None, :] - served[None]) ** 2).sum(-1))
+        want = [ids[j] for j in np.argmin(dist, axis=1)]
+        times = []
+        for d, w, dd in zip(data, want, dist.min(axis=1)):
+            status, body, ms = http_call(serving.port, "GET", f"/assign/{d}")
+            times.append(ms)
+            check(status == 200 and json.loads(body) == str(w),
+                  f"{label}: /assign/{d} answered {status} {body!r}, "
+                  f"NumPy {w}")
+            status, body, _ = http_call(serving.port, "GET",
+                                        f"/distanceToNearest/{d}")
+            check(status == 200 and abs(float(json.loads(body)) - dd)
+                  <= 1e-12 * max(1.0, dd),
+                  f"{label}: /distanceToNearest/{d} {body!r}, NumPy {dd}")
+        status, body, post_ms = http_call(serving.port, "POST", "/assign",
+                                          "\n".join(data).encode())
+        check(status == 200, f"{label}: POST /assign answered {status}")
+        two = np.sort(dist, axis=1)[:, :2]
+        tied = two[:, 1] - two[:, 0] <= 1e-5 * two[:, 1]
+        got = json.loads(body)
+        check(all(g == str(w) or t for g, w, t in zip(got, want, tied)),
+              f"{label}: POST /assign differs from NumPy off a near tie")
+
+        # /add onto the input topic, then one speed micro-batch
+        broker.set_offsets(speed._group, in_topic,
+                           broker.latest_offsets(in_topic))
+        in_before = broker.latest_offsets(in_topic)
+        before = {c.id: (c.center.copy(), c.count)
+                  for c in pmgr.model.clusters}
+        t0 = time.perf_counter()
+        for d in data[:8]:
+            check(http_call(serving.port, "GET", f"/add/{d}")[0] == 204,
+                  f"{label}: /add/{d}")
+        check(http_call(serving.port, "POST", "/add",
+                        "\n".join(data[8:]).encode())[0] == 204,
+              f"{label}: POST /add")
+        t_last_add = time.perf_counter()
+        add_s = t_last_add - t0
+        new = broker.read_ranges(in_topic, in_before,
+                                 broker.latest_offsets(in_topic))
+        check(sorted(m.message for m in new) == sorted(data),
+              f"{label}: {len(new)} input records for {len(data)} added")
+        up_before = broker.latest_offsets(up_topic)
+        t0 = time.perf_counter()
+        speed.run_one_micro_batch()
+        micro_batch_s = time.perf_counter() - t0
+        ups = [json.loads(m.message) for m in broker.read_ranges(
+            up_topic, up_before, broker.latest_offsets(up_topic))]
+        centers = np.stack([before[i][0] for i in sorted(before)])
+        order = sorted(before)
+        near = np.argmin(((vals32[:, None, :] - centers[None]) ** 2).sum(-1),
+                         axis=1)
+        expect = {}
+        for j in np.unique(near):
+            members = vals32[near == j]
+            c, n = before[order[j]]
+            expect[order[j]] = (c + len(members) / (n + len(members))
+                                * (members.mean(axis=0) - c),
+                                n + len(members))
+        check(sorted(u[0] for u in ups) == sorted(expect),
+              f"{label}: UP clusters {sorted(u[0] for u in ups)}, float64 "
+              f"{sorted(expect)}")
+        up_err = 0.0
+        for cid, center, count in ups:
+            check(count == expect[cid][1], f"{label}: cluster {cid} count "
+                  f"{count}, float64 {expect[cid][1]}")
+            up_err = max(up_err, float(np.max(np.abs(
+                np.asarray(center) - expect[cid][0]))))
+        check(up_err <= 1e-9, f"{label}: an UP center is {up_err} from the "
+              f"float64 moving average")
+        wait_for(lambda: all(
+            smgr.get_model().get_cluster(cid).count == count
+            for cid, _, count in ups), f"{label}: serving to apply the UPs",
+            LOOP_WAIT_S)
+        applied_ms = (time.perf_counter() - t_last_add) * 1e3
+        for cid, center, _ in ups:
+            check(np.array_equal(smgr.get_model().get_cluster(cid).center,
+                                 np.asarray(center)),
+                  f"{label}: serving holds another center for {cid}")
+    finally:
+        speed.close()
+        serving.close()
+    check(not serving.consuming and not speed.consuming,
+          f"{label}: a consumer outlived close()")
+    line = {"phase": "kmeans_loop", "points": KLOOP_POINTS, "dims": dims,
+            "k": k, "generation_s": generation_s,
+            "serving_load_s": serving_load_s, "speed_load_s": speed_load_s,
+            "assign_checked": len(data), "assign_p50_ms":
+            statistics.median(times), "assign_post_ms": post_ms,
+            "near_ties": int(tied.sum()), "added": len(data),
+            "add_s": add_s, "micro_batch_s": micro_batch_s,
+            "up_records": len(ups), "up_max_abs_err": up_err,
+            "add_to_applied_ms": applied_ms}
+    log(line)
+    return line
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -2382,31 +3342,38 @@ def main(argv=None) -> int:
     for name, text in cuda_build.LOGS.items():
         print(f"--- {name}\n{text}", file=sys.stderr)
 
-    # phase 4's model directory and phase 5's data are made by child
-    # processes while phases 2-3 run
+    # phase 4's model directory, phase 5's data and phase 6b's generation
+    # are made by child processes while the earlier phases run
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     os.makedirs(os.path.join(work_dir, "model"))
+    os.makedirs(os.path.join(work_dir, "ann_model"))
     spawn = multiprocessing.get_context("spawn")
     publisher = spawn.Process(
         target=publish_topic_model,
         args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
     preparer = spawn.Process(target=lambda_data, args=(work_dir,),
                              daemon=True)
-    publisher.start()
-    preparer.start()
+    ann_publisher = spawn.Process(
+        target=publish_ann_generation,
+        args=(os.path.join(work_dir, "ann_model"), ANN_TOPIC_SEED),
+        daemon=True)
+    children = (publisher, preparer, ann_publisher)
+    for child in children:
+        child.start()
     try:
-        return run_phases(torch, gpu_name, t_start, publisher, preparer,
-                          work_dir, args.trace)
+        return run_phases(torch, gpu_name, t_start, children, work_dir,
+                          args.trace)
     finally:
-        for child in (publisher, preparer):
+        for child in children:
             if child.is_alive():
                 child.terminate()
             child.join(30)
         shutil.rmtree(work_dir, ignore_errors=True)
 
 
-def run_phases(torch, gpu_name: str, t_start: float, publisher, preparer,
+def run_phases(torch, gpu_name: str, t_start: float, children,
                work_dir: str, trace_dir: str | None) -> int:
+    publisher, preparer, ann_publisher = children
     rng = np.random.default_rng(SEED)
     cases = []
     serves = {}
@@ -2525,6 +3492,18 @@ def run_phases(torch, gpu_name: str, t_start: float, publisher, preparer,
     free()
     lambda_loop(work_dir, loop_config(work_dir).get_double(
         "oryx.als.hyperparams.lambda"))
+    free()
+
+    # phase 6: the IVF index at the protocol catalog, the k-means app at
+    # the bench's shape and through its loop, then the index's load path
+    # (last: its generation is the slowest child's work)
+    ann_at_scale(rng)
+    free()
+    kmeans_at_scale()
+    free()
+    kmeans_loop(work_dir)
+    free()
+    ann_topic(ann_publisher, work_dir)
     free()
 
     def head(kernel, **want):

@@ -1,8 +1,8 @@
 """Measured-cost kernel routing for the ALS serving scan.
 
 Counterpart of ``oryx_tpu/app/als/kernel_router.py``.  Which phase-A
-build serves a shape fastest (int8+fold, fold, int8, the store's own
-kernel, the plain scan), and whether the LSH Hamming mask pays for
+build serves a shape fastest (the IVF index, int8+fold, fold, int8, the
+store's own kernel, the plain scan), and whether the LSH Hamming mask pays for
 itself, depends on the shape, the dtype and the card; a static
 preference order encodes one measurement of one machine.  At model load
 (and on a hot-swap that changes the store's padded capacity) this
@@ -13,7 +13,10 @@ module times each eligible path for the live shape and then:
     build measured slower than the exact one.
 
 The decision and every measured cost are exposed through
-``ALSServingModel.metrics()["kernel_route"]``.
+``ALSServingModel.metrics()["kernel_route"]``, and with an IVF index
+attached its recall certificate under ``["ann"]``.  "ivf" is timed on
+the exact variant only: the Hamming mask and the cell probe are
+competing pruners, never composed.
 
 Timing: each reading is ``_ROUNDS`` rounds of dispatch + fetch, the median
 of ``_REPS`` readings, floored at 1e-4 ms.  On a CUDA device the rounds
@@ -138,6 +141,19 @@ def measure_routes(model) -> dict | None:
         "lsh_configured": lsh_configured,
         "ann_key": model._ann_route_key(),
     }
+    ann = model._ann
+    if ann is not None:
+        # the generation's recall certificate: whether the IVF index
+        # serves, and on what evidence
+        route["ann"] = {
+            "recall": ann.recall,
+            "min_recall": ann.cfg.min_recall,
+            "recall_at": ann.cfg.recall_at,
+            "cells": int(ann.centroids.shape[0]),
+            "nprobe": ann.cfg.nprobe,
+            "routable": model._ann_routable(n_rows),
+            "index_bytes": ann.index_bytes,
+        }
     costs_exact: dict = {}
     costs_lsh: dict = {}
 
@@ -171,6 +187,8 @@ def measure_routes(model) -> dict | None:
                 # the plain scan is timed only when no kernel measured
                 continue
             for lsh_on in variants:
+                if kind == "ivf" and lsh_on:
+                    continue
                 buckets, hp, mb = _lsh_parts(model, lsh_on)
                 ctx: dict = {}
                 timed(costs_lsh if lsh_on else costs_exact, kind, lsh_on,
@@ -226,7 +244,8 @@ def measure_routes(model) -> dict | None:
     effective = costs_lsh if serving_lsh else costs_exact
     route["phase_a_costs_ms"] = effective
     route["chosen"] = best(effective)[0]
-    if streaming and route["chosen"] in ("i8_fold", "i8", "fold", "pallas"):
+    if streaming and route["chosen"] in ("i8_fold", "i8", "fold", "pallas",
+                                         "ivf"):
         # rebuild the winner's mirror before traffic: the per-kind
         # eviction dropped it with the losers, and the first request
         # must not pay the mirror build

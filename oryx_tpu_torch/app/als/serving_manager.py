@@ -9,16 +9,22 @@ providers of ``oryx.als.rescorer-provider-class`` :120-137).  It serves one
 catalog shard (``0/1``): the whole catalog.  The measured-cost kernel
 route is installed when the load fraction crosses
 ``oryx.serving.min-model-load-fraction`` and re-checked on every MODEL
-(a no-op while the store's capacity is unchanged).  Not part of this
-package yet: the IVF index (``oryx.als.ann.enabled`` must be false),
-item sharding over several cards (``item-shards`` 1) and the serving
-cluster's other shards.
+(a no-op while the store's capacity is unchanged).  With
+``oryx.als.ann.enabled`` each generation gets an IVF index
+(reference :415-516): built from the trainer's published centroids and
+per-slice cells where the manifest names them, else trained here; its
+recall certificate is measured before the route, and any failure serves
+the exact kinds and counts ``ann_index_fallbacks``.  Not part of this
+package yet: item sharding over several cards (``item-shards`` 1) and
+the serving cluster's other shards.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+
+import numpy as np
 
 from ...api.serving import AbstractServingModelManager
 from ...common import pmml as pmml_io
@@ -27,6 +33,7 @@ from ...common.lang import RateLimitCheck
 from ...kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
 from ..pmml_utils import read_pmml_from_update_key_message
 from . import common as als_common
+from . import ivf
 from . import slices
 from .feature_vectors import resolve_dtype
 from .rescorer import load_rescorer_providers
@@ -49,9 +56,8 @@ class ALSServingModelManager(AbstractServingModelManager):
         self._triggered_solver = False
         self.rescorer_provider = load_rescorer_providers(
             config.get_optional_string("oryx.als.rescorer-provider-class"))
-        if config.get_bool("oryx.als.ann.enabled"):
-            raise ValueError("oryx.als.ann.enabled: the IVF index is not "
-                             "part of this package yet")
+        # parsed and validated at boot, as every serving knob
+        self.ann_config = ivf.AnnConfig.from_config(config)
         if config.get_int("oryx.serving.api.item-shards") != 1:
             raise ValueError("oryx.serving.api.item-shards must be 1: item "
                              "sharding over several cards is not part of "
@@ -90,6 +96,16 @@ class ALSServingModelManager(AbstractServingModelManager):
         # gate, the replay path when the UP stream does
         self.model_load_s = 0.0
         self._model_received_at: float | None = None
+        # the IVF index: card bytes of the current generation's mirror,
+        # and generations that failed closed to the exact kinds (corrupt
+        # artifact, failed build or recall measurement)
+        self.ann_index_bytes = 0
+        self.ann_index_fallbacks = 0
+        # the generation's published index, collected during the slice
+        # load for _maybe_build_ann
+        self._ann_centroid_entry: dict | None = None
+        self._ann_cells_by_id: dict[str, int] = {}
+        self._ann_artifacts_broken = False
 
     def get_model(self) -> ALSServingModel | None:
         return self.model
@@ -130,6 +146,10 @@ class ALSServingModelManager(AbstractServingModelManager):
                     time.monotonic() - self._model_received_at, 6)
                 self._model_received_at = None
             model.precompute_solvers()
+            # replay-loaded factors: build the IVF index and measure its
+            # certificate before the route, which then times the chain
+            # the index may join
+            self._maybe_build_ann(None)
             # time each eligible kernel path for the live shape so that
             # serving routes by measured cost (re-measures only if the
             # padded capacity changed)
@@ -180,10 +200,18 @@ class ALSServingModelManager(AbstractServingModelManager):
         self.model.retain_recent_and_item_ids(y_ids)
         self.generation += 1
         self._model_received_at = t_model
+        # the previous generation's published index is stale
+        self._ann_centroid_entry = None
+        self._ann_cells_by_id = {}
+        self._ann_artifacts_broken = False
         if manifest is not None:
             # bulk-load the slices; a bad slice falls back to the
             # monolithic artifacts — ready either way
             self._load_from_manifest(model_dir, manifest)
+        # the IVF index is built inside the load clock (it is part of
+        # serving at the advertised cost) and before the route, which
+        # then times the "ivf" kind
+        self._maybe_build_ann(model_dir)
         if (self._model_received_at is not None
                 and self.model.get_fraction_loaded()
                 >= self.min_model_load_fraction):
@@ -210,11 +238,13 @@ class ALSServingModelManager(AbstractServingModelManager):
             owned = slices.owned_slices(ring, 0, 1)
             features = self.model.features
             entries = {int(e["slice"]): e for e in manifest["slices"]}
+            self._ann_centroid_entry = manifest.get("ann")
             for s in owned:
                 ids, matrix, _ordinals = slices.read_slice(
                     model_dir, entries[s], features)
                 if ids:
                     self.model.bulk_load_items(ids, matrix)
+                self._collect_slice_ann(model_dir, entries[s], ids)
             x_ids, X, known = slices.read_x_known(
                 model_dir, manifest["x"], features)
             if x_ids:
@@ -228,6 +258,11 @@ class ALSServingModelManager(AbstractServingModelManager):
         except (slices.SliceIntegrityError, OSError, KeyError, IndexError,
                 TypeError, ValueError) as e:
             self.slice_load_fallbacks += 1
+            # a failed slice load discredits the manifest and its index
+            # artifacts: the IVF build trains here over what the fallback
+            # loads
+            self._ann_centroid_entry = None
+            self._ann_cells_by_id = {}
             _log.warning("Slice load failed (%s); falling back to the "
                          "monolithic artifacts", e)
             self._load_full_artifacts(model_dir)
@@ -251,3 +286,92 @@ class ALSServingModelManager(AbstractServingModelManager):
             _log.error("Monolithic artifact fallback also failed (%s); "
                        "the model will not reach ready until the store "
                        "returns", e)
+
+    # -- the IVF index (ivf.py) ----------------------------------------------
+
+    def _collect_slice_ann(self, model_dir: str, entry: dict,
+                           ids: list[str]) -> None:
+        """Read one owned slice's published cell assignments.  A corrupt
+        or missing index artifact (chaos point ``ann-index-corrupt``)
+        never fails the slice load (the factors are intact) but marks
+        the generation's published index broken, so ``_maybe_build_ann``
+        fails closed to the exact kinds."""
+        aent = entry.get("ann")
+        if aent is None or not self.ann_config.enabled \
+                or self._ann_artifacts_broken:
+            return
+        try:
+            cells = ivf.read_slice_cells(model_dir, aent)
+            self._ann_cells_by_id.update(zip(ids, cells))
+        except ivf.AnnIndexError as e:
+            self._ann_artifacts_broken = True
+            _log.warning("ANN index artifact unusable (%s); this "
+                         "generation will serve on the exact kinds", e)
+
+    def _maybe_build_ann(self, model_dir: str | None) -> None:
+        """Build the generation's IVF index and measure its recall
+        certificate against the exact kernel (``ivf.measure_recall``),
+        before the route.  Published artifacts (centroids and per-slice
+        cells) skip the k-means training here; any failure fails closed
+        to the exact kinds with ``ann_index_fallbacks``: the index is an
+        optimization, never a readiness gate."""
+        cfg = self.ann_config
+        model = self.model
+        if not cfg.enabled or model is None or len(model.Y) == 0:
+            return
+        try:
+            if self._ann_artifacts_broken:
+                raise ivf.AnnIndexError(
+                    "published index artifacts unreadable")
+            cells = None
+            if self._ann_centroid_entry is not None \
+                    and model_dir is not None:
+                centroids = ivf.read_centroids(
+                    model_dir, self._ann_centroid_entry)
+                cells = self._published_cells()
+            else:
+                yv, ya, _ids = model.Y.host_arrays()
+                centroids = ivf.train_generation_centroids(
+                    yv[ya][:, :model.features], cfg, device=model.device)
+            state = ivf.AnnState(cfg, centroids, cells=cells)
+            model.attach_ann(state)
+            vecs, active, version = model.Y.device_arrays_versioned()
+            mirror = model._cached_ivf(vecs, active, version)
+            state.recall = ivf.measure_recall(model, mirror, cfg)
+            self.ann_index_bytes = mirror.index_bytes
+            if state.recall < cfg.min_recall:
+                _log.warning(
+                    "IVF recall certificate failed for generation %d: "
+                    "recall@%d %.4f < min-recall %.2f; serving stays on "
+                    "the exact kinds", self.generation, cfg.recall_at,
+                    state.recall, cfg.min_recall)
+            else:
+                _log.info(
+                    "IVF index ready for generation %d: %d cells, nprobe "
+                    "%d, recall@%d %.4f, %d bytes", self.generation,
+                    int(state.centroids.shape[0]), cfg.nprobe,
+                    cfg.recall_at, state.recall, mirror.index_bytes)
+        except Exception as e:  # noqa: BLE001 — fail closed to exact
+            self.ann_index_fallbacks += 1
+            self.ann_index_bytes = 0
+            model.attach_ann(None)
+            _log.warning("IVF index build failed (%s); generation %d "
+                         "serves on the exact kinds", e, self.generation)
+
+    def _published_cells(self) -> np.ndarray | None:
+        """The published cell assignments in the store's row slots, or
+        None where a row is not named (the mirror build then assigns on
+        the device, which is always right)."""
+        by_id = self._ann_cells_by_id
+        if not by_id:
+            return None
+        row_ids = self.model.Y.row_ids()
+        cells = np.zeros(len(row_ids), dtype=np.int32)
+        for i, rid in enumerate(row_ids):
+            if rid is None:
+                continue
+            c = by_id.get(rid)
+            if c is None:
+                return None
+            cells[i] = c
+        return cells

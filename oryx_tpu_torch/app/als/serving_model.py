@@ -17,8 +17,10 @@ store (``ops/phase_a.py``), "fold" over a folded mirror of a narrow store
 (``ops/phase_a_fold.py``), "i8" over an int8 mirror with one scale per
 block (``ops/phase_a_i8.py``) and "i8_fold" over the folded int8 mirror
 (``ops/phase_a_i8_fold.py``); the int8 kinds turn their integer maxima
-into sound float32 upper bounds before phase B.  "scan" is the plain
-PyTorch build.
+into sound float32 upper bounds before phase B.  "ivf" scores only the
+blocks of each query's nearest cells of an IVF index (``ivf.py``, plain
+PyTorch), and serves only while its measured recall certificate holds.
+"scan" is the plain PyTorch build.
 
 ``top_n`` scores by dot product with one user vector or by mean cosine
 similarity to a set of item vectors (``/similarity``).  Known items keep
@@ -571,7 +573,8 @@ def _penalty_kernel(active, bs: int):
 _KIND_MIRRORS = {"i8_fold": ("_i8_fold", "_fold_bkt"),
                 "i8": ("_i8", "_penalty_i"),
                 "fold": ("_fold", "_fold_bkt"),
-                "pallas": ("_penalty",)}
+                "pallas": ("_penalty",),
+                "ivf": ("_ivf_mirror",)}
 _MIRROR_CACHES = tuple(dict.fromkeys(
     a for attrs in _KIND_MIRRORS.values() for a in attrs))
 
@@ -593,7 +596,8 @@ class ALSServingModel(FactorModelBase, ServingModel):
         mirror: "auto" turns it on at features <= 64 where the store pads
         its columns.  ``fold_scan`` (``fold-scan``) lets phase A scan a
         folded mirror where the features fit 1/2 or 1/4 of the padded
-        width.  ``device=None`` means ``cuda``."""
+        width.  The IVF index's state comes with each generation
+        (``attach_ann``).  ``device=None`` means ``cuda``."""
         super().__init__(features, implicit, dtype=dtype, device=device)
         self.rescorer_provider = rescorer_provider
         self._known_items: dict[str, set[str]] = {}
@@ -635,6 +639,13 @@ class ALSServingModel(FactorModelBase, ServingModel):
         self._route: dict | None = None
         self._route_capacity: int = -1
         self._route_lock = threading.Lock()
+        # the IVF index: the generation's small state (centroids and
+        # recall certificate) is attached by the manager at load; its
+        # device mirror is version-keyed like the other phase-A mirrors.
+        # "ivf" joins the kind chain only while the certificate holds
+        self._ann = None
+        self._ivf_mirror = None
+        self._ivf_mirror_version: int = -1
         self._bucket_lock = threading.Lock()
         # exact-scan recomputes forced by a failed two-phase certificate
         self.twophase_fallbacks = 0
@@ -999,8 +1010,11 @@ class ALSServingModel(FactorModelBase, ServingModel):
         n_rows = int(vecs.shape[0])
         static_kinds, fold = self._phase_a_kinds(n_rows, int(vecs.shape[1]),
                                                  bs)
-        kinds = self._route_order(static_kinds, n_rows,
-                                  lsh_on=buckets is not None)
+        # "ivf" is an exact-variant kind: the Hamming mask and the cell
+        # probe are competing pruners, never composed
+        kinds = self._route_order(
+            [kk for kk in static_kinds if kk != "ivf" or buckets is None],
+            n_rows, lsh_on=buckets is not None)
         ctx: dict = {}
         handles = [self._dispatch_kind(kinds[0], qw, vecs, active, version,
                                        buckets, hp, k, bs, ksel, mb, fold,
@@ -1045,6 +1059,13 @@ class ALSServingModel(FactorModelBase, ServingModel):
             return _batch_top_n_twophase_cuda(
                 vecs, qw, ctx["penalty"], active, buckets, hp, k, bs,
                 ksel, mb)
+        if kind == "ivf":
+            from . import ivf as _ivf
+            if "ivf" not in ctx:
+                ctx["ivf"] = self._cached_ivf(vecs, active, version)
+            return _ivf.batch_top_n_ivf(
+                ctx["ivf"], vecs, qw, k, bs, _i8_ksel(ksel, n_rows, bs),
+                self._ann.cfg.nprobe)
         if kind == "scan":
             return _batch_top_n_twophase_kernel(
                 vecs, qw, active, buckets, hp, k, chunk, bs, ksel, mb)
@@ -1054,16 +1075,19 @@ class ALSServingModel(FactorModelBase, ServingModel):
                        bs: int) -> tuple[list[str], int]:
         """(phase-A kinds for a streaming shape, best first; fold factor).
         The kind names are the reference's, each a hand-written kernel
-        but "scan", the plain-PyTorch chunked build.  The order is the
-        reference's, fewest phase-A bytes first: int8+fold, then fold and
-        int8 (an explicit ``int8_selection="true"`` ahead of fold), then
-        the store's own kernel, then the scan.  The reference's "ivf"
-        kind comes with the IVF slice."""
+        but "ivf" and "scan", plain PyTorch.  The order is the
+        reference's, fewest phase-A bytes first: "ivf" where its recall
+        certificate admits it (it reads about nprobe/cells of the
+        catalog), int8+fold, then fold and int8 (an explicit
+        ``int8_selection="true"`` ahead of fold), then the store's own
+        kernel, then the scan."""
         eligible = n_rows % _PA_TILE == 0
         want_i8 = self._int8_enabled()
         fold = _fold_eligible(width, self.features, bs) \
             if self._fold_enabled() else 1
         kinds: list[str] = []
+        if self._ann_routable(n_rows):
+            kinds.append("ivf")
         if eligible:
             if want_i8 and fold > 1:
                 kinds.append("i8_fold")
@@ -1080,12 +1104,64 @@ class ALSServingModel(FactorModelBase, ServingModel):
         kinds.append("scan")
         return kinds, fold
 
-    # -- measured-cost routing (kernel_router) -------------------------------
+    # -- the IVF index (ivf.py) ----------------------------------------------
 
-    def _ann_route_key(self):
-        """The IVF half of the route's re-measure key; constant until
-        the IVF kind is part of this package."""
-        return None
+    def attach_ann(self, state) -> None:
+        """Install the generation's ANN state (``ivf.AnnState``:
+        centroids and recall certificate); None detaches it, and "ivf"
+        leaves the chain.  The manager calls this before
+        ``refresh_route``: the route's re-measure key holds the ANN
+        shape (``_ann_route_key``), so an attach invalidates a route."""
+        with self._bucket_lock:
+            self._ann = state
+            self._ivf_mirror = None
+            self._ivf_mirror_version = -1
+
+    def _ann_routable(self, n_rows: int) -> bool:
+        """True when "ivf" may serve: state attached, the recall
+        certificate measured and at or above ``oryx.als.ann.min-recall``,
+        and a capacity of whole blocks, at least one per cell.  The one
+        gate of the dispatch chain and the router, so the router can
+        never serve the IVF index below min-recall."""
+        a = self._ann
+        return (a is not None and a.recall is not None
+                and a.recall >= a.cfg.min_recall
+                and n_rows % _BLOCK_ROWS == 0
+                and n_rows // _BLOCK_ROWS >= int(a.centroids.shape[0]))
+
+    def _ann_route_key(self) -> tuple | None:
+        """The ANN half of the route's re-measure key: the configuration's
+        shape and whether the certificate admits routing.  A certificate
+        flipping either way re-measures (the kind chain changed)."""
+        a = self._ann
+        if a is None:
+            return None
+        return a.cfg.route_key() + (
+            self._ann_routable(len(self.Y.row_ids())),)
+
+    def _cached_ivf(self, vecs, active, version):
+        """The cell-contiguous int8 IVF mirror (``ivf.IVFMirror``),
+        rebuilt on the device when the Y snapshot version changes.  The
+        first build after a generation load takes the published
+        assignment if one came; later ones assign on the device (same
+        centroids, same lowest-cell tie-break: same cells)."""
+        from . import ivf as _ivf
+        with self._bucket_lock:
+            a = self._ann
+            if a is None:
+                raise ValueError("no ANN state attached")
+            if self._ivf_mirror is None \
+                    or self._ivf_mirror_version != version:
+                cells = a.cells if a.cells is not None \
+                    and len(a.cells) == int(vecs.shape[0]) else None
+                a.cells = None  # one-shot: stale after any store write
+                self._ivf_mirror = _ivf.build_mirror(
+                    vecs, active, a, _BLOCK_ROWS, cells=cells)
+                self._ivf_mirror_version = version
+                a.index_bytes = self._ivf_mirror.index_bytes
+            return self._ivf_mirror
+
+    # -- measured-cost routing (kernel_router) -------------------------------
 
     def _route_order(self, kinds: list[str], n_rows: int,
                      lsh_on: bool = False) -> list[str]:

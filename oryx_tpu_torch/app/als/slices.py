@@ -1,7 +1,6 @@
 """Sharded model distribution: per-slice factor artifacts + manifest.
 
-Counterpart of ``oryx_tpu/app/als/slices.py`` without the IVF index
-artifacts (they come with the IVF slice).  The item-factor rows are
+Counterpart of ``oryx_tpu/app/als/slices.py``.  The item-factor rows are
 partitioned into ``ring`` slices by the murmur2 contract of
 ``cluster/sharding.shard_of``; each slice is one deterministic gzip
 artifact of JSON rows ``[id, [floats], ordinal]`` (the ordinal is the
@@ -9,7 +8,9 @@ row's index in the monolithic Y order); the user-side artifact holds
 ``[id, [floats], [known...]]`` rows; a manifest records the ring, each
 artifact's path, row count, byte count and CRC-32, and each slice's
 partial Gramian.  The MODEL-REF record carries the manifest without the
-Gramians as a JSON envelope ``{"path", "dir", "manifest"}``.  The bytes
+Gramians as a JSON envelope ``{"path", "dir", "manifest"}``.  With an IVF
+index (``oryx.als.ann.publish-index``) the manifest also names the
+centroid artifact, and each slice entry its cell assignments.  The bytes
 and checksums are the reference's for the same catalog, so either
 package reads what the other wrote.  A missing or corrupt slice
 (checksum mismatch; chaos point ``store-slice-missing``) raises
@@ -100,14 +101,30 @@ def _write_artifact(model_dir: str, rel_path: str, payload: bytes) -> int:
 def publish_sliced(model_dir: str, y_ids: list[str], Y,
                    x_ids: list[str], X,
                    known: dict[str, list[str]] | None,
-                   ring: int) -> dict:
+                   ring: int, ann=None) -> dict:
     """Write the sliced artifacts + manifest under ``model_dir`` and
     return the slim manifest (no Gramians) for the MODEL-REF envelope.
     Rows are serialized with ``save_features``' 8-decimal rounding, so a
     slice-loaded model holds the same float32 vectors as one that
-    replayed the UP stream."""
+    replayed the UP stream.
+
+    ``ann`` is an optional ``(centroids, cells)`` pair: the trainer's IVF
+    coarse quantizer and each item's cell, aligned to ``y_ids``.  The
+    centroids go out once per generation, each slice's cells beside its
+    factors, so a serving replica reads the cells of the slices it
+    owns."""
     if ring < 1:
         raise ValueError(f"slice ring must be >= 1, got {ring}")
+    ann_cells = None
+    if ann is not None:
+        from . import ivf
+        centroids, ann_cells = ann
+        ann_cells = np.asarray(ann_cells, dtype=np.int64)
+        if len(ann_cells) != len(y_ids):
+            raise ValueError(
+                f"{len(ann_cells)} cell assignments for "
+                f"{len(y_ids)} items")
+        ann_entry = ivf.publish_centroids(model_dir, centroids)
     features = int(Y.shape[1]) if len(y_ids) else \
         (int(X.shape[1]) if len(x_ids) else 0)
     slices_meta = []
@@ -124,6 +141,16 @@ def publish_sliced(model_dir: str, y_ids: list[str], Y,
         crc = _write_artifact(model_dir, rel, payload)
         entry = {"slice": s, "path": rel, "rows": len(ids),
                  "bytes": len(payload), "crc32": crc}
+        if ann_cells is not None:
+            cells_payload = _gzip_lines([json.dumps(
+                [int(ann_cells[i]) for i in idxs],
+                separators=(",", ":"))])
+            cells_rel = f"{_SLICES_DIR}/ann-{s:05d}.json.gz"
+            cells_crc = _write_artifact(model_dir, cells_rel,
+                                        cells_payload)
+            entry["ann"] = {"path": cells_rel, "rows": len(ids),
+                            "bytes": len(cells_payload),
+                            "crc32": cells_crc}
         slices_meta.append(entry)
         # the partial Gramian of EXACTLY the float32 rows a consumer
         # will hold, accumulated in f64: partials over disjoint row
@@ -156,6 +183,8 @@ def publish_sliced(model_dir: str, y_ids: list[str], Y,
               "known_items": known is not None},
         "gramians": gramians,
     }
+    if ann is not None:
+        manifest["ann"] = ann_entry
     with store.open_write(store.join(model_dir, MANIFEST_FILE)) as f:
         f.write(json.dumps(manifest).encode("utf-8"))
     return {k: v for k, v in manifest.items() if k != "gramians"}

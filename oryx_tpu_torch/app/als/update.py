@@ -10,12 +10,13 @@ user rows with their known items), mfModelToPMML :430-473 (X and Y as
 gzipped JSON text artifacts plus the XIDs/YIDs extensions), the
 time-based splitNewDataToTrainTest :326-343, saveFeaturesRDD :490-499,
 readFeaturesRDD :533-541).  A too-large model publishes its sliced
-artifacts and a manifest with its MODEL-REF (``slices.py``).
+artifacts and a manifest with its MODEL-REF (``slices.py``), with
+``oryx.als.ann.publish-index`` also the IVF index trained on the card
+(centroids and per-slice cells).
 
-Not part of this package yet, each refused with an error naming its
-key: the training mesh over several cards
-(``oryx.batch.streaming.master = "mesh"`` and ``oryx.distributed.*``)
-and the IVF index publish (``oryx.als.ann.publish-index``).
+Not part of this package yet, refused with an error naming its key: the
+training mesh over several cards (``oryx.batch.streaming.master =
+"mesh"`` and ``oryx.distributed.*``).
 """
 
 from __future__ import annotations
@@ -118,9 +119,13 @@ class ALSUpdate(MLUpdate):
         # the per-slice artifacts a too-large-to-inline model publishes
         # alongside its MODEL-REF; 0 disables (pure reference behavior)
         self.publish_slices = config.get_int("oryx.als.publish.slices")
-        if config.get_bool("oryx.als.ann.publish-index"):
-            raise ValueError("oryx.als.ann.publish-index: the IVF index is "
-                             "not part of this package yet")
+        # the IVF index publish: train the coarse quantizer here and
+        # ship centroids and per-slice cells with the sliced artifacts,
+        # so a serving replica's index build skips the k-means
+        self.publish_ann_index = config.get_bool(
+            "oryx.als.ann.publish-index")
+        from .ivf import AnnConfig
+        self.ann_config = AnnConfig.from_config(config)
         if self.iterations <= 0:
             raise ValueError("iterations must be positive")
         if not 0.0 < self.decay_factor <= 1.0:
@@ -307,8 +312,18 @@ class ALSUpdate(MLUpdate):
                 all_events = als_common.parse_events(
                     list(new_data) + list(past_data), 1.0, 0.0)
                 known = als_common.build_known_items(all_events)
+            ann = None
+            if self.publish_ann_index and len(y_ids):
+                from ...ops import ann as ops_ann
+                from . import ivf
+                centroids = ivf.train_generation_centroids(
+                    Y, self.ann_config, device=self.device)
+                cells = ops_ann.assign_cells(Y, centroids,
+                                             device=self.device)
+                ann = (centroids, cells)
             slim = slices.publish_sliced(model_dir, y_ids, Y, x_ids, X,
-                                         known, self.publish_slices)
+                                         known, self.publish_slices,
+                                         ann=ann)
             _log.info("Published sharded manifest: %d slices, %d items, "
                       "%d users at %s", self.publish_slices, len(y_ids),
                       len(x_ids), model_dir)

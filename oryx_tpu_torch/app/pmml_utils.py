@@ -1,9 +1,10 @@
 """App-tier PMML helpers.
 
 Counterpart of ``oryx_tpu/app/pmml_utils.py`` (reference:
-AppPMMLUtils.readPMMLFromUpdateKeyMessage :259), cut down to the read
-side: MODEL carries inline XML, MODEL-REF a storage path (or a
-manifest envelope naming one).
+AppPMMLUtils.java — readPMMLFromUpdateKeyMessage :259: MODEL carries
+inline XML, MODEL-REF a storage path or a manifest envelope naming one;
+buildMiningSchema :131, buildDataDictionary :198 and toArray :116 for
+the numeric features of a clustering model).
 """
 
 from __future__ import annotations
@@ -13,13 +14,70 @@ import xml.etree.ElementTree as ET
 from xml.etree.ElementTree import Element
 
 from ..common import pmml as pmml_io
+from ..common import text as text_utils
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF
 from ..ml.integrity import ModelIntegrityError
 from ..resilience.faults import fire as _fault
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["read_pmml_from_update_key_message", "ModelIntegrityError"]
+__all__ = ["read_pmml_from_update_key_message", "ModelIntegrityError",
+           "build_mining_schema", "build_data_dictionary",
+           "get_feature_names", "to_pmml_array"]
+
+_q = pmml_io._q
+
+
+def build_mining_schema(schema) -> Element:
+    """MiningSchema element from an ``InputSchema``: numeric and
+    categorical actives get their optypes, id and ignored features are
+    supplementary, the target is predicted."""
+    ms = ET.Element(_q("MiningSchema"))
+    for name in schema.feature_names:
+        attrs = {"name": name}
+        if schema.is_numeric(name):
+            attrs["optype"] = "continuous"
+            attrs["usageType"] = "active"
+        elif schema.is_categorical(name):
+            attrs["optype"] = "categorical"
+            attrs["usageType"] = "active"
+        else:
+            attrs["usageType"] = "supplementary"
+        if schema.has_target() and schema.is_target(name):
+            attrs["usageType"] = "predicted"
+        ET.SubElement(ms, _q("MiningField"), attrs)
+    return ms
+
+
+def build_data_dictionary(schema) -> Element:
+    """DataDictionary element of an ``InputSchema`` without categorical
+    value lists (the clustering model takes numeric features only)."""
+    dd = ET.Element(_q("DataDictionary"),
+                    {"numberOfFields": str(schema.num_features)})
+    for name in schema.feature_names:
+        attrs = {"name": name}
+        if schema.is_numeric(name):
+            attrs["optype"] = "continuous"
+            attrs["dataType"] = "double"
+        elif schema.is_categorical(name):
+            attrs["optype"] = "categorical"
+            attrs["dataType"] = "string"
+        ET.SubElement(dd, _q("DataField"), attrs)
+    return dd
+
+
+def get_feature_names(parent: Element) -> list[str]:
+    """Feature names in order from a MiningSchema or DataDictionary."""
+    return [el.get("name") for el in parent
+            if el.tag in (_q("MiningField"), _q("DataField"))]
+
+
+def to_pmml_array(values) -> Element:
+    """PMML real Array element from numbers."""
+    vals = [float(v) for v in values]
+    arr = ET.Element(_q("Array"), {"type": "real", "n": str(len(vals))})
+    arr.text = text_utils.join_pmml_delimited_numbers(vals)
+    return arr
 
 
 def read_pmml_from_update_key_message(key: str,

@@ -72,6 +72,12 @@ class Config:
             raise TypeError(f"{path}: expected boolean, got {v!r}")
         return v
 
+    def get_string_list(self, path: str) -> list[str]:
+        v = self.get(path)
+        if not isinstance(v, list):
+            raise TypeError(f"{path}: expected list, got {v!r}")
+        return [str(x) for x in v]
+
     def _optional(self, path: str, getter) -> Any:
         try:
             if self.get(path) is None:
@@ -85,6 +91,16 @@ class Config:
 
     def get_optional_double(self, path: str) -> float | None:
         return self._optional(path, self.get_double)
+
+    def get_optional_string_list(self, path: str) -> list[str] | None:
+        """The list at ``path``; a single value stands for a one-element
+        list (as the reference reads ``input-schema.numeric-features``)."""
+        v = self._optional(path, self.get)
+        if v is None:
+            return None
+        if isinstance(v, list):
+            return [str(x) for x in v]
+        return [str(v)]
 
     def __repr__(self):  # pragma: no cover
         return f"Config({sorted(self._root)})"

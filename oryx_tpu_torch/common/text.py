@@ -17,7 +17,7 @@ import re
 from typing import Any, Iterable, Sequence
 
 __all__ = ["parse_delimited", "parse_pmml_delimited", "join_pmml_delimited",
-           "parse_json_array", "join_json", "read_json", "parse_input_line"]
+           "join_pmml_delimited_numbers", "parse_json_array", "join_json", "read_json", "parse_input_line"]
 
 
 def parse_delimited(line: str, delimiter: str = ",") -> list[str]:
@@ -83,6 +83,10 @@ def join_pmml_delimited(elements: Iterable[Any]) -> str:
             tok = '"' + tok.replace('"', '\\"') + '"'
         out.append(tok)
     return " ".join(out)
+
+
+def join_pmml_delimited_numbers(elements: Iterable[Any]) -> str:
+    return " ".join(_render(e) for e in elements)
 
 
 def parse_json_array(line: str) -> list:

@@ -1,11 +1,15 @@
-"""Carry an ALS serving model's state across from NumPy arrays.
+"""Carry a model's state across from the reference package's objects.
 
 ``serving_model_from_arrays`` builds this package's ``ALSServingModel``
 from what the reference package's stores hand out
 (``FeatureVectorStore.host_arrays()``: the factor matrix and the
 row -> id table, None for a free row), its known-items map and its LSH
 hyperplanes.  Row positions carry over exactly, so tied scores come out
-in the same lowest-row-first order on both.
+in the same lowest-row-first order on both.  ``clusters_from_reference``
+and ``ann_state_from_reference`` carry a k-means model's clusters and a
+generation's IVF index state (centroids, published cells, recall
+certificate); both read only attributes, so neither imports the
+reference package.
 """
 
 from __future__ import annotations
@@ -14,9 +18,12 @@ from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
+from .app.als.ivf import AnnConfig, AnnState
 from .app.als.serving_model import ALSServingModel
+from .app.kmeans.common import ClusterInfo
 
-__all__ = ["serving_model_from_arrays"]
+__all__ = ["serving_model_from_arrays", "clusters_from_reference",
+           "ann_state_from_reference"]
 
 
 def serving_model_from_arrays(
@@ -48,3 +55,29 @@ def serving_model_from_arrays(
     for user, items in known_items.items():
         model.add_known_items(user, items)
     return model
+
+
+def clusters_from_reference(clusters) -> list[ClusterInfo]:
+    """This package's ``ClusterInfo`` list from the reference's: the same
+    ids, float64 centers and counts, in the same order."""
+    return [ClusterInfo(int(c.id), np.array(c.center, dtype=np.float64),
+                        int(c.count)) for c in clusters]
+
+
+def ann_state_from_reference(state) -> AnnState:
+    """This package's ``AnnState`` from the reference's: its configuration,
+    centroids, published cells (if not yet consumed), recall certificate
+    and index bytes."""
+    c = state.cfg
+    cfg = AnnConfig(enabled=c.enabled, cells=c.cells, nprobe=c.nprobe,
+                    min_recall=c.min_recall, recall_at=c.recall_at,
+                    recall_queries=c.recall_queries,
+                    train_sample=c.train_sample,
+                    train_iterations=c.train_iterations)
+    cells = None if state.cells is None else \
+        np.array(state.cells, dtype=np.int32)
+    out = AnnState(cfg, np.array(state.centroids, dtype=np.float32),
+                   cells=cells)
+    out.recall = None if state.recall is None else float(state.recall)
+    out.index_bytes = int(state.index_bytes)
+    return out

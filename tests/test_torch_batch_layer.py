@@ -325,7 +325,9 @@ def test_als_update_time_split_and_evaluation(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("oryx.als.ann.publish-index", True),
+    # the IVF publish is supported now; its configuration is validated at
+    # boot
+    ("oryx.als.ann.cells", 1),
     ("oryx.batch.streaming.master", "mesh"),
     ("oryx.distributed.coordinator-address", "localhost:1234"),
 ])

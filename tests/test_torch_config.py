@@ -95,6 +95,42 @@ def test_port_example_conf_differs_only_in_its_classes():
     assert port == ref
 
 
+def test_port_kmeans_example_conf_differs_only_in_its_classes():
+    port = tconfig.from_file(os.path.join(
+        REPO, "oryx_tpu_torch", "conf", "kmeans-example.conf")).as_dict()
+    ref = jconfig.from_file(os.path.join(REPO, "conf",
+                                         "kmeans-example.conf")).as_dict()
+    classes = {("serving", "model-manager-class"):
+               "app.kmeans.serving.KMeansServingModelManager",
+               ("serving", "application-resources"): "serving.clustering",
+               ("batch", "update-class"): "app.kmeans.update.KMeansUpdate",
+               ("speed", "model-manager-class"):
+               "app.kmeans.speed.KMeansSpeedModelManager"}
+    for (layer, key), name in classes.items():
+        assert port["oryx"][layer][key] == f"oryx_tpu_torch.{name}"
+        assert ref["oryx"][layer][key] == f"oryx_tpu.{name}"
+        for tree in (port, ref):
+            del tree["oryx"][layer][key]
+    assert port == ref
+
+
+def test_string_list_getters_match():
+    overlay = {"oryx.input-schema.feature-names": ["a", 1],
+               "oryx.input-schema.numeric-features": "a"}
+    t = tconfig.from_dict(overlay)
+    j = jconfig.from_dict(overlay)
+    for path in ("oryx.input-schema.feature-names",
+                 "oryx.input-schema.id-features"):
+        assert t.get_string_list(path) == j.get_string_list(path)
+    for path in ("oryx.input-schema.numeric-features",
+                 "oryx.input-schema.categorical-features",
+                 "oryx.input-schema.feature-names", "oryx.no.such.list"):
+        assert t.get_optional_string_list(path) == \
+            j.get_optional_string_list(path)
+    with pytest.raises(TypeError):
+        t.get_string_list("oryx.input-schema.num-features")
+
+
 def test_typed_getters_match():
     t, j = tconfig.get_default(), jconfig.get_default()
     for path in ("oryx.serving.api.port", "oryx.serving.api.max-batch"):

@@ -1,6 +1,7 @@
 """oryx_tpu_torch stands alone: it imports, serves, trains and folds a
-speed micro-batch with JAX, ml_dtypes and the reference package blocked,
-and its entry points refuse to fall back to the CPU silently."""
+speed micro-batch, trains and evaluates k-means, and builds an IVF index
+and measures its recall with JAX, ml_dtypes and the reference package
+blocked, and its entry points refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -85,6 +86,31 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
                              broker.latest_offsets("OryxUpdate"))
     assert any(json.loads(km.message)[:2] == ["X", "newbie"] for km in ups)
     speed.close()
+
+    # k-means: train (both initializations) and evaluate
+    from oryx_tpu_torch.app.kmeans.evaluation import evaluate
+    from oryx_tpu_torch.app.kmeans.trainer import train_kmeans
+    pts = np.concatenate([c + 0.3 * rng.standard_normal((50, 2))
+                          for c in ([0, 0], [6, 0], [0, 6])]).astype(
+                              np.float32)
+    for init in ("random", "k-means||"):
+        clusters = train_kmeans(pts, 3, 5, seed=1, initialization=init,
+                                device="cpu")
+        assert sum(c.count for c in clusters) == len(pts)
+        assert evaluate("SILHOUETTE", clusters, pts, device="cpu") > 0.5
+
+    # the IVF index: train, build the mirror, measure recall
+    from oryx_tpu_torch.app.als import ivf
+    cfg = ivf.AnnConfig(enabled=True, cells=4, nprobe=4, min_recall=0.9,
+                        recall_at=10, recall_queries=8, train_sample=600,
+                        train_iterations=3)
+    yv, ya, _ids = model.Y.host_arrays()
+    state = ivf.AnnState(cfg, ivf.train_generation_centroids(
+        yv[ya], cfg, device="cpu"))
+    model.attach_ann(state)
+    vecs, active, version = model.Y.device_arrays_versioned()
+    mirror = model._cached_ivf(vecs, active, version)
+    assert ivf.measure_recall(model, mirror, cfg) > 0.9
     leaked = sorted(m for m in sys.modules
                     if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

@@ -237,7 +237,8 @@ def test_feature_count_change_makes_a_new_model(tmp_path):
 
 
 def test_unsupported_settings_are_refused():
-    for key, val in (("oryx.als.ann.enabled", True),
+    # the IVF index is supported now; an invalid ANN setting is refused
+    for key, val in (("oryx.als.ann.nprobe", 0),
                      ("oryx.serving.api.item-shards", 2),
                      ("oryx.als.rescorer-provider-class", "x.Y"),
                      ("oryx.serving.api.int8-selection", "maybe")):

@@ -187,6 +187,39 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       read back from the input topic; one speed micro-batch whose UP
       records must equal float64 moving averages, then held by the
       serving layer (``kmeans_loop`` line).
+7. The random decision forest app:
+   a. The forest trainer on the card at the reference bench's shape
+      (bench/apps.py:103-165): 1,000,000 x 20 uniform predictors, label
+      x0 + 0.5 x1 - 0.25 x2 > 0, a tenth held out, 20 trees, depth 10, 32
+      bins, gini.  A cold build (seed 6) whose first three levels'
+      histograms and slot counts must equal a CPU integer recount of the
+      same slots and bootstrap weights, and each level's advance a NumPy
+      walk of the same split tables; a warm build (seed 7) timed by the
+      reference's stages.  Held-out accuracy on 50,000 sampled rows,
+      scored by ``ForestArrays`` on the card, must reach 0.9 for both;
+      ``predict_proba`` on 2,000 of them must equal the host walk
+      (``DecisionForest.predict``) within 1e-6 with the same argmax (off
+      a tie within 2e-6).  A regression forest at 100,000 x 20 (variance,
+      target x0 + 0.5 x1 - 0.25 x2 plus 0.1 standard normal noise): its
+      first level's histograms within 1e-5 of a float64 NumPy count
+      (relative to each bin's absolute sum), its held-out RMSE below half
+      the target's standard deviation.  An ``rdf`` line gives the cold and
+      warm seconds, the warm stages, examples x trees per second, the
+      peak card memory, the accuracies and the RMSE.
+   b. The RDF lambda loop from ``oryx_tpu_torch/conf/rdf-example.conf``
+      on a ``file://`` broker at the conf's settings: 100,000
+      covtype-shaped lines (elevation and slope numeric, 40 soils, 7
+      cover classes set by elevation band and soil, 5 % label noise), one
+      ``BatchLayer`` generation publishing the PMML, ``ServingLayer`` and
+      ``SpeedLayer`` loading it; ``/predict`` GET (the host walk) and POST
+      (the forest walk on the card) over 1,000 rows against the host walk
+      of the PMML read back, off ties; ``/classificationDistribution``
+      and ``/feature/importance`` against the host forest; ``/train``
+      lines read back from the input topic; one speed micro-batch whose
+      UP records must equal a recount of the host walk (per tree, per
+      terminal node, class counts), then held by the serving layer:
+      ``/classificationDistribution`` must move by those counts
+      (``rdf_loop`` line).
 
 With ``--trace DIR`` the fold-in round of phase 4 runs once more, after
 the timed one, under ``torch.profiler``: its operator tables and Chrome
@@ -336,6 +369,31 @@ KM_RTOL = 1e-4
 KLOOP_POINTS = 100_000
 KLOOP_PROBES = 64
 KLOOP_SEED = SEED + 13
+# phase 7a: the forest trainer at the reference bench's shape
+# (bench/apps.py:103-165, BENCH_RDF_r05.json): 1M x 20 uniform predictors,
+# a tenth held out, 20 trees, depth 10, 32 bins, gini; the accuracy gate
+# on a 50,000-row sample of the held-out tenth
+RDF_EXAMPLES, RDF_PREDICTORS = 1_000_000, 20
+RDF_TREES, RDF_DEPTH, RDF_BINS = 20, 10, 32
+RDF_SEED = 6
+RDF_SAMPLE = 50_000
+RDF_MIN_ACCURACY = 0.9
+RDF_CHECK_LEVELS = 3
+RDF_PROBA_ROWS = 2_000
+RDF_PROBA_TOL = 1e-6
+RDF_REG_EXAMPLES = 100_000
+RDF_REG_RTOL = 1e-5
+# phase 7b: the RDF lambda loop from oryx_tpu_torch/conf/rdf-example.conf
+# at its own settings (20 trees; reference.conf's depth 8, 100 split
+# candidates, entropy) over covtype-shaped lines
+RLOOP_LINES = 100_000
+RLOOP_SOILS = 40
+RLOOP_NOISE = 0.05
+RLOOP_PROBES = 1_000
+RLOOP_POSTS = 8
+RLOOP_DIST_PROBES = 32
+RLOOP_TRAIN = 256
+RLOOP_SEED = SEED + 14
 # (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s,
 # int8 dense tensor-core OP/s), NVIDIA's data sheets for the SXM parts
 PEAKS = {"H200": (4.8e12, 67e12, 989e12, 1979e12),
@@ -3302,6 +3360,533 @@ def kmeans_loop(work_dir: str) -> dict:
     return line
 
 
+# -- phase 7: the random decision forest app ---------------------------------
+
+@contextlib.contextmanager
+def patched(mod, **fns):
+    """Set the named attributes of ``mod`` for the block."""
+    saved = {name: getattr(mod, name) for name in fns}
+    try:
+        for name, fn in fns.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def rdf_bench_data(n: int, seed: int, regression: bool):
+    """bench/apps.py:103-119's draw: uniform predictors in [-1, 1), the
+    label x0 + 0.5 x1 - 0.25 x2 > 0 (or that sum plus 0.1 standard
+    normal noise for regression), the first tenth held out."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n, RDF_PREDICTORS)).astype(np.float32)
+    s = x[:, 0] + 0.5 * x[:, 1] - 0.25 * x[:, 2]
+    y = (s + 0.1 * rng.standard_normal(n)).astype(np.float32) \
+        if regression else (s > 0).astype(np.int32)
+    n_test = n // 10
+    return x[n_test:], y[n_test:], x[:n_test], y[:n_test], rng
+
+
+def rdf_schema(regression: bool):
+    from oryx_tpu_torch.app.schema import InputSchema
+    from oryx_tpu_torch.common.config import from_dict
+    names = [f"f{i}" for i in range(RDF_PREDICTORS)] + ["label"]
+    return InputSchema(from_dict({
+        "oryx.input-schema.feature-names": names,
+        "oryx.input-schema.numeric-features":
+            names if regression else names[:-1],
+        "oryx.input-schema.target-feature": "label"}))
+
+
+def rdf_level_checks(trainer, y: np.ndarray, num_classes: int,
+                     hist_levels: int, stats: dict):
+    """Wrappers of the trainer's level functions that check, as the build
+    runs (their seconds in ``stats["check_s"]``): the first
+    ``hist_levels`` levels' histograms against a float64 NumPy count of
+    the same slots and weights (exact for classification, whose sums are
+    integers) and slot counts against an integer recount; every level's
+    advance against a NumPy walk of the same split tables."""
+    import torch
+    state = {"w": None, "binned": None, "binned_t": None, "levels": 0}
+    real_boot, real_bin = trainer._bootstrap_weights, trainer._bin_features
+    real_hist, real_counts = trainer._histograms, trainer._slot_counts
+    real_advance = trainer._advance
+
+    def boot(*args):
+        w = real_boot(*args)
+        state["w"] = w.cpu().numpy().astype(np.float64)
+        return w
+
+    def bin_features(*args):
+        out = real_bin(*args)
+        state["binned"] = out[0]
+        state["binned_t"] = np.ascontiguousarray(out[0].T)
+        return out
+
+    def hist(binned, ychan, w, slot_of, num_slots, num_bins, exact_lowp):
+        out = real_hist(binned, ychan, w, slot_of, num_slots, num_bins,
+                        exact_lowp)
+        level = state["levels"]
+        if level >= hist_levels or binned.shape[1] != RDF_PREDICTORS:
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = out.cpu().numpy().astype(np.float64)
+        slots = slot_of.cpu().numpy()
+        bins = state["binned"]
+        worst = 0.0
+        for t in range(slots.shape[0]):
+            alive = slots[t] >= 0
+            wa = state["w"][t][alive]
+            if num_classes:
+                # an integer recount: each example counted w times
+                rows = np.repeat(np.flatnonzero(alive), wa.astype(np.int64))
+                base = (slots[t][rows] * num_classes + y[rows]) * num_bins
+                for p in range(RDF_PREDICTORS):
+                    want = np.bincount(base + state["binned_t"][p][rows],
+                                       minlength=num_slots * num_classes
+                                       * num_bins)
+                    check(np.array_equal(
+                        got[t, :, p].transpose(0, 2, 1).ravel(), want),
+                        f"rdf: level {level} tree {t} predictor {p} "
+                        f"histogram differs from the integer recount")
+                continue
+            base = slots[t][alive] * num_bins
+            ya = y[alive].astype(np.float64)
+            for c, chan in enumerate((np.ones_like(ya), ya, ya * ya)):
+                for p in range(RDF_PREDICTORS):
+                    key = base + bins[alive, p]
+                    size = num_slots * num_bins
+                    want = np.bincount(key, wa * chan, size)
+                    scale = np.bincount(key, np.abs(wa * chan), size)
+                    err = np.abs(got[t, :, p, :, c].ravel() - want) / \
+                        np.maximum(scale, 1e-30)
+                    worst = max(worst, float(err.max()))
+        if not num_classes:
+            check(worst <= RDF_REG_RTOL, f"rdf: regression level {level} "
+                  f"histogram is {worst} from float64 (of its absolute sum)")
+            stats["hist_rel_err"] = max(stats.get("hist_rel_err", 0.0),
+                                        worst)
+        stats["hist_levels_checked"] = level + 1
+        stats["check_s"] += time.perf_counter() - t0
+        return out
+
+    def slot_counts(slot_of, num_slots):
+        out = real_counts(slot_of, num_slots)
+        level = state["levels"]
+        state["levels"] += 1
+        if level >= hist_levels:
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slots = slot_of.cpu().numpy()
+        got = out.cpu().numpy()
+        for t in range(slots.shape[0]):
+            want = np.bincount(slots[t][slots[t] >= 0], minlength=num_slots)
+            check(np.array_equal(got[t].astype(np.int64), want),
+                  f"rdf: level {level} tree {t} slot counts differ")
+        stats["check_s"] += time.perf_counter() - t0
+        return out
+
+    def advance(slot_of, binned_t, split, best_p, best_b, is_cat_slot,
+                right_mask, child_slots):
+        out = real_advance(slot_of, binned_t, split, best_p, best_b,
+                           is_cat_slot, right_mask, child_slots)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slots, got = slot_of.cpu().numpy(), out.cpu().numpy()
+        sp, bp, bb, ic, rm, ch = (a.cpu().numpy() for a in (
+            split, best_p, best_b, is_cat_slot, right_mask, child_slots))
+        bins = state["binned"]
+        for t in range(slots.shape[0]):
+            s = slots[t]
+            alive = s >= 0
+            sa = np.where(alive, s, 0)
+            v = bins[np.arange(len(s)), bp[t][sa]]
+            right = np.where(ic[t][sa], rm[t][sa, v], v > bb[t][sa])
+            want = np.where(alive & sp[t][sa],
+                            ch[t][sa, right.astype(np.int64)], -1)
+            check(np.array_equal(got[t], want),
+                  f"rdf: the advance of tree {t} differs from a NumPy walk")
+        stats["advances_checked"] = stats.get("advances_checked", 0) + 1
+        stats["check_s"] += time.perf_counter() - t0
+        return out
+
+    return dict(_bootstrap_weights=boot, _bin_features=bin_features,
+                _histograms=hist, _slot_counts=slot_counts, _advance=advance)
+
+
+def rdf_at_scale() -> dict:
+    """Phase 7a: the forest trainer on the card at the reference bench's
+    shape (cold build checked level by level, warm build timed by
+    stage), the held-out accuracy gate, the forest walk against the host
+    walk, and a regression forest; the ``rdf`` line."""
+    import torch
+    from oryx_tpu_torch.app.classreg import Example
+    from oryx_tpu_torch.app.rdf import trainer
+    from oryx_tpu_torch.app.rdf.forest_arrays import ForestArrays
+    t0 = time.perf_counter()
+    x, y, x_test, y_test, rng = rdf_bench_data(RDF_EXAMPLES, RDF_SEED, False)
+    data_s = time.perf_counter() - t0
+    schema = rdf_schema(False)
+    args = (schema, {}, RDF_TREES, RDF_DEPTH, RDF_BINS, "gini")
+    n_train = len(x)
+    # cold: the first build of the process, its levels checked
+    stats = {"check_s": 0.0}
+    with patched(trainer, **rdf_level_checks(trainer, y, 2, RDF_CHECK_LEVELS,
+                                             stats)):
+        t0 = time.perf_counter()
+        cold = trainer.train_forest(x, y, *args, seed=RDF_SEED,
+                                    num_classes=2, device=DEVICE)
+        cold_s = time.perf_counter() - t0
+    check(stats.get("hist_levels_checked") == RDF_CHECK_LEVELS
+          and stats.get("advances_checked", 0) == RDF_DEPTH,
+          f"rdf: the checked build checked {stats}")
+    # warm: the production steady state (the batch layer retrains every
+    # generation), timed by stage
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    t0 = time.perf_counter()
+    warm = trainer.train_forest(x, y, *args, seed=RDF_SEED + 1,
+                                num_classes=2, timings=timings,
+                                device=DEVICE)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # held-out accuracy on a sample, scored on the card
+    sample = rng.choice(len(x_test), RDF_SAMPLE, replace=False)
+    full = np.full((RDF_SAMPLE, schema.num_features), np.nan, np.float32)
+    full[:, :RDF_PREDICTORS] = x_test[sample]
+    accuracy = {}
+    for label, forest in (("cold", cold), ("warm", warm)):
+        arrays = ForestArrays(forest, schema.num_features, 2, device=DEVICE)
+        t0 = time.perf_counter()
+        probs = arrays.predict_proba(full)
+        predict_s = time.perf_counter() - t0
+        accuracy[label] = float((probs.argmax(1) == y_test[sample]).mean())
+        check(accuracy[label] >= RDF_MIN_ACCURACY,
+              f"rdf: {label} held-out accuracy {accuracy[label]} < "
+              f"{RDF_MIN_ACCURACY}")
+    # the forest walk on the card against the host walk
+    rows = full[:RDF_PROBA_ROWS]
+    probs = probs[:RDF_PROBA_ROWS]
+    host = np.stack([warm.predict(Example(
+        None, [float(v) for v in row[:RDF_PREDICTORS]] + [None])
+    ).category_probabilities for row in rows])
+    proba_err = float(np.abs(probs - host).max())
+    check(proba_err <= RDF_PROBA_TOL, f"rdf: predict_proba is {proba_err} "
+          f"from the host walk")
+    top2 = np.sort(host, axis=1)[:, -2:]
+    near_tie = top2[:, 1] - top2[:, 0] <= 2 * RDF_PROBA_TOL
+    check(np.all((probs.argmax(1) == host.argmax(1)) | near_tie),
+          "rdf: the forest walk's argmax differs from the host walk's")
+    # regression: the float32 histogram path
+    xr, yr, xr_test, yr_test, _ = rdf_bench_data(RDF_REG_EXAMPLES,
+                                                 RDF_SEED + 2, True)
+    reg_stats = {"check_s": 0.0}
+    with patched(trainer, **rdf_level_checks(trainer, yr, 0, 1, reg_stats)):
+        t0 = time.perf_counter()
+        reg = trainer.train_forest(
+            xr, yr, rdf_schema(True), {}, RDF_TREES, RDF_DEPTH, RDF_BINS,
+            "variance", seed=RDF_SEED + 2, device=DEVICE)
+        reg_s = time.perf_counter() - t0
+    full = np.full((len(xr_test), RDF_PREDICTORS + 1), np.nan, np.float32)
+    full[:, :RDF_PREDICTORS] = xr_test
+    pred = ForestArrays(reg, RDF_PREDICTORS + 1, 0,
+                        device=DEVICE).predict_value(full)
+    rmse = float(np.sqrt(np.mean((pred - yr_test) ** 2)))
+    check(rmse < 0.5 * float(yr_test.std()), f"rdf: regression RMSE {rmse} "
+          f"not below half the target's standard deviation {yr_test.std()}")
+    line = {"phase": "rdf", "examples": n_train, "predictors": RDF_PREDICTORS,
+            "trees": RDF_TREES, "max_depth": RDF_DEPTH, "bins": RDF_BINS,
+            "data_s": data_s, "cold_s": cold_s,
+            "cold_check_s": stats["check_s"],
+            "cold_build_s": cold_s - stats["check_s"], "warm_s": warm_s,
+            "warm_stages_s": timings,
+            "warm_examples_x_trees_per_s": n_train * RDF_TREES / warm_s,
+            "peak_bytes": peak, "accuracy": accuracy,
+            "quality_gate": f"accuracy >= {RDF_MIN_ACCURACY}",
+            "predict_proba_s": predict_s, "predict_rows": RDF_SAMPLE,
+            "proba_max_abs_err": proba_err,
+            "proba_near_ties": int(near_tie.sum()),
+            "hist_levels_checked": RDF_CHECK_LEVELS,
+            "advances_checked": stats["advances_checked"],
+            "regression": {"examples": len(xr), "build_s": reg_s,
+                           "check_s": reg_stats["check_s"], "rmse": rmse,
+                           "target_std": float(yr_test.std()),
+                           "hist_rel_err": reg_stats["hist_rel_err"]}}
+    log(line)
+    return line
+
+
+def rdf_loop_config(work_dir: str):
+    """Phase 7b's config: the port's RDF example config on a file://
+    broker and directories under ``work_dir``."""
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    loop = os.path.join(work_dir, "rloop")
+    broker = "file://" + os.path.join(loop, "broker")
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "oryx_tpu_torch", "conf", "rdf-example.conf")
+    return overlay_on({
+        "oryx.input-topic.broker": broker,
+        "oryx.update-topic.broker": broker,
+        "oryx.batch.storage.data-dir": os.path.join(loop, "data"),
+        "oryx.batch.storage.model-dir": os.path.join(loop, "model"),
+        # the run drives the micro-batch itself
+        "oryx.speed.streaming.generation-interval-sec": 3600,
+    }, from_file(conf))
+
+
+def covtype_lines(rng, n: int, labeled: bool = True) -> list[str]:
+    """Covtype-shaped lines of rdf-example.conf's schema: elevation
+    (metres) and slope (degrees) numeric, ``soil`` one of 40 values,
+    ``cover`` one of 7 classes set by the elevation band and the soil's
+    group, 5 % of labels replaced at random; empty cover when not
+    ``labeled``."""
+    elevation = rng.integers(1850, 3850, n)
+    slope = rng.integers(0, 61, n)
+    soil = rng.integers(0, RLOOP_SOILS, n)
+    band = (elevation - 1850) * 7 // 2000
+    cover = (band + (soil % 4 == 0) + (slope > 45)) % 7
+    noisy = rng.random(n) < RLOOP_NOISE
+    cover = np.where(noisy, rng.integers(0, 7, n), cover)
+    return [f"{e},{s},soil{k},{f'c{c + 1}' if labeled else ''}"
+            for e, s, k, c in zip(elevation, slope, soil, cover)]
+
+
+def rdf_loop(work_dir: str) -> dict:
+    """Phase 7b: the RDF lambda loop through the port's three layers from
+    oryx_tpu_torch/conf/rdf-example.conf; the ``rdf_loop`` line."""
+    from oryx_tpu_torch.app import pmml_utils
+    from oryx_tpu_torch.app.classreg import example_from_tokens
+    from oryx_tpu_torch.app.rdf import pmml as rdf_pmml
+    from oryx_tpu_torch.app.rdf import update as rdf_update
+    from oryx_tpu_torch.kafka import utils as kafka_utils
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer, \
+        resolve_broker
+    from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+    from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
+
+    label = "rdf_loop"
+    cfg = rdf_loop_config(work_dir)
+    broker_uri = cfg.get_string("oryx.input-topic.broker")
+    broker = resolve_broker(broker_uri)
+    in_topic = cfg.get_string("oryx.input-topic.message.topic")
+    up_topic = cfg.get_string("oryx.update-topic.message.topic")
+    rng = np.random.default_rng(RLOOP_SEED)
+    kafka_utils.maybe_create_topic(
+        broker_uri, in_topic,
+        partitions=kafka_utils.input_topic_partitions(cfg))
+    InProcTopicProducer(broker_uri, in_topic).send_many(
+        [(None, line, None) for line in covtype_lines(rng, RLOOP_LINES)])
+
+    batch = BatchLayer(cfg, device=DEVICE)
+    cls = rdf_update.RDFUpdate
+    with timed_calls({"parse_s": (cls, "_parse"),
+                      "encodings_s": (cls, "_encodings_from"),
+                      "matrices_s": (cls, "_to_matrices"),
+                      "train_s": (rdf_update, "train_forest"),
+                      "pmml_s": (rdf_update.rdf_pmml, "forest_to_pmml"),
+                      "evaluate_s": (cls, "evaluate")}) as stages:
+        t0 = time.perf_counter()
+        batch.run_one_generation()
+        generation_s = time.perf_counter() - t0
+    stages = {k: v for k, v in stages.items() if not k.endswith("_calls")}
+    stages["other_s"] = generation_s - sum(stages.values())
+    check(broker.get_offsets(batch._group, in_topic)
+          == broker.latest_offsets(in_topic),
+          f"{label}: the generation did not commit its offsets")
+    ends = broker.latest_offsets(up_topic)
+    published = broker.read_ranges(up_topic, [0] * len(ends), ends)
+    check(len(published) == 1 and published[0].key in ("MODEL", "MODEL-REF"),
+          f"{label}: the generation published {[m.key for m in published]}")
+    doc = pmml_utils.read_pmml_from_update_key_message(
+        published[0].key, published[0].message)
+    forest, encodings = rdf_pmml.read_forest(doc)
+    check(len(forest.trees) == cfg.get_int("oryx.rdf.num-trees"),
+          f"{label}: {len(forest.trees)} trees")
+    depth = max(len(n.id) - 1 for t in forest.trees for n in t.nodes())
+    check(depth <= cfg.get_int("oryx.rdf.hyperparams.max-depth"),
+          f"{label}: a tree of depth {depth}")
+    schema = batch.update_instance.input_schema
+    target = schema.target_feature_index
+
+    def host_walk(tokens):
+        return forest.predict(example_from_tokens(tokens, schema, encodings))
+
+    serving = ServingLayer(cfg, port=0, device=DEVICE)
+    speed = SpeedLayer(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    serving.start()
+    speed.start()
+    try:
+        smgr, pmgr = serving.model_manager, speed.model_manager
+        wait_for(lambda: http_call(serving.port, "GET", "/ready")[0] == 204,
+                 f"{label}: /ready", LOOP_WAIT_S)
+        serving_load_s = time.perf_counter() - t0
+        wait_for(lambda: pmgr.model is not None, f"{label}: the speed load",
+                 LOOP_WAIT_S)
+        speed_load_s = time.perf_counter() - t0
+
+        # /predict: GET (the host walk) and POST (the forest walk on the
+        # card) against the host walk of the PMML read back
+        probes = covtype_lines(rng, RLOOP_PROBES, labeled=False)
+        want, ties = [], []
+        for line in probes:
+            probs = host_walk(line.split(",")).category_probabilities
+            top2 = np.sort(probs)[-2:]
+            ties.append(top2[1] - top2[0] <= 1e-6)
+            want.append(encodings.decode(target, int(np.argmax(probs))))
+        get_ms = []
+        for line, w, tie in zip(probes, want, ties):
+            status, body, ms = http_call(serving.port, "GET",
+                                         f"/predict/{line}")
+            get_ms.append(ms)
+            check(status == 200 and (json.loads(body) == w or tie),
+                  f"{label}: /predict/{line} answered {status} {body!r}, "
+                  f"the host walk {w}")
+        post_ms, got = [], None
+        for _ in range(RLOOP_POSTS):
+            status, body, ms = http_call(serving.port, "POST", "/predict",
+                                         "\n".join(probes).encode())
+            check(status == 200, f"{label}: POST /predict answered {status}")
+            post_ms.append(ms)
+            got = json.loads(body)
+        check(len(got) == len(want) and all(
+            g == w or tie for g, w, tie in zip(got, want, ties)),
+            f"{label}: POST /predict differs from the host walk off a tie")
+
+        # /classificationDistribution and /feature/importance
+        def distribution(line):
+            status, body, _ = http_call(serving.port, "GET",
+                                        f"/classificationDistribution/{line}")
+            check(status == 200, f"{label}: /classificationDistribution/"
+                  f"{line} answered {status}")
+            return {d["id"]: d["value"] for d in json.loads(body)}
+
+        def host_distribution(line):
+            probs = host_walk(line.split(",")).category_probabilities
+            return {encodings.decode(target, i): float(p)
+                    for i, p in enumerate(probs)}
+
+        dist_probes = probes[:RLOOP_DIST_PROBES]
+        before = {line: distribution(line) for line in dist_probes}
+        for line in dist_probes:
+            check(before[line] == host_distribution(line),
+                  f"{label}: /classificationDistribution/{line} differs "
+                  f"from the host forest")
+        status, body, _ = http_call(serving.port, "GET", "/feature/importance")
+        imps = [float(forest.feature_importances[
+            schema.predictor_to_feature_index(p)])
+            for p in range(schema.num_predictors)]
+        check(status == 200 and json.loads(body) == imps,
+              f"{label}: /feature/importance {body!r}, the host's {imps}")
+        for p in range(schema.num_predictors):
+            status, body, _ = http_call(serving.port, "GET",
+                                        f"/feature/importance/{p}")
+            check(status == 200 and json.loads(body) == imps[p],
+                  f"{label}: /feature/importance/{p} {body!r}")
+
+        # /train onto the input topic, then one speed micro-batch
+        broker.set_offsets(speed._group, in_topic,
+                           broker.latest_offsets(in_topic))
+        in_before = broker.latest_offsets(in_topic)
+        train = covtype_lines(rng, RLOOP_TRAIN)
+        t0 = time.perf_counter()
+        for line in train[:8]:
+            check(http_call(serving.port, "POST", f"/train/{line}",
+                            b"")[0] == 204, f"{label}: /train/{line}")
+        check(http_call(serving.port, "POST", "/train",
+                        "\n".join(train[8:]).encode())[0] == 204,
+              f"{label}: POST /train")
+        t_last_train = time.perf_counter()
+        train_s = t_last_train - t0
+        new = broker.read_ranges(in_topic, in_before,
+                                 broker.latest_offsets(in_topic))
+        check(sorted(m.message for m in new) == sorted(train),
+              f"{label}: {len(new)} input records for {len(train)} trained")
+        up_before = broker.latest_offsets(up_topic)
+        t0 = time.perf_counter()
+        speed.run_one_micro_batch()
+        micro_batch_s = time.perf_counter() - t0
+        ups = [json.loads(m.message) for m in broker.read_ranges(
+            up_topic, up_before, broker.latest_offsets(up_topic))]
+        # the NumPy recount of the host walk: per tree, per terminal node,
+        # the class counts of the micro-batch's examples
+        expect: dict = {}
+        for line in (m.message for m in new):
+            ex = example_from_tokens(line.split(","), schema, encodings)
+            if ex.target is None:
+                continue
+            for t, tree in enumerate(forest.trees):
+                counts = expect.setdefault(
+                    (t, tree.find_terminal(ex).id),
+                    np.zeros(encodings.get_value_count(target), np.int64))
+                counts[int(ex.target)] += 1
+        got_ups = {(u[0], u[1]): u[2] for u in ups}
+        check(len(got_ups) == len(ups) == len(expect) and all(
+            {str(i): int(c) for i, c in enumerate(expect[key]) if c}
+            == got_ups.get(key) for key in expect),
+            f"{label}: {len(ups)} UP records differ from the recount of the "
+            f"host walk ({len(expect)} nodes)")
+        # the serving layer then holds them: apply them to the host forest
+        for (t, node_id), counts in got_ups.items():
+            leaf = forest.trees[t].find_by_id(node_id)
+            for enc, c in counts.items():
+                leaf.prediction.update(int(enc), int(c))
+
+        def applied():
+            trees = smgr.get_model().forest.trees
+            return all(trees[t].find_by_id(node_id).prediction.count
+                       == forest.trees[t].find_by_id(node_id).prediction.count
+                       for t, node_id in got_ups)
+
+        wait_for(applied, f"{label}: serving to apply the UPs", LOOP_WAIT_S)
+        applied_ms = (time.perf_counter() - t_last_train) * 1e3
+        moved_probes = 0
+        for line in dist_probes:
+            after = distribution(line)
+            check(after == host_distribution(line),
+                  f"{label}: /classificationDistribution/{line} after the "
+                  f"UPs differs from the updated host forest")
+            moved_probes += after != before[line]
+        check(moved_probes > 0, f"{label}: no /classificationDistribution "
+              f"probe moved with the UPs")
+        status, body, _ = http_call(serving.port, "POST", "/predict",
+                                    "\n".join(dist_probes).encode())
+        check(status == 200, f"{label}: POST /predict after the UPs")
+        for line, g in zip(dist_probes, json.loads(body)):
+            probs = host_walk(line.split(",")).category_probabilities
+            top2 = np.sort(probs)[-2:]
+            w = encodings.decode(target, int(np.argmax(probs)))
+            check(g == w or top2[1] - top2[0] <= 1e-6,
+                  f"{label}: POST /predict after the UPs: {g}, host {w}")
+        moved = sum(int(c.sum()) for c in expect.values())
+    finally:
+        speed.close()
+        serving.close()
+    check(not serving.consuming and not speed.consuming,
+          f"{label}: a consumer outlived close()")
+    line = {"phase": "rdf_loop", "lines": RLOOP_LINES,
+            "trees": len(forest.trees), "max_depth": depth,
+            "nodes": sum(len(list(t.nodes())) for t in forest.trees),
+            "published": published[0].key, "generation_s": generation_s,
+            "generation_stages_s": stages, "serving_load_s": serving_load_s,
+            "speed_load_s": speed_load_s, "predict_checked": len(probes),
+            "predict_get_p50_ms": statistics.median(get_ms),
+            "predict_post_rows": len(probes),
+            "predict_post_p50_ms": statistics.median(post_ms),
+            "near_ties": int(sum(ties)), "trained": len(train),
+            "train_s": train_s, "micro_batch_s": micro_batch_s,
+            "up_records": len(ups), "up_counts": moved,
+            "moved_probes": moved_probes,
+            "train_to_served_ms": applied_ms}
+    log(line)
+    return line
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -3504,6 +4089,13 @@ def run_phases(torch, gpu_name: str, t_start: float, children,
     kmeans_loop(work_dir)
     free()
     ann_topic(ann_publisher, work_dir)
+    free()
+
+    # phase 7: the random decision forest app, its trainer at the bench's
+    # shape and its lambda loop
+    rdf_at_scale()
+    free()
+    rdf_loop(work_dir)
     free()
 
     def head(kernel, **want):

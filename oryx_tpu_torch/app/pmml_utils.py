@@ -3,8 +3,9 @@
 Counterpart of ``oryx_tpu/app/pmml_utils.py`` (reference:
 AppPMMLUtils.java — readPMMLFromUpdateKeyMessage :259: MODEL carries
 inline XML, MODEL-REF a storage path or a manifest envelope naming one;
-buildMiningSchema :131, buildDataDictionary :198 and toArray :116 for
-the numeric features of a clustering model).
+buildMiningSchema :131 with optional per-predictor importances,
+buildDataDictionary :198 with the categorical value lists,
+buildCategoricalValueEncodings :244 and toArray :116).
 """
 
 from __future__ import annotations
@@ -18,22 +19,28 @@ from ..common import text as text_utils
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF
 from ..ml.integrity import ModelIntegrityError
 from ..resilience.faults import fire as _fault
+from .schema import CategoricalValueEncodings, InputSchema
 
 _log = logging.getLogger(__name__)
 
 __all__ = ["read_pmml_from_update_key_message", "ModelIntegrityError",
            "build_mining_schema", "build_data_dictionary",
-           "get_feature_names", "to_pmml_array"]
+           "get_feature_names", "find_target_index",
+           "build_categorical_value_encodings", "to_pmml_array"]
 
 _q = pmml_io._q
 
 
-def build_mining_schema(schema) -> Element:
+def build_mining_schema(schema: InputSchema, importances=None) -> Element:
     """MiningSchema element from an ``InputSchema``: numeric and
     categorical actives get their optypes, id and ignored features are
-    supplementary, the target is predicted."""
+    supplementary, the target is predicted; active fields carry their
+    ``importances`` (one per predictor) when given."""
+    if importances is not None and \
+            len(importances) != schema.num_predictors:
+        raise ValueError("importances must match predictor count")
     ms = ET.Element(_q("MiningSchema"))
-    for name in schema.feature_names:
+    for f, name in enumerate(schema.feature_names):
         attrs = {"name": name}
         if schema.is_numeric(name):
             attrs["optype"] = "continuous"
@@ -45,16 +52,22 @@ def build_mining_schema(schema) -> Element:
             attrs["usageType"] = "supplementary"
         if schema.has_target() and schema.is_target(name):
             attrs["usageType"] = "predicted"
+        if attrs["usageType"] == "active" and importances is not None:
+            attrs["importance"] = text_utils._render(
+                float(importances[schema.feature_to_predictor_index(f)]))
         ET.SubElement(ms, _q("MiningField"), attrs)
     return ms
 
 
-def build_data_dictionary(schema) -> Element:
-    """DataDictionary element of an ``InputSchema`` without categorical
-    value lists (the clustering model takes numeric features only)."""
+def build_data_dictionary(
+        schema: InputSchema,
+        encodings: CategoricalValueEncodings | None = None) -> Element:
+    """DataDictionary element of an ``InputSchema``; categorical fields
+    list their values in encoding order when ``encodings`` has them (the
+    clustering model passes none: it takes numeric features only)."""
     dd = ET.Element(_q("DataDictionary"),
                     {"numberOfFields": str(schema.num_features)})
-    for name in schema.feature_names:
+    for f, name in enumerate(schema.feature_names):
         attrs = {"name": name}
         if schema.is_numeric(name):
             attrs["optype"] = "continuous"
@@ -62,7 +75,12 @@ def build_data_dictionary(schema) -> Element:
         elif schema.is_categorical(name):
             attrs["optype"] = "categorical"
             attrs["dataType"] = "string"
-        ET.SubElement(dd, _q("DataField"), attrs)
+        field = ET.SubElement(dd, _q("DataField"), attrs)
+        if schema.is_categorical(name) and encodings is not None \
+                and f in encodings.get_category_counts():
+            for i in range(encodings.get_value_count(f)):
+                ET.SubElement(field, _q("Value"),
+                              {"value": encodings.decode(f, i)})
     return dd
 
 
@@ -70,6 +88,26 @@ def get_feature_names(parent: Element) -> list[str]:
     """Feature names in order from a MiningSchema or DataDictionary."""
     return [el.get("name") for el in parent
             if el.tag in (_q("MiningField"), _q("DataField"))]
+
+
+def find_target_index(mining_schema: Element) -> int | None:
+    """Index of the predicted field of a MiningSchema, or None."""
+    for i, el in enumerate(mining_schema.findall(_q("MiningField"))):
+        if el.get("usageType") == "predicted":
+            return i
+    return None
+
+
+def build_categorical_value_encodings(
+        data_dictionary: Element) -> CategoricalValueEncodings:
+    """Reverse of ``build_data_dictionary``: per-feature value lists
+    from its DataField/Value elements."""
+    index_to_values: dict[int, list[str]] = {}
+    for f, field in enumerate(data_dictionary.findall(_q("DataField"))):
+        values = [v.get("value") for v in field.findall(_q("Value"))]
+        if values:
+            index_to_values[f] = values
+    return CategoricalValueEncodings(index_to_values)
 
 
 def to_pmml_array(values) -> Element:

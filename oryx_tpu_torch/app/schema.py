@@ -1,20 +1,23 @@
 """Input schema: the configuration's typing of the input features.
 
-Counterpart of ``oryx_tpu/app/schema.py``'s ``InputSchema`` (reference:
+Counterpart of ``oryx_tpu/app/schema.py`` (reference:
 InputSchema.java:37-282 — feature names and count, id and ignored
 features, numeric against categorical, the target, and the
-feature <-> predictor index maps).
+feature <-> predictor index maps; CategoricalValueEncodings.java:32 —
+the category value <-> dense index dictionaries).
 """
 
 from __future__ import annotations
 
+from typing import Iterable, Mapping
+
 from ..common.config import Config
 
-__all__ = ["InputSchema"]
+__all__ = ["InputSchema", "CategoricalValueEncodings"]
 
 
 class InputSchema:
-    """Feature typing for the apps that need a schema (k-means)."""
+    """Feature typing for the apps that need a schema (k-means, RDF)."""
 
     def __init__(self, config: Config):
         given_names = config.get_string_list("oryx.input-schema.feature-names")
@@ -113,6 +116,11 @@ class InputSchema:
     def has_target(self) -> bool:
         return self.target_feature is not None
 
+    def is_classification(self) -> bool:
+        """Whether the target is categorical (reference:
+        InputSchema.isClassification)."""
+        return self.has_target() and self.is_categorical(self.target_feature)
+
     def feature_to_predictor_index(self, feature_index: int) -> int:
         return self._feature_to_predictor[feature_index]
 
@@ -121,3 +129,46 @@ class InputSchema:
 
     def __repr__(self):  # pragma: no cover
         return f"InputSchema[featureNames:{self.feature_names}]"
+
+
+class CategoricalValueEncodings:
+    """Per-feature dictionaries mapping category value <-> dense index
+    (reference: CategoricalValueEncodings.java:32).  Input is a map of
+    feature index to the feature's distinct values, encoded in order."""
+
+    def __init__(self, distinct_values: Mapping[int, Iterable[str]]):
+        self._encodings: dict[int, dict[str, int]] = {}
+        self._decodings: dict[int, dict[int, str]] = {}
+        for feature, values in distinct_values.items():
+            enc: dict[str, int] = {}
+            for v in values:
+                if v not in enc:
+                    enc[v] = len(enc)
+            self._encodings[feature] = enc
+            self._decodings[feature] = {i: v for v, i in enc.items()}
+
+    def get_value_count(self, feature_index: int) -> int:
+        return len(self._encodings[feature_index])
+
+    def get_value_encoding_map(self, feature_index: int) -> dict[str, int]:
+        return dict(self._encodings[feature_index])
+
+    def get_encoding_value_map(self, feature_index: int) -> dict[int, str]:
+        return dict(self._decodings[feature_index])
+
+    def get_category_counts(self) -> dict[int, int]:
+        return {f: len(m) for f, m in self._encodings.items()}
+
+    def encode(self, feature_index: int, value: str) -> int:
+        return self._encodings[feature_index][value]
+
+    def try_encode(self, feature_index: int, value: str) -> int | None:
+        """Encoding, or None for a value (or feature) with no
+        dictionary entry."""
+        return self._encodings.get(feature_index, {}).get(value)
+
+    def decode(self, feature_index: int, encoding: int) -> str:
+        return self._decodings[feature_index][encoding]
+
+    def __repr__(self):  # pragma: no cover
+        return f"CategoricalValueEncodings[{self.get_category_counts()}]"

@@ -8,8 +8,9 @@ hyperplanes.  Row positions carry over exactly, so tied scores come out
 in the same lowest-row-first order on both.  ``clusters_from_reference``
 and ``ann_state_from_reference`` carry a k-means model's clusters and a
 generation's IVF index state (centroids, published cells, recall
-certificate); both read only attributes, so neither imports the
-reference package.
+certificate), and ``forest_from_reference`` a decision forest (node
+ids, decisions, predictions, counts, weights, importances); each reads
+only attributes, so none imports the reference package.
 """
 
 from __future__ import annotations
@@ -20,10 +21,14 @@ import numpy as np
 
 from .app.als.ivf import AnnConfig, AnnState
 from .app.als.serving_model import ALSServingModel
+from .app.classreg import CategoricalPrediction, NumericPrediction
 from .app.kmeans.common import ClusterInfo
+from .app.rdf.tree import (CategoricalDecision, DecisionForest,
+                           DecisionNode, DecisionTree, NumericDecision,
+                           TerminalNode)
 
 __all__ = ["serving_model_from_arrays", "clusters_from_reference",
-           "ann_state_from_reference"]
+           "ann_state_from_reference", "forest_from_reference"]
 
 
 def serving_model_from_arrays(
@@ -81,3 +86,38 @@ def ann_state_from_reference(state) -> AnnState:
     out.recall = None if state.recall is None else float(state.recall)
     out.index_bytes = int(state.index_bytes)
     return out
+
+
+def _node_from_reference(node):
+    if node.is_terminal:
+        pred = node.prediction
+        if hasattr(pred, "category_counts"):
+            prediction = CategoricalPrediction(
+                np.array(pred.category_counts, dtype=np.float64))
+            prediction.count = int(pred.count)
+        else:
+            prediction = NumericPrediction(float(pred.prediction),
+                                           int(pred.count))
+        return TerminalNode(str(node.id), prediction)
+    d = node.decision
+    if hasattr(d, "threshold"):
+        decision = NumericDecision(int(d.feature_number), float(d.threshold),
+                                   bool(d.default_decision))
+    else:
+        decision = CategoricalDecision(
+            int(d.feature_number), sorted(d.active_category_encodings),
+            bool(d.default_decision))
+    return DecisionNode(str(node.id), decision,
+                        _node_from_reference(node.left),
+                        _node_from_reference(node.right), int(node.count))
+
+
+def forest_from_reference(forest) -> DecisionForest:
+    """This package's ``DecisionForest`` from the reference's: the same
+    trees (node ids, decisions with their thresholds, category sets and
+    default branches, leaf predictions and counts, node record counts),
+    tree weights and feature importances."""
+    return DecisionForest(
+        [DecisionTree(_node_from_reference(t.root)) for t in forest.trees],
+        np.array(forest.weights, dtype=np.float64),
+        np.array(forest.feature_importances, dtype=np.float64))

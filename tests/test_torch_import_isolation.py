@@ -1,7 +1,8 @@
 """oryx_tpu_torch stands alone: it imports, serves, trains and folds a
-speed micro-batch, trains and evaluates k-means, and builds an IVF index
-and measures its recall with JAX, ml_dtypes and the reference package
-blocked, and its entry points refuse to fall back to the CPU silently."""
+speed micro-batch, trains and evaluates k-means, builds an IVF index
+and measures its recall, and trains a decision forest and serves
+/predict from it with JAX, ml_dtypes and the reference package blocked,
+and its entry points refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -111,6 +112,51 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     vecs, active, version = model.Y.device_arrays_versioned()
     mirror = model._cached_ivf(vecs, active, version)
     assert ivf.measure_recall(model, mirror, cfg) > 0.9
+
+    # a decision forest: one batch generation, then /predict over HTTP
+    import time
+    import urllib.request
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+    cfg = from_dict({
+        "oryx.input-topic.broker": "memory://iso-rdf",
+        "oryx.input-topic.partitions": 1,
+        "oryx.update-topic.broker": "memory://iso-rdf",
+        "oryx.batch.update-class": "oryx_tpu_torch.app.rdf.update.RDFUpdate",
+        "oryx.serving.model-manager-class":
+            "oryx_tpu_torch.app.rdf.serving.RDFServingModelManager",
+        "oryx.serving.application-resources":
+            "oryx_tpu_torch.serving.classreg",
+        "oryx.batch.storage.data-dir": td + "/rdf-data",
+        "oryx.batch.storage.model-dir": td + "/rdf-model",
+        "oryx.input-schema.feature-names": ["a", "color", "label"],
+        "oryx.input-schema.categorical-features": ["color", "label"],
+        "oryx.input-schema.target-feature": "label",
+        "oryx.rdf.num-trees": 3, "oryx.rdf.hyperparams.max-depth": 3,
+        "oryx.rdf.hyperparams.max-split-candidates": 8,
+        "oryx.ml.eval.test-fraction": 0.0})
+    broker = get_broker("iso-rdf")
+    for j in range(200):
+        a = (j % 17) / 8.0 - 1.0
+        color = ("red", "green", "blue")[j % 3]
+        label = "yes" if a >= 0.1 or color == "blue" else "no"
+        broker.send("OryxInput", None, f"{a},{color},{label}")
+    BatchLayer(cfg, device="cpu").run_one_generation()
+    layer = ServingLayer(cfg, port=0, device="cpu")
+    layer.start()
+    try:
+        answer = None
+        deadline = time.monotonic() + 60
+        while answer is None and time.monotonic() < deadline:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{layer.port}/predict/0.9,red,",
+                        timeout=10) as resp:
+                    answer = json.loads(resp.read())
+            except urllib.error.HTTPError:
+                time.sleep(0.05)
+        assert answer == "yes", answer
+    finally:
+        layer.close()
     leaked = sorted(m for m in sys.modules
                     if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
@@ -135,18 +181,47 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from oryx_tpu_torch.app.als.feature_vectors import FeatureVectorStore
     from oryx_tpu_torch.app.als.lsh import LocalitySensitiveHash
     from oryx_tpu_torch.app.als.serving_model import ALSServingModel
+    from oryx_tpu_torch.app.rdf.forest_arrays import ForestArrays
+    from oryx_tpu_torch.app.rdf.serving import (RDFServingModel,
+                                                RDFServingModelManager)
+    from oryx_tpu_torch.app.rdf.speed import RDFSpeedModelManager
+    from oryx_tpu_torch.app.rdf.trainer import train_forest
+    from oryx_tpu_torch.app.rdf.tree import (DecisionForest, DecisionTree,
+                                             TerminalNode)
+    from oryx_tpu_torch.app.rdf.update import RDFUpdate
+    from oryx_tpu_torch.app.classreg import NumericPrediction
+    from oryx_tpu_torch.app.schema import (CategoricalValueEncodings,
+                                           InputSchema)
+    from oryx_tpu_torch.common.config import from_dict
     from oryx_tpu_torch.convert import serving_model_from_arrays
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arrays = dict(x_ids=["u0"], X=np.zeros((1, 4), np.float32),
                   y_ids=["i0"], Y=np.zeros((1, 4), np.float32),
                   known_items={})
+    cfg = from_dict({"oryx.input-schema.feature-names": ["a", "y"],
+                     "oryx.input-schema.numeric-features": ["a", "y"],
+                     "oryx.input-schema.target-feature": "y"})
+    schema = InputSchema(cfg)
+    forest = DecisionForest([DecisionTree(
+        TerminalNode("r", NumericPrediction(1.0, 1)))])
+    encodings = CategoricalValueEncodings({})
+    x = np.zeros((4, 1), np.float32)
     for call in (lambda: FeatureVectorStore(4),
                  lambda: LocalitySensitiveHash(0.3, 4),
                  lambda: ALSServingModel(4, True),
                  lambda: ALSServingModel(4, True, device="cuda"),
-                 lambda: serving_model_from_arrays(4, True, **arrays)):
+                 lambda: serving_model_from_arrays(4, True, **arrays),
+                 lambda: ForestArrays(forest, 2, 0),
+                 lambda: train_forest(x, np.zeros(4, np.float32), schema,
+                                      {}, 1, 1, 4, "variance"),
+                 lambda: RDFUpdate(cfg),
+                 lambda: RDFSpeedModelManager(cfg),
+                 lambda: RDFServingModelManager(cfg),
+                 lambda: RDFServingModel(forest, encodings, schema)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the explicit CPU request is honoured
     assert ALSServingModel(4, True, device="cpu").device.type == "cpu"
+    assert ForestArrays(forest, 2, 0, device="cpu").predict_value(
+        np.zeros((3, 2), np.float32)).tolist() == [1.0, 1.0, 1.0]

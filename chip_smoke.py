@@ -221,6 +221,31 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       ``/classificationDistribution`` must move by those counts
       (``rdf_loop`` line).
 
+8. The benches and the probe kernels (``bench``):
+   a. ``phase_a_qm`` (the queries as the tensor cores' M side, kernel 6's
+      counterpart) against its plain version (``phase_a_reference``),
+      exact and LSH, at 8, 32, 256 and 300 queries on the probes' head
+      shape (19,996,672 x 128 bf16 rows, buckets 0-127, one differing bit,
+      every 11th row and one whole block retired, the last eighth of each
+      window's queries zero) and at 8 and 300 queries on 1,048,576-row
+      coverage shapes of widths 96 and 256: -inf in the same places, no
+      NaN, finite maxima within rtol 1e-4, zero queries exactly 0.  ``phase_a`` is held the same way at the head shape and
+      at the small-feature probe's two stores (kernels 5, 7 and 8).
+   b. With every count set to 0: the port's ``lsh_mask_probe`` (its gate:
+      the two LSH variants agree) and ``smallf_probe`` at their default
+      shapes, one line per kernel with its time, bound, plain and library
+      times; ``measure_peaks`` and ``measure_dispatch_floor``; one short
+      grid cell through ``bench.grid.bench_config`` (1M x 50 bf16, LSH off
+      and on, short rungs), whose answers for 32 sampled users must equal
+      the same model's top-k with the plain phase-A versions (ids in
+      order, scores within 1e-4).  ``phase_a_qm`` and ``phase_a`` must
+      have launched.
+
+``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
+topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8);
+the default runs every phase.  A partial run still ends with the two
+summary lines, its ``kernels`` line listing only what it ran.
+
 With ``--trace DIR`` the fold-in round of phase 4 runs once more, after
 the timed one, under ``torch.profiler``: its operator tables and Chrome
 trace go under DIR, and a ``trace`` line gives the round's wall time,
@@ -394,10 +419,20 @@ RLOOP_POSTS = 8
 RLOOP_DIST_PROBES = 32
 RLOOP_TRAIN = 256
 RLOOP_SEED = SEED + 14
-# (HBM bytes/s, FP32 CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s,
-# int8 dense tensor-core OP/s), NVIDIA's data sheets for the SXM parts
-PEAKS = {"H200": (4.8e12, 67e12, 989e12, 1979e12),
-         "H100": (3.35e12, 67e12, 989e12, 1979e12)}
+# phase 8: the probes' head shape (docs/bench_diag/lsh_mask_probe.py:123,
+# :127, smallf_probe.py:56, :63), phase_a_qm's windows and coverage shapes, and the
+# short grid cell (grid.py's 50f/1M row, short rungs)
+PROBE_ITEMS_M = 20.0
+QM_WINDOWS = (8, 32, 128, 256, 300)
+QM_COVERAGE_WIDTHS = (96, 256)
+QM_COVERAGE_WINDOWS = (8, 128, 300)
+GRID_ITEMS, GRID_FEATURES = 1_000_000, 50
+GRID_SEED = SEED + 15
+GRID_CHECK_USERS = 32
+GRID_RUNGS = dict(sat_workers=64, measure_sec=2.0, min_sat_requests=1000,
+                  ladder=(1.0,), descent=(0.5,), rung_sec=2.0,
+                  low_requests=20)
+PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -409,6 +444,9 @@ KERNELS = {
                         "oryx_tpu_torch/csrc/phase_a_i8_fold.cu", "i8_fold"),
     "phase_a_i8": (f"{REFERENCE}:804", "oryx_tpu_torch/csrc/phase_a_i8.cu",
                    "i8"),
+    # a probe kernel: no route serves it
+    "phase_a_qm": ("docs/bench_diag/lsh_mask_probe.py:67",
+                   "oryx_tpu_torch/csrc/phase_a_qm.cu", None),
 }
 
 
@@ -449,20 +487,14 @@ def gpu_line() -> str:
     return out[0]
 
 
-def peaks(name: str) -> tuple[float, float, float, float]:
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no data-sheet peaks for {name!r}")
-
-
 def wrappers() -> dict:
     """Phase-A wrapper modules by kernel name; each counts its kernel's
     launches in ``LAUNCHES``."""
     from oryx_tpu_torch.ops import phase_a, phase_a_fold, phase_a_i8
-    from oryx_tpu_torch.ops import phase_a_i8_fold
+    from oryx_tpu_torch.ops import phase_a_i8_fold, phase_a_qm
     return {"phase_a": phase_a, "phase_a_fold": phase_a_fold,
-            "phase_a_i8": phase_a_i8, "phase_a_i8_fold": phase_a_i8_fold}
+            "phase_a_i8": phase_a_i8, "phase_a_i8_fold": phase_a_i8_fold,
+            "phase_a_qm": phase_a_qm}
 
 
 def reset_launches() -> None:
@@ -681,9 +713,10 @@ def phase_a_cases(vecs, live, buckets, hp, mb: int, features: int,
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
     from oryx_tpu_torch.app.als.lsh import _popcount
+    from oryx_tpu_torch.bench.kernel_probe import datasheet
     from oryx_tpu_torch.ops import phase_a as pa
 
-    bw, fp32_rate, bf16_rate, _ = peaks(gpu_name)
+    bw, fp32_rate, bf16_rate, _ = datasheet(gpu_name)
     n, width = vecs.shape
     lsh = buckets is not None
     pen = sm._penalty_kernel(live, pa.BLOCK_ROWS).contiguous()
@@ -850,9 +883,10 @@ def i8_cases(vecs, active, rng, gpu_name, features: int, windows,
     memory and ring depth."""
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
+    from oryx_tpu_torch.bench.kernel_probe import datasheet
     from oryx_tpu_torch.ops import phase_a_i8 as pi8
 
-    bw, _, _, i8_rate = peaks(gpu_name)
+    bw, _, _, i8_rate = datasheet(gpu_name)
     n, width = vecs.shape
     check_quantizer(vecs, f"{n}x{width}")
     y8, _, _ = sm._quantize_items_kernel(vecs, 128)
@@ -899,11 +933,12 @@ def fold_cases(vecs, active, rng, gpu_name, features: int, windows,
     as the built library reports it must be the one ``plan`` gives."""
     import torch
     from oryx_tpu_torch.app.als import serving_model as sm
+    from oryx_tpu_torch.bench.kernel_probe import datasheet
     from oryx_tpu_torch.ops import phase_a_fold as pf
     from oryx_tpu_torch.ops import phase_a_i8 as pi8
     from oryx_tpu_torch.ops import phase_a_i8_fold as pi8f
 
-    bw, fp32_rate, bf16_rate, i8_rate = peaks(gpu_name)
+    bw, fp32_rate, bf16_rate, i8_rate = datasheet(gpu_name)
     n, width = vecs.shape
     fold = sm._fold_eligible(width, features, 128)
     check(fold > 1, f"{label}: {features} features in {width} columns fold")
@@ -1141,34 +1176,10 @@ def same_answers(got, want, rtol: float, what: str) -> None:
 @contextlib.contextmanager
 def static_server(model):
     """The model behind the port's HttpApp + TopNBatcher +
-    StaticModelManager: yields (port, batcher)."""
-    from oryx_tpu_torch.bench.load import StaticModelManager
-    from oryx_tpu_torch.lambda_rt.http import HttpApp, make_server
-    from oryx_tpu_torch.serving import als as als_routes
-    from oryx_tpu_torch.serving import framework
-    from oryx_tpu_torch.serving.batcher import TopNBatcher
-
-    class Manager(StaticModelManager):
-        pass
-
-    Manager.model = model
-    batcher = TopNBatcher()
-    app = HttpApp(framework.ROUTES + als_routes.ROUTES,
-                  context={"model_manager": Manager(),
-                           "input_producer": None, "config": None,
-                           "min_model_load_fraction": 0.0,
-                           "top_n_batcher": batcher},
-                  read_only=True)
-    server = make_server(app, 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        yield server.server_address[1], batcher
-    finally:
-        server.shutdown()
-        server.server_close()
-        batcher.close()
-        thread.join(30)
+    StaticModelManager (``bench.grid.serve``): yields (port, batcher)."""
+    from oryx_tpu_torch.bench.grid import serve
+    with serve(model) as (base, batcher):
+        yield int(base.rsplit(":", 1)[1]), batcher
 
 
 def serve_and_check(model, label: str, route: dict, n_recommend: int,
@@ -1761,69 +1772,14 @@ def write_path_checks(label: str, port: int, broker_dir: str,
     return [route_serve(label, name, t) for name, t in times.items()]
 
 
-def phase_a_program(model, kind: str, Q):
-    """(phase A, phase B, bound epilogue) of one window of the model's
-    kind on its own cached mirrors, as zero-argument callables (the
-    epilogue, the query quantization and ``_i8_bounds``, None for the
-    float kinds); phase B's and the epilogue's input is the first phase-A
-    call's output."""
-    from oryx_tpu_torch.app.als import serving_model as sm
-    mods = wrappers()
-    vecs, active, version = model.Y.device_arrays_versioned()
-    n_rows, width = int(vecs.shape[0]), int(vecs.shape[1])
-    bs = sm._BLOCK_ROWS
-    lsh_on = route_lsh(model)
-    buckets = model._cached_buckets(vecs, version) if lsh_on else None
-    hp = model.lsh._device_hyperplanes() if lsh_on else None
-    mb = model.lsh.max_bits_differing if lsh_on else 0
-    _, fold = model._phase_a_kinds(n_rows, width, bs)
-    ksel = min(sm._BLOCK_KSEL, n_rows // bs)
-    k = sm._pad_k(10)
-    Qc = sm._q_cast(Q, vecs).contiguous()
-    tgt = sm._query_buckets(Q, hp) if lsh_on else None
-    if kind in ("i8", "i8_fold"):
-        q8, sq, l1q = sm._quantize_queries(Qc)
-        ksel = sm._i8_ksel(ksel, n_rows, bs)
-        if kind == "i8":
-            (y8, sy, l1y), pen_i = (model._cached_i8(vecs, version),
-                                    model._cached_penalty_i(active, version))
-            run_a = lambda: mods["phase_a_i8"].phase_a_i8(  # noqa: E731
-                q8, y8, pen_i, buckets, tgt, mb)
-        else:
-            y8f, pen_i_f, bkt_f, sy, l1y = model._cached_i8_fold(
-                vecs, active, buckets, version, fold, bs)
-            y8 = y8f
-            run_a = lambda: mods["phase_a_i8_fold"].phase_a_i8_fold(  # noqa
-                q8, y8f, pen_i_f, bkt_f, tgt, mb, fold)
-        M_int = run_a()
-
-        def run_e():
-            _, sq_, l1q_ = sm._quantize_queries(Qc)
-            return sm._i8_bounds(M_int, sy, l1y, sq_, l1q_, int(y8.shape[1]))
-
-        M = run_e()
-    elif kind == "fold":
-        yf, pen_f, bkt_f = model._cached_fold(vecs, active, buckets, version,
-                                              fold, bs)
-        run_a = lambda: mods["phase_a_fold"].phase_a_fold(  # noqa: E731
-            Qc, yf, pen_f, bkt_f, tgt, mb, fold, features=model.features)
-        M = run_a()
-    else:
-        pen = model._cached_penalty(active, version)
-        run_a = lambda: mods["phase_a"].phase_a(  # noqa: E731
-            Qc, vecs, pen, buckets, tgt, mb)
-        M = run_a()
-    return (run_a, lambda: sm._phase_b(vecs, Qc, active, buckets, tgt, M, k,
-                                       bs, ksel, mb),
-            run_e if kind in ("i8", "i8_fold") else None)
-
-
 def window_times(model, rng, label: str, kind: str) -> list[dict]:
     """One served window at each ladder size: ``top_n_batch`` end to
     end (host clock around a synchronised call), and its phase A
     (kernel), phase B and, for the int8 kinds, the bound epilogue alone
-    (CUDA events) on the same queries."""
+    (CUDA events) on the same queries, each timed as
+    ``bench/kernel_probe.kind_program`` builds it."""
     import torch
+    from oryx_tpu_torch.bench.kernel_probe import kind_program
     out = []
     for b in WINDOWS:
         q = rng.standard_normal((b, model.features), dtype=np.float32)
@@ -1840,8 +1796,8 @@ def window_times(model, rng, label: str, kind: str) -> list[dict]:
             t0 = time.perf_counter()
             served()
             walls.append((time.perf_counter() - t0) * 1e3)
-        run_a, run_b, run_e = phase_a_program(model, kind,
-                                              torch.from_numpy(q).to(DEVICE))
+        run_a, run_b, run_e = kind_program(model, kind,
+                                           torch.from_numpy(q).to(DEVICE))
         row = {"phase": "window", "config": label, "kind": kind, "B": b,
                "top_n_batch_ms": statistics.median(walls),
                "phase_a_ms": time_ms(torch, run_a),
@@ -3887,6 +3843,222 @@ def rdf_loop(work_dir: str) -> dict:
     return line
 
 
+# -- phase 8: the benches and the probe kernels -----------------------------
+
+def held_kernel(kernel: str, label: str, M, R, zero_rows: int,
+                fields: dict) -> float:
+    """Hold a bf16 phase-A kernel's maxima ``M`` against the plain
+    version's ``R`` (``compare``: the -inf pattern, no NaN, rtol 1e-4;
+    the last ``zero_rows`` queries zero) and log the case; the largest
+    absolute error."""
+    import torch
+    info = " ".join(f"{k}={v}" for k, v in {"label": label,
+                                             **fields}.items())
+    err, _ = compare(kernel, info, M, R, False, RTOL["bfloat16"], zero_rows)
+    log({"phase": "kernel_check", "kernel": kernel, "label": label,
+         **fields, "max_abs_err": err,
+         "masked": int((~torch.isfinite(R)).sum())})
+    return err
+
+
+def qm_inputs(rows: int, width: int, batch: int):
+    """The probes' inputs (``lsh_mask_probe.make_inputs``'s draws) at
+    ``rows`` x ``width``, with every 11th row and block 5 retired."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    Y = torch.randn((rows, width), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    Qc = torch.randn((batch, width), generator=gen, device=DEVICE,
+                     dtype=torch.bfloat16)
+    pen = torch.zeros((rows // 128, 128), dtype=torch.float32, device=DEVICE)
+    pen.view(-1)[::11] = float("-inf")
+    pen[5] = float("-inf")
+    bkt = torch.randint(0, 128, (rows,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    tgt = torch.randint(0, 128, (batch,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    return Y, Qc, pen, bkt, tgt
+
+
+def window(Qc, b: int):
+    """The first ``b`` queries, the last eighth zero, as a window padded
+    past its requests is."""
+    q = Qc[:b].clone()
+    q[b - b // 8:] = 0
+    return q
+
+
+def qm_cases(Y, Qc, pen, bkt, tgt, windows, label: str) -> float:
+    """``phase_a_qm`` against its plain version at each window, exact and
+    LSH; the largest absolute error."""
+    from oryx_tpu_torch.bench.diag.lsh_mask_probe import MB
+    from oryx_tpu_torch.ops import phase_a as pa
+    from oryx_tpu_torch.ops import phase_a_qm as qm
+    worst = 0.0
+    for b in windows:
+        plan = qm.plan(Y.shape[1], b)
+        q = window(Qc, b)
+        for lsh in (False, True):
+            args = (bkt, tgt[:b], MB) if lsh else (None, None, 0)
+            M = qm.phase_a_qm(q, Y, pen, *args)
+            R = pa.phase_a_reference(q, Y, pen, *args)
+            worst = max(worst, held_kernel(
+                "phase_a_qm", label, M, R, b // 8,
+                {"rows": Y.shape[0], "width": Y.shape[1], "B": b,
+                 "lsh": lsh, **plan}))
+            del M, R
+    return worst
+
+
+def probe_checks() -> dict:
+    """Phase 8a: the largest error of ``phase_a_qm`` over its windows
+    and coverage shapes, and of ``phase_a`` at the probes' shapes (the
+    LSH and exact bodies of kernels 5 and 7, the small-feature stores of
+    kernel 8)."""
+    import torch
+    from oryx_tpu_torch.bench.diag import lsh_mask_probe, smallf_probe
+    from oryx_tpu_torch.ops import phase_a as pa
+    rows = int(PROBE_ITEMS_M * 1e6) // lsh_mask_probe.T * lsh_mask_probe.T
+    Y, Qc, pen, bkt, tgt = qm_inputs(rows, lsh_mask_probe.W,
+                                     max(QM_WINDOWS))
+    errs = {"phase_a_qm": qm_cases(Y, Qc, pen, bkt, tgt, QM_WINDOWS,
+                                   "probe_head")}
+    q = window(Qc, 256)
+    for lsh, key in ((True, "lsh"), (False, "exact")):
+        args = (bkt, tgt[:256], lsh_mask_probe.MB) if lsh else (None, None, 0)
+        errs[key] = held_kernel(
+            "phase_a", "probe_head", pa.phase_a(q, Y, pen, *args),
+            pa.phase_a_reference(q, Y, pen, *args), 256 // 8,
+            {"rows": rows, "width": lsh_mask_probe.W, "B": 256, "lsh": lsh})
+    del Y, Qc, pen, bkt, tgt
+    free()
+    for width in QM_COVERAGE_WIDTHS:
+        Y, Qc, pen, bkt, tgt = qm_inputs(COVERAGE_ROWS, width,
+                                         max(QM_COVERAGE_WINDOWS))
+        errs["phase_a_qm"] = max(errs["phase_a_qm"], qm_cases(
+            Y, Qc, pen, bkt, tgt, QM_COVERAGE_WINDOWS, "coverage"))
+        del Y, Qc, pen, bkt, tgt
+    free()
+    n = int(PROBE_ITEMS_M * 1e6) // smallf_probe.ROW_ALIGN \
+        * smallf_probe.ROW_ALIGN
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    for f in (50, 250):
+        Y, Q, _, penalty, _ = smallf_probe.make_inputs(n, f, 256, DEVICE, gen)
+        errs[f"F{f}"] = held_kernel(
+            "phase_a", "smallf", smallf_probe.phase_a(Y, Q, penalty),
+            pa.phase_a_reference(Q, Y, penalty), 0,
+            {"rows": n, "width": Y.shape[1], "features": f, "B": 256,
+             "lsh": False})
+        del Y, Q, penalty
+        free()
+    return errs
+
+
+def grid_cell(card_peaks: dict) -> list[dict]:
+    """One short grid cell (``bench.grid.bench_config``) at 1M x 50 bf16,
+    LSH off and on; while each mode's server runs, the answers for 32
+    sampled users must equal the model's top-k with the plain phase-A
+    versions."""
+    from oryx_tpu_torch.bench import grid
+    rng = np.random.default_rng(GRID_SEED)
+    model, users = grid.build_model(GRID_FEATURES, GRID_ITEMS, rng,
+                                    device=DEVICE)
+    checked = []
+
+    def answers(base: str, lsh_on: bool) -> None:
+        port = int(base.rsplit(":", 1)[1])
+        picks = rng.choice(len(users), GRID_CHECK_USERS, replace=False)
+        Q = np.stack([model.get_user_vector(users[j]) for j in picks])
+        want, _ = reference_top_n_batch(model, 10, Q,
+                                        [set()] * GRID_CHECK_USERS)
+        for j, w in zip(picks, want):
+            status, body, _ = http_call(port, "GET",
+                                        f"/recommend/{users[j]}?howMany=10")
+            check(status == 200, f"grid cell: /recommend/{users[j]} gave "
+                  f"{status}")
+            got = [(d["id"], d["value"]) for d in json.loads(body)]
+            same_answers(got, w, RTOL["bfloat16"],
+                         f"grid cell lsh={lsh_on} /recommend/{users[j]}")
+        checked.append(lsh_on)
+
+    rows = grid.bench_config(GRID_FEATURES, GRID_ITEMS / 1e6, model, users,
+                             peaks=card_peaks, on_served=answers,
+                             log=lambda line: None, **GRID_RUNGS)
+    check(checked == [False, True], f"grid cell: answers checked {checked}")
+    for r in rows:
+        log({"phase": "grid_cell", **{k: r[k] for k in (
+            "features", "items", "lsh", "open_loop_sustained_qps",
+            "sustained_p50_ms", "sustained_p99_ms", "qps", "sat_requests",
+            "p50_ms_saturated", "p99_ms_saturated", "p50_ms_at_2_workers",
+            "device_exec_ms", "window_ms", "host_ms", "dispatch_floor_ms",
+            "kernel_path", "twophase_fallbacks", "batcher")}})
+    del model
+    free()
+    return rows
+
+
+def bench_phase() -> list[dict]:
+    """Phase 8: the probe kernels against their plain versions, then,
+    with every count at 0, the probes, the card's peaks and one grid
+    cell; the ``kernels`` entries of phase_a_qm and of the probe rows
+    (kernels 5-8)."""
+    from oryx_tpu_torch.bench import grid
+    from oryx_tpu_torch.bench.diag import lsh_mask_probe, smallf_probe
+    from oryx_tpu_torch.bench.kernel_probe import measure_peaks
+    t0 = time.perf_counter()
+    errs = probe_checks()
+    t_checks = time.perf_counter() - t0
+
+    reset_launches()
+    lines = {r["variant"]: r for r in lsh_mask_probe.run(
+        PROBE_ITEMS_M, 256, DEVICE,
+        log=lambda r: log({"phase": "lsh_mask_probe", **r}))}
+    free()
+    small = smallf_probe.run(PROBE_ITEMS_M, (50, 250), 256, DEVICE,
+                             log=lambda r: log({"phase": "smallf_probe",
+                                                **r}))["results"]
+    free()
+    card_peaks = measure_peaks(device=DEVICE)
+    floor = grid.measure_dispatch_floor(DEVICE)
+    log({"phase": "peaks", **card_peaks, "dispatch_floor_ms": floor})
+    grid_cell(card_peaks)
+    launches = read_launches()
+    check(launches["phase_a_qm"] > 0 and launches["phase_a"] > 0,
+          f"phase 8: a probe kernel launched no time: {launches}")
+    log({"phase": "bench", "launches": launches, "checks_s": t_checks,
+         "seconds": time.perf_counter() - t0})
+
+    def entry(name, wrapper, replaces, line, err, shape):
+        return {"name": name, "route": "cuda",
+                "source": KERNELS[wrapper][1], "replaces": replaces,
+                "launches": line["launches"], "max_abs_err": err,
+                "ms": line["exec_ms"], "plain_ms": line["plain_ms"],
+                "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+                "library_ms": line["library_ms"], "served_config": None,
+                "shape": shape}
+
+    head = {"rows": lines["exact_floor"]["rows"], "width": lsh_mask_probe.W,
+            "B": 256, "store": "bfloat16"}
+    qm_line = lines["mask_2d_transposed"]
+    out = [{**entry("phase_a_qm", "phase_a_qm", KERNELS["phase_a_qm"][0],
+                    qm_line, errs["phase_a_qm"], {**head, "lsh": True}),
+            "launches": launches["phase_a_qm"], "body": "wgmma"}]
+    for variant, err in (("mask_3d_current", errs["lsh"]),
+                         ("exact_floor", errs["exact"])):
+        line = lines[variant]
+        out.append(entry(f"phase_a ({variant})", "phase_a", line["replaces"],
+                         line, err, {**head, "lsh": line["lsh"]}))
+    for f in (50, 250):
+        rec = small[f"F{f}"]
+        out.append({**entry(
+            f"phase_a (smallf F{f})", "phase_a", rec["replaces"],
+            rec["phase_a"], errs[f"F{f}"],
+            {"rows": rec["N"], "width": rec["stored_width"], "features": f,
+             "B": 256, "store": "bfloat16", "lsh": False}),
+            "bound_ms_logical": rec["phase_a"]["bound_ms_logical"]})
+    return out
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -3900,7 +4072,14 @@ def main(argv=None) -> int:
         help="after phase 4's timed fold-in round, run it once more under "
              "torch.profiler and write its operator tables and Chrome trace "
              "under DIR")
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated phases to run, of " + ", ".join(PHASES)
+             + " (default: all)")
     args = parser.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        parser.error(f"unknown phases {sorted(phases - set(PHASES))}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3933,36 +4112,87 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(work_dir, "model"))
     os.makedirs(os.path.join(work_dir, "ann_model"))
     spawn = multiprocessing.get_context("spawn")
-    publisher = spawn.Process(
-        target=publish_topic_model,
-        args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
-    preparer = spawn.Process(target=lambda_data, args=(work_dir,),
-                             daemon=True)
-    ann_publisher = spawn.Process(
-        target=publish_ann_generation,
-        args=(os.path.join(work_dir, "ann_model"), ANN_TOPIC_SEED),
-        daemon=True)
-    children = (publisher, preparer, ann_publisher)
-    for child in children:
+    children = {}
+    if "topic" in phases:
+        children["publisher"] = spawn.Process(
+            target=publish_topic_model,
+            args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
+    if "lambda" in phases:
+        children["preparer"] = spawn.Process(
+            target=lambda_data, args=(work_dir,), daemon=True)
+    if "ann" in phases:
+        children["ann_publisher"] = spawn.Process(
+            target=publish_ann_generation,
+            args=(os.path.join(work_dir, "ann_model"), ANN_TOPIC_SEED),
+            daemon=True)
+    for child in children.values():
         child.start()
     try:
         return run_phases(torch, gpu_name, t_start, children, work_dir,
-                          args.trace)
+                          args.trace, phases)
     finally:
-        for child in children:
+        for child in children.values():
             if child.is_alive():
                 child.terminate()
             child.join(30)
         shutil.rmtree(work_dir, ignore_errors=True)
 
 
-def run_phases(torch, gpu_name: str, t_start: float, children,
-               work_dir: str, trace_dir: str | None) -> int:
-    publisher, preparer, ann_publisher = children
+def run_phases(torch, gpu_name: str, t_start: float, children: dict,
+               work_dir: str, trace_dir: str | None, phases: set) -> int:
     rng = np.random.default_rng(SEED)
     cases = []
     serves = {}
+    entries = []
+    if "serving" in phases:
+        serving_phases(torch, rng, gpu_name, cases, serves)
+    if "topic" in phases:
+        # phase 4: the serving layer loads the 1M x 50 LSH model off the
+        # update topic (BASELINE.md:37)
+        serves["1M_50f_f32_lsh0.3_topic"] = serve_update_topic(
+            children["publisher"], work_dir, rng, trace_dir)
+    if "lambda" in phases:
+        lambda_phase(children["preparer"], work_dir)
+    # phase 6: the IVF index at the protocol catalog, the k-means app at
+    # the bench's shape and through its loop, then the index's load path
+    # (last: its generation is the slowest child's work)
+    if "ann" in phases:
+        ann_at_scale(rng)
+        free()
+    if "kmeans" in phases:
+        kmeans_at_scale()
+        free()
+        kmeans_loop(work_dir)
+        free()
+    if "ann" in phases:
+        ann_topic(children["ann_publisher"], work_dir)
+        free()
+    if "rdf" in phases:
+        # phase 7: the random decision forest app, its trainer at the
+        # bench's shape and its lambda loop
+        rdf_at_scale()
+        free()
+        rdf_loop(work_dir)
+        free()
+    if "bench" in phases:
+        # phase 8: the benches and the probe kernels
+        entries += bench_phase()
+        free()
+    if "serving" in phases:
+        entries = product_entries(cases, serves) + entries
+    check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
+    log({"phase": "total", "seconds": time.perf_counter() - t_start,
+         "phases": sorted(phases, key=PHASES.index)})
+    log({"kernels": entries})
+    log({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
+                                "count": torch.cuda.device_count()}})
+    return 0
 
+
+def serving_phases(torch, rng, gpu_name: str, cases: list,
+                   serves: dict) -> None:
+    """Phases 2-3: every configuration's kernel cases, route and served
+    rounds, then the coverage cases."""
     # slice 1: 5M x 250 float32, bfloat16, and 1M x 250 LSH on "pallas";
     # 5M x 250 float32 with int8 selection forced on, on "i8"
     Y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
@@ -4057,13 +4287,10 @@ def run_phases(torch, gpu_name: str, t_start: float, children,
         del vecs
         free()
 
-    # phase 4: the serving layer loads the 1M x 50 LSH model off the
-    # update topic (BASELINE.md:37)
-    serves["1M_50f_f32_lsh0.3_topic"] = serve_update_topic(
-        publisher, work_dir, rng, trace_dir)
 
-    # phase 5: ALS training at MovieLens-20M's shape, then the lambda
-    # loop through the port's batch, speed and serving layers
+def lambda_phase(preparer, work_dir: str) -> None:
+    """Phase 5: ALS training at MovieLens-20M's shape, then the lambda
+    loop through the port's batch, speed and serving layers."""
     from oryx_tpu_torch.common.config import get_default
     defaults = get_default()
     t_wait = time.perf_counter()
@@ -4079,25 +4306,11 @@ def run_phases(torch, gpu_name: str, t_start: float, children,
         "oryx.als.hyperparams.lambda"))
     free()
 
-    # phase 6: the IVF index at the protocol catalog, the k-means app at
-    # the bench's shape and through its loop, then the index's load path
-    # (last: its generation is the slowest child's work)
-    ann_at_scale(rng)
-    free()
-    kmeans_at_scale()
-    free()
-    kmeans_loop(work_dir)
-    free()
-    ann_topic(ann_publisher, work_dir)
-    free()
 
-    # phase 7: the random decision forest app, its trainer at the bench's
-    # shape and its lambda loop
-    rdf_at_scale()
-    free()
-    rdf_loop(work_dir)
-    free()
-
+def product_entries(cases: list, serves: dict) -> list[dict]:
+    """The ``kernels`` entries of the product kernels: each one's head
+    case and the timed round of the first configuration whose route chose
+    it; a kernel that served no timed round fails the run."""
     def head(kernel, **want):
         return next(c for c in cases if c["kernel"] == kernel
                     and not c["lsh"] and c["B"] == 256
@@ -4128,9 +4341,7 @@ def run_phases(torch, gpu_name: str, t_start: float, children,
               for name, (wrapper, _, configs, _) in heads.items()}
     check(None not in served.values(),
           f"a kernel served no configuration's timed round: {served}")
-    check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
-    log({"phase": "total", "seconds": time.perf_counter() - t_start})
-    log({"kernels": [{
+    return [{
         "name": name, "route": "cuda", "source": KERNELS[wrapper][1],
         "replaces": KERNELS[wrapper][0],
         "launches": serves[served[name]]["launches"][wrapper],
@@ -4145,10 +4356,7 @@ def run_phases(torch, gpu_name: str, t_start: float, children,
         "shape": {"rows": h["rows"], "width": h["width"],
                   "features": h["features"], "B": h["B"],
                   "store": h["store"]}}
-        for name, (wrapper, h, _, of) in heads.items()]})
-    log({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
-                                "count": torch.cuda.device_count()}})
-    return 0
+        for name, (wrapper, h, _, of) in heads.items()]
 
 
 if __name__ == "__main__":

@@ -511,11 +511,20 @@ def _batch_top_n_twophase_kernel(Y, Q, active, buckets, hyperplanes,
     chunks (the reference's ``scan`` kind): each chunk's (B, chunk)
     scores are reduced to block maxima, then phase B as always.
     ``buckets``/``hyperplanes`` of None select the exact scan."""
-    b = Q.shape[0]
     target = None
     if buckets is not None:
         target = _query_buckets(Q, hyperplanes)
     Qc = _q_cast(Q, Y)
+    M = _scan_maxima(Y, Qc, active, buckets, target, chunk, bs, max_bits)
+    return _phase_b(Y, Qc, active, buckets, target, M, k, bs, ksel,
+                    max_bits)
+
+
+def _scan_maxima(Y, Qc, active, buckets, target, chunk: int, bs: int,
+                 max_bits: int) -> torch.Tensor:
+    """The scan kind's phase A: (B, N // bs) block maxima of the masked
+    scores, one (B, chunk) score tile at a time."""
+    b = Qc.shape[0]
     ms = []
     for start in range(0, Y.shape[0], chunk):
         stop = start + chunk
@@ -526,9 +535,7 @@ def _batch_top_n_twophase_kernel(Y, Q, active, buckets, hyperplanes,
                          max_bits)
         scores = torch.where(ok, scores, _NEG_INF)
         ms.append(scores.view(b, chunk // bs, bs).amax(-1))
-    M = torch.cat(ms, dim=1)
-    return _phase_b(Y, Qc, active, buckets, target, M, k, bs, ksel,
-                    max_bits)
+    return torch.cat(ms, dim=1)
 
 
 def _batch_top_n_chunked_kernel(Y, Q, active, buckets, hyperplanes,
@@ -1160,6 +1167,45 @@ class ALSServingModel(FactorModelBase, ServingModel):
                 self._ivf_mirror_version = version
                 a.index_bytes = self._ivf_mirror.index_bytes
             return self._ivf_mirror
+
+    # -- warm-up --------------------------------------------------------------
+
+    def warm_serving_kernels(self, how_many: int = 10,
+                             max_batch: int = 1024) -> None:
+        """Run every program the serving hot path can hit for
+        ``how_many``-sized requests before traffic arrives: a drain at
+        each power-of-two batch from 8 to ``max_batch``, and on
+        streaming-path models also the exact chunked fallback at each
+        ladder window, then measure and install the route.  Nothing
+        compiles per shape here as under XLA, but the first call builds
+        the kernels' libraries (``nvcc``), the phase-A mirrors and LSH
+        buckets of the snapshot, the cuBLAS handles and the allocator's
+        pool, and the batcher's pacing learns from whatever runs first
+        (reference ``serving_model.py:1157-1192``)."""
+        b = 8
+        while b <= max_batch:
+            self.top_n_batch(how_many,
+                             np.zeros((b, self.features), np.float32))
+            b *= 2
+        vecs, active, version = self.Y.device_arrays_versioned()
+        n_rows = int(vecs.shape[0])
+        k = min(_pad_k(how_many), n_rows)
+        big, chunk = _stream_plan(n_rows, _CHUNKED_BATCH)
+        if big and n_rows % chunk == 0 and k <= chunk:
+            lsh_on = self._lsh_active()
+            buckets = self._cached_buckets(vecs, version) if lsh_on \
+                else None
+            hp = self.lsh._device_hyperplanes() if lsh_on else None
+            mb = self.lsh.max_bits_differing if lsh_on else 0
+            for w in _WINDOW_LADDER:
+                # the certificate-failure fallback at each window shape
+                _fetch(*_batch_top_n_chunked_kernel(
+                    vecs, torch.zeros((w, self.features),
+                                      dtype=torch.float32,
+                                      device=self.device),
+                    active, buckets, hp, k, chunk, mb))
+        # kernel choice is cost-driven from the first real request on
+        self.refresh_route()
 
     # -- measured-cost routing (kernel_router) -------------------------------
 

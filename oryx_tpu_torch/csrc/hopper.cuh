@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the phase-A kernels (phase_a.cu,
-// phase_a_i8.cu, phase_a_i8_fold.cu, phase_a_fold.cu): cp.async,
-// mbarriers, TMA tensor maps and loads, bulk copies, wgmma descriptors and
-// fences, the halving-butterfly max, and the host helpers that size a
-// persistent grid.  Each source includes it once; nothing here launches
+// phase_a_i8.cu, phase_a_i8_fold.cu, phase_a_fold.cu, phase_a_qm.cu):
+// cp.async, mbarriers, TMA tensor maps and loads, bulk copies, wgmma
+// descriptors and fences, the halving-butterfly max, and the host helpers
+// that size a persistent grid.  Each source includes it once; nothing here launches
 // or allocates.  cuda_build.library_path hashes every header of this
 // directory with the source, so an edit here rebuilds every library.
 

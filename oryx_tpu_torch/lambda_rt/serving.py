@@ -15,8 +15,10 @@ configured input topic is created at start with
 ``/ingest`` append to it through a producer with retry and a circuit
 breaker, behind the ingest admission gate.  Not part of this package
 yet: TLS and authentication (a configured keystore, user name or
-password raises), cluster heartbeats and the frame transport, the
-compile cache, and tracing and metrics.
+password raises), the serving cluster (``oryx.cluster.enabled`` raises:
+the ``/shard/*`` routes, heartbeats, the frame transport and the result
+cache), the compile cache, and tracing, the SLO engine, the event log
+and the flight recorder (each of ``UNPORTED_OBS_KEYS`` raises).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import importlib
 import logging
 import threading
 
+from ..common.config import refuse_configured
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
@@ -37,7 +40,13 @@ from .http import HttpApp, Route, make_server
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["ServingLayer"]
+__all__ = ["ServingLayer", "UNPORTED_CLUSTER_KEYS", "UNPORTED_OBS_KEYS"]
+
+# keys of the reference's layer whose features this package does not
+# have yet: each raises by name rather than being quietly ignored
+UNPORTED_CLUSTER_KEYS = ("oryx.cluster.enabled",)
+UNPORTED_OBS_KEYS = ("oryx.obs.tracing.enabled", "oryx.obs.slo.enabled",
+                     "oryx.obs.events.dir", "oryx.obs.flight.dir")
 
 
 class ServingLayer:
@@ -53,6 +62,13 @@ class ServingLayer:
             if config.get_optional_string(f"{api}.{key}") is not None:
                 raise ValueError(f"{api}.{key}: TLS and authentication are "
                                  f"not part of this package yet")
+        refuse_configured(config, UNPORTED_CLUSTER_KEYS,
+                          "the serving cluster (/shard routes, heartbeats, "
+                          "frame transport) is not part of this package yet")
+        refuse_configured(config, UNPORTED_OBS_KEYS,
+                          "the serving layer's tracing, SLO engine, event log "
+                          "and flight recorder are not part of this package "
+                          "yet")
         self.port = port if port is not None else config.get_int(
             f"{api}.port")
         self.read_only = config.get_bool(f"{api}.read-only")

@@ -21,8 +21,8 @@ import torch
 
 from ..common.device import check_f32_matmul
 
-__all__ = ["compute_target_qui", "fold_in_batch", "fold_in_sequential",
-           "compute_updated_xu"]
+__all__ = ["compute_target_qui", "fold_in_batch", "fold_in_device",
+           "fold_in_sequential", "compute_updated_xu"]
 
 
 def compute_target_qui(implicit: bool, value, current_value) -> torch.Tensor:
@@ -85,7 +85,19 @@ def fold_in_batch(solver, values, xu, yi, implicit: bool):
     yi_t = packed[n + nk:n + 2 * nk].view(n, k)
     has_xu = packed[n + 2 * nk:2 * n + 2 * nk] > 0.5
     has_yi = packed[2 * n + 2 * nk:] > 0.5
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    new_xu, valid = fold_in_device(chol, v_t, xu_t, has_xu, yi_t, has_yi,
+                                   implicit)
+    # one fetch: the vectors and the mask
+    out = torch.cat([new_xu.reshape(-1), valid.to(new_xu.dtype)])
+    out = out.cpu().numpy()
+    return out[:nk].reshape(n, k), out[nk:] > 0.5
+
+
+def fold_in_device(chol, v_t, xu_t, has_xu, yi_t, has_yi, implicit: bool):
+    """The batch's arithmetic on the factor's device, with no host copy:
+    ``(new_xu, valid)`` from the (n,) strengths, the (n, k) user and
+    item vectors (zeros where ``has_xu``/``has_yi`` is False)."""
+    zero = torch.zeros((), dtype=torch.float32, device=chol.device)
     # Qui: the current estimated strength, 0 for a new user, whose
     # "don't know" state is 0.5
     qui = torch.where(has_xu, (xu_t * yi_t).sum(dim=1), zero)
@@ -94,11 +106,7 @@ def fold_in_batch(solver, values, xu, yi, implicit: bool):
     valid = has_yi & ~torch.isnan(target)
     d_qui = torch.where(valid, target - qui, zero)
     d_xu = _solve(chol, yi_t * d_qui[:, None])
-    new_xu = torch.where(has_xu[:, None], xu_t, zero) + d_xu
-    # one fetch: the vectors and the mask
-    out = torch.cat([new_xu.reshape(-1), valid.to(new_xu.dtype)])
-    out = out.cpu().numpy()
-    return out[:nk].reshape(n, k), out[nk:] > 0.5
+    return torch.where(has_xu[:, None], xu_t, zero) + d_xu, valid
 
 
 def fold_in_sequential(solver, item_values, get_item_vector,

@@ -26,7 +26,11 @@ mode       effect at the call site
 ========== ==========================================================
 
 ``fired(name)`` counts consumed activations.  Point names are the
-reference's, verbatim.
+reference's, verbatim.  ``configure_from_config`` arms any name, so a
+chaos config written for the reference may arm points this package
+never fires yet: ``serving-scan-dispatch`` (the reference's batcher
+dispatch) and ``reshard-warm-stall`` (its serving cluster's re-shard
+warm-up) come with the batcher's chaos hook and the serving cluster.
 """
 
 from __future__ import annotations

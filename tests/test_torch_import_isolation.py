@@ -1,8 +1,9 @@
 """oryx_tpu_torch stands alone: it imports, serves, trains and folds a
 speed micro-batch, trains and evaluates k-means, builds an IVF index
-and measures its recall, and trains a decision forest and serves
-/predict from it with JAX, ml_dtypes and the reference package blocked,
-and its entry points refuse to fall back to the CPU silently."""
+and measures its recall, trains a decision forest and serves /predict
+from it, and probes a model's device programs with JAX, ml_dtypes and
+the reference package blocked, and its entry points and benches refuse
+to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -48,6 +49,15 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
         known_items={"u0": ["i1"]}, device="cpu")
     out = model.top_n_batch(5, X)
     assert len(out) == 4 and all(len(r) == 5 for r in out)
+
+    # the benches and the probes import, and a toy probe runs
+    for mod in ("bench.load", "bench.traffic", "bench.kernel_probe",
+                "bench.grid", "bench.fold_in", "bench.diag.lsh_mask_probe",
+                "bench.diag.smallf_probe", "ops.phase_a_qm"):
+        assert "oryx_tpu_torch." + mod in names, mod
+    from oryx_tpu_torch.bench.kernel_probe import probe_model
+    rec = probe_model(model, batch=8, m=1)
+    assert rec["served_path"] == "flat" and rec["window_ms"] > 0
 
     # the batch and speed layers: train a tiny model from an input
     # topic, then fold one micro-batch into UP deltas
@@ -225,3 +235,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert ALSServingModel(4, True, device="cpu").device.type == "cpu"
     assert ForestArrays(forest, 2, 0, device="cpu").predict_value(
         np.zeros((3, 2), np.float32)).tolist() == [1.0, 1.0, 1.0]
+
+
+def test_benches_raise_without_cuda(monkeypatch):
+    """A bench called without device="cpu" measures the card or raises;
+    it never carries on on the host."""
+    from oryx_tpu_torch.bench import fold_in, grid, kernel_probe, load
+    from oryx_tpu_torch.bench.diag import lsh_mask_probe, smallf_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    for call in (lambda: kernel_probe.measure_peaks(m=1),
+                 lambda: grid.measure_dispatch_floor(),
+                 lambda: grid.build_model(4, 16, rng),
+                 lambda: load.build_load_test_model(2, 4, 2),
+                 lambda: lsh_mask_probe.make_inputs(0.004096, 8),
+                 lambda: smallf_probe.run(0.008192, (50,), 8),
+                 lambda: fold_in.run_fold_in_bench(features=4, events=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

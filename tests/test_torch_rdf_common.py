@@ -15,6 +15,9 @@ same seeded inputs, the port on the CPU:
 
 from __future__ import annotations
 
+import datetime
+import types
+
 import numpy as np
 import pytest
 
@@ -240,9 +243,23 @@ def test_tree_walk_and_find_by_id_match():
 
 # -- PMML ---------------------------------------------------------------------
 
+class _FrozenClock(datetime.datetime):
+    """The PMML header's wall clock, pinned: documents written a second
+    apart would otherwise differ in their <Timestamp> alone."""
+
+    @classmethod
+    def now(cls, tz=None):
+        return datetime.datetime(2026, 1, 1, tzinfo=tz)
+
+
 @pytest.mark.parametrize("classification,trees,extensions", [
     (True, 4, True), (True, 1, False), (False, 3, True), (False, 1, True)])
-def test_forest_to_pmml_bytes_match(classification, trees, extensions):
+def test_forest_to_pmml_bytes_match(monkeypatch, classification, trees,
+                                    extensions):
+    frozen = types.SimpleNamespace(datetime=_FrozenClock,
+                                   timezone=datetime.timezone)
+    monkeypatch.setattr(jpmml_io, "datetime", frozen)
+    monkeypatch.setattr(tpmml_io, "datetime", frozen)
     js, ts = _schemas(classification)
     je, te = _encodings(classification)
     jforest = _random_forest(10 + trees, classification, trees=trees)

@@ -241,10 +241,37 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       order, scores within 1e-4).  ``phase_a_qm`` and ``phase_a`` must
       have launched.
 
+9. The operator entry point (``deploy``), each step in processes of its
+   own, from the checkout:
+   a. ``python -m oryx_tpu_torch warmup`` with ``oryx.compile-cache-dir``
+      a fresh directory, over items 1, 5 and 20 million x features 10,
+      50 and 250: it must exit 0, build every ``csrc/*.cu`` library into
+      ``<dir>/kernels`` (one ``nvcc`` each), and refuse nothing but by a
+      kernel's width limit (``deploy_warmup`` line: wall and build
+      seconds).  The same command again must find every library current
+      and run no ``nvcc``.
+   b. ``python -m oryx_tpu_torch serving`` from ``als-example.conf`` with
+      that cache, off a ``file://`` update topic carrying phase 4's
+      1M x 50 float32 model (LSH 0.3) and its 1,000 UP records: after
+      ``/ready`` and the route, 64 ``/recommend`` answers must equal the
+      same model's in this process with the plain phase-A versions (ids
+      in order, scores within rtol 1e-5; under an LSH route, whose
+      hyperplanes are drawn per process, the scores against exact dot
+      products), the route's chosen kind must be a kernel kind, only its
+      kernel may launch for the requests (the process logs its launch
+      counts at the route and at exit), and SIGINT must end it with exit
+      0 (``deploy_serve`` line).
+   c. ``python -m oryx_tpu_torch.bench.coldstart`` at 200,000 ratings and
+      rank 50 (its warmup and two children; ``deploy_coldstart`` line).
+   The layers this script starts in its own process keep their libraries
+   in ``build/kernels``: phase 1 sets the cache directory to ``build``
+   before any layer starts, and the first configuration wins.
+
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
-topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8);
-the default runs every phase.  A partial run still ends with the two
-summary lines, its ``kernels`` line listing only what it ran.
+topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
+deploy = 9); the default runs every phase.  A partial run still ends
+with the two summary lines, its ``kernels`` line listing only what it
+ran.
 
 With ``--trace DIR`` the fold-in round of phase 4 runs once more, after
 the timed one, under ``torch.profiler``: its operator tables and Chrome
@@ -273,6 +300,8 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -432,7 +461,20 @@ GRID_CHECK_USERS = 32
 GRID_RUNGS = dict(sat_workers=64, measure_sec=2.0, min_sat_requests=1000,
                   ladder=(1.0,), descent=(0.5,), rung_sec=2.0,
                   low_requests=20)
-PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench")
+# phase 9: the operator entry point, warmup and the kernel cache
+DEPLOY_ITEMS = "1,5,20"
+DEPLOY_FEATURES = "10,50,250"
+DEPLOY_REQUESTS = 64
+DEPLOY_USERS = 100
+DEPLOY_WAIT_S = 300.0
+COLD_RATINGS = 200_000
+COLD_RANK = 50
+# the phase-A kinds of a hand-written kernel
+KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
+          "deploy")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -4059,6 +4101,236 @@ def bench_phase() -> list[dict]:
     return out
 
 
+# -- phase 9: the operator entry point ---------------------------------------
+
+def cli_env() -> dict:
+    """The environment of a command run from the checkout."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def device_args() -> list[str]:
+    """The commands' device flag: none, the card, unless ``DEVICE`` is
+    another."""
+    return [] if DEVICE == "cuda" else ["--device", DEVICE]
+
+
+def run_module(args: list[str], what: str, timeout: float) -> tuple:
+    """(last stdout line as JSON, wall seconds) of ``python -m args``
+    run from the checkout; fails the run unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args, *device_args()],
+                          cwd=REPO,
+                          env=cli_env(), capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"deploy: {what} exited {proc.returncode}:"
+          f"\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def deploy_warmup(conf: str, run: int) -> dict:
+    """``python -m oryx_tpu_torch warmup`` over the deploy ladder."""
+    report, wall = run_module(
+        ["oryx_tpu_torch", "warmup", "--conf", conf, "--items", DEPLOY_ITEMS,
+         "--features", DEPLOY_FEATURES, "--verbose"], f"warmup {run}", 600)
+    check(report["compiled_count"] > 0,
+          f"deploy: warmup {run} compiled nothing")
+    # a width limit is the one refusal the ladder may meet
+    check(all("kernel needs" in f["error"] for f in report["failed"]),
+          f"deploy: warmup {run} failed: {report['failed']}")
+    statuses: dict = {}
+    for e in report["compiled"]:
+        statuses[e["status"]] = statuses.get(e["status"], 0) + 1
+    log({"phase": "deploy_warmup", "run": run, "process_s": wall,
+         "wall_s": report["wall_s"], "build_s": report["build_s"],
+         "nvcc_runs": report["nvcc_runs"],
+         "compiled": report["compiled_count"],
+         "failed": report["failed_count"], "plain": len(report["plain"]),
+         "statuses": statuses, "device": report["device"],
+         "libraries": sorted({e["library"] for e in report["compiled"]})})
+    return report
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def log_match(path: str, pattern: str) -> list:
+    with open(path, encoding="utf-8", errors="replace") as f:
+        return re.findall(pattern, f.read())
+
+
+def deploy_serve(publisher, work_dir: str, cache: str) -> dict:
+    """``python -m oryx_tpu_torch serving`` off a file:// update topic:
+    its answers against the same model in this process on the plain
+    phase-A versions, its route a kernel kind, its exit on SIGINT."""
+    import torch
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.common.config import from_file
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+
+    label = "deploy_1M_50f_f32_lsh0.3"
+    model_dir = os.path.join(work_dir, "model")
+    publisher.join(TOPIC_WAIT_S)
+    check(publisher.exitcode == 0,
+          f"{label}: publishing the model failed ({publisher.exitcode})")
+    with open(os.path.join(model_dir, "published.json"),
+              encoding="utf-8") as f:
+        published = json.load(f)
+    Y, X, known = topic_data(TOPIC_SEED)
+    broker = "file://" + os.path.join(work_dir, "deploy_broker")
+    port = free_port()
+    conf = os.path.join(work_dir, "deploy_serving.conf")
+    with open(os.path.join(REPO, "oryx_tpu_torch", "conf",
+                           "als-example.conf"), encoding="utf-8") as f:
+        text = f.read()
+    with open(conf, "w", encoding="utf-8") as f:
+        f.write(text + "\n" + "\n".join(
+            f"{k} = {json.dumps(v)}" for k, v in {
+                "oryx.update-topic.broker": broker,
+                "oryx.input-topic.broker": broker,
+                "oryx.als.sample-rate": LSH_RATE,
+                "oryx.serving.api.port": port,
+                "oryx.compile-cache-dir": cache}.items()) + "\n")
+    topic = from_file(conf).get_string("oryx.update-topic.message.topic")
+    producer = InProcTopicProducer(broker, topic)
+    producer.send("MODEL-REF", slices.model_ref_message(
+        os.path.join(model_dir, "model.pmml.xml"), model_dir,
+        published["manifest"]))
+    for u in range(N_USERS):
+        producer.send("UP", json.dumps(
+            ["X", f"u{u}", [float(v) for v in X[u]], known[f"u{u}"]]))
+    producer.close()
+
+    log_path = os.path.join(work_dir, "deploy_serving.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w", encoding="utf-8") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "oryx_tpu_torch", "serving", "--conf",
+             conf, *device_args()], cwd=REPO, env=cli_env(), stdout=log_f,
+            stderr=subprocess.STDOUT)
+    try:
+        def ready() -> bool:
+            check(proc.poll() is None,
+                  f"{label}: the serving process exited {proc.returncode}")
+            try:
+                status, _, _ = http_call(port, "GET", "/ready")
+            except OSError:
+                return False
+            return status == 204 and bool(log_match(
+                log_path, r"chosen=(\w+) use_lsh=(\w+)"))
+
+        wait_for(ready, f"{label}: /ready and the route", DEPLOY_WAIT_S)
+        ready_s = time.perf_counter() - t0
+        last = f"u{N_USERS - 1}"
+        wait_for(lambda: http_call(port, "GET", f"/knownItems/{last}")[0]
+                 == 200, f"{label}: the UP records", DEPLOY_WAIT_S)
+        users = [f"u{DEPLOY_USERS + j}" for j in range(DEPLOY_REQUESTS)]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            results = list(pool.map(
+                lambda u: http_call(port, "GET",
+                                    f"/recommend/{u}?howMany=10"), users))
+        routes = log_match(log_path, r"chosen=(\w+) use_lsh=(\w+) .*"
+                           r"launches=(\{[^}]*\})")
+        check(len(routes) == 1, f"{label}: {len(routes)} routes measured")
+        kind, use_lsh, route_launches = routes[0]
+        route_launches = json.loads(route_launches)
+        use_lsh = use_lsh == "True"
+        check(kind in KERNEL_KINDS,
+              f"{label}: the served route chose {kind!r}, not a kernel kind")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(60)
+        check(rc == 0, f"{label}: exit {rc} on SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    with open(log_path, encoding="utf-8", errors="replace") as f:
+        print(f"--- {label}: the serving process's log\n{f.read()[-20000:]}",
+              file=sys.stderr)
+    exits = log_match(log_path, r"serving: kernel launches=(\{[^}]*\})")
+    check(len(exits) == 1, f"{label}: no launch line at exit")
+    served = {k: v - route_launches[k]
+              for k, v in json.loads(exits[0]).items()}
+    expected = next(k for k, v in KERNELS.items() if v[2] == kind)
+    check(served[expected] > 0,
+          f"{label}: {expected} launched no time: {served}")
+    check(all(v == 0 for k, v in served.items() if k != expected),
+          f"{label}: another kernel than {expected} launched: {served}")
+
+    # the same model in this process, its phase-A kernels swapped for
+    # their plain versions (every kind answers the exact top-k of what
+    # its mask admits); the LSH hyperplanes are drawn per process, so an
+    # LSH route is held to its scores, not its ids
+    model = build_model(TOPIC_FEATURES, Y, X, known, "float32",
+                        sample_rate=LSH_RATE if use_lsh else 1.0)
+    Q = np.stack([X[int(u[1:])] for u in users])
+    excl = [set(known[u]) for u in users]
+    want, _ = reference_top_n_batch(model, 10, Q, excl)
+    for u, (status, body, _), w in zip(users, results, want):
+        check(status == 200, f"{label}: /recommend/{u} gave {status}")
+        got = [(d["id"], d["value"]) for d in json.loads(body)]
+        check(len(got) == 10 and all(np.isfinite(v) for _, v in got),
+              f"{label}: /recommend/{u} gave {got}")
+        if not use_lsh:
+            same_answers(got, w, RTOL["float32"], f"{label} /recommend/{u}")
+        else:
+            dots = Y[[int(i[1:]) for i, _ in got]] @ X[int(u[1:])]
+            np.testing.assert_allclose([v for _, v in got], dots, rtol=1e-5,
+                                       err_msg=f"{label} /recommend/{u}")
+            check(not excl[users.index(u)] & {i for i, _ in got},
+                  f"{label}: /recommend/{u} gave a known item")
+    del model
+    free()
+    lat = sorted(r[2] for r in results)
+    line = {"phase": "deploy_serve", "config": label, "kind": kind,
+            "use_lsh": use_lsh, "ready_s": ready_s,
+            "requests": len(results), "launches": served,
+            "route_launches": route_launches,
+            "p50_ms": lat[len(lat) // 2], "max_ms": lat[-1],
+            "exit": rc, "held": "ids and scores" if not use_lsh
+            else "scores"}
+    log(line)
+    torch.cuda.synchronize()
+    return line
+
+
+def deploy_phase(publisher, work_dir: str) -> dict:
+    """Phase 9: warmup into a fresh cache twice, serving from the entry
+    point, and the cold-start bench, each in processes of its own."""
+    from oryx_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cache = os.path.join(work_dir, "deploy_cache")
+    conf = os.path.join(work_dir, "deploy_warmup.conf")
+    with open(conf, "w", encoding="utf-8") as f:
+        f.write(f"oryx.compile-cache-dir = {json.dumps(cache)}\n")
+    first = deploy_warmup(conf, 1)
+    built = set(os.listdir(os.path.join(cache, "kernels")))
+    missing = [src.name for src in cuda_build.SOURCES
+               if cuda_build.library_path(src).name not in built]
+    check(not missing, f"deploy: warmup built no library of {missing}")
+    check(first["nvcc_runs"] == len(cuda_build.SOURCES),
+          f"deploy: warmup 1 ran nvcc {first['nvcc_runs']} times")
+    second = deploy_warmup(conf, 2)
+    check(second["nvcc_runs"] == 0 and all(
+        e["status"] == "found current" for e in second["compiled"]),
+        "deploy: warmup 2 built a library again")
+    serve = deploy_serve(publisher, work_dir, cache)
+    cold, wall = run_module(
+        ["oryx_tpu_torch.bench.coldstart", "--ratings", str(COLD_RATINGS),
+         "--rank", str(COLD_RANK),
+         "--cache-dir", os.path.join(work_dir, "coldstart_cache")],
+        "coldstart", 600)
+    log({"phase": "deploy_coldstart", "process_s": wall, **cold})
+    log({"phase": "deploy", "seconds": time.perf_counter() - t0})
+    return serve
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -4084,9 +4356,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from oryx_tpu_torch.common import compile_cache
+    from oryx_tpu_torch.common.config import from_dict
     from oryx_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
+    # the layers this process starts inherit the first cache directory:
+    # their libraries stay in build/kernels, where this phase builds them
+    compile_cache.enable_from_config(from_dict(
+        {"oryx.compile-cache-dir": str(cuda_build.BUILD_DIR.parent)}))
     threading.excepthook = thread_failed
     # phase 1: environment and build
     log(gpu_line())
@@ -4113,7 +4391,7 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(work_dir, "ann_model"))
     spawn = multiprocessing.get_context("spawn")
     children = {}
-    if "topic" in phases:
+    if "topic" in phases or "deploy" in phases:
         children["publisher"] = spawn.Process(
             target=publish_topic_model,
             args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
@@ -4178,8 +4456,17 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         # phase 8: the benches and the probe kernels
         entries += bench_phase()
         free()
+    deploy = None
+    if "deploy" in phases:
+        # phase 9: the operator entry point, warmup and the kernel cache
+        deploy = deploy_phase(children["publisher"], work_dir)
     if "serving" in phases:
         entries = product_entries(cases, serves) + entries
+    if deploy is not None:
+        # the float32 kernels' launches in the CLI-started serving process
+        for entry in entries:
+            if entry["name"] in deploy["launches"]:
+                entry["deploy_launches"] = deploy["launches"][entry["name"]]
     check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start,
          "phases": sorted(phases, key=PHASES.index)})

@@ -36,6 +36,7 @@ back from one kind to another (a kernel that fails raises per request).
 
 from __future__ import annotations
 
+import json
 import logging
 import statistics
 import time
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from ...obs import device_time as device_time_mod
+from ...ops import launches
 from ...resilience import faults
 
 __all__ = ["measure_routes"]
@@ -261,9 +263,9 @@ def measure_routes(model) -> dict | None:
                 f"{route['chosen']}/warm"] = str(e)[:120]
     _log.info(
         "kernel route for %d rows x %df (%s): chosen=%s use_lsh=%s "
-        "exact=%s lsh=%s", n_rows, features, route["path"],
+        "exact=%s lsh=%s launches=%s", n_rows, features, route["path"],
         route["chosen"], route.get("use_lsh"), costs_exact,
-        costs_lsh or None)
+        costs_lsh or None, json.dumps(launches.counts()))
     acct = device_time_mod.process_accountant()
     if acct is not None:
         acct.note("measure", route.get("chosen"),

@@ -29,6 +29,7 @@ import numpy as np
 from ...api.serving import AbstractServingModelManager
 from ...common import pmml as pmml_io
 from ...common import store
+from ...common.device import resolve_device
 from ...common.lang import RateLimitCheck
 from ...kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
 from ..pmml_utils import read_pmml_from_update_key_message
@@ -51,6 +52,9 @@ class ALSServingModelManager(AbstractServingModelManager):
 
     def __init__(self, config, device=None):
         super().__init__(config)
+        # without a card, fail at boot, not on the consumer thread at
+        # the first MODEL
+        resolve_device(device)
         self.device = device
         self.model: ALSServingModel | None = None
         self._triggered_solver = False

@@ -1,16 +1,20 @@
-"""The clock the request batcher reads.
+"""The clock the request batcher and the supervisor read.
 
-Counterpart of ``oryx_tpu/common/clock.py``, cut down to ``monotonic``:
-the simulation clocks that seam exists for are not part of this
-package.
+Counterpart of ``oryx_tpu/common/clock.py``, cut down to ``monotonic``
+and ``sleep``: the simulation clocks that seam exists for are not part
+of this package.
 """
 
 from __future__ import annotations
 
 import time as _time
 
-__all__ = ["monotonic"]
+__all__ = ["monotonic", "sleep"]
 
 
 def monotonic() -> float:
     return _time.monotonic()
+
+
+def sleep(seconds: float) -> None:
+    _time.sleep(seconds)

@@ -2,12 +2,14 @@
 
 Counterpart of ``oryx_tpu/common/config.py`` (reference:
 ConfigUtils.java: overlayOn :69, typed optional getters), cut down to
-the typed getters and the loaders.  The packaged defaults are this
+the typed getters, the loaders and ``to_properties``
+(ConfigToProperties.java:29).  The packaged defaults are this
 package's own copy of the reference's ``reference.conf``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Any
 
@@ -101,6 +103,22 @@ class Config:
         if isinstance(v, list):
             return [str(x) for x in v]
         return [str(v)]
+
+    def to_properties(self, prefix: str = "") -> dict[str, str]:
+        """Flatten to dotted key -> string value pairs, nulls left out
+        and lists as JSON (reference: ConfigToProperties.java:29)."""
+        out: dict[str, str] = {}
+
+        def _walk(node: Any, path: str) -> None:
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    _walk(v, f"{path}.{k}" if path else k)
+            elif node is not None:
+                out[path] = (json.dumps(node) if isinstance(node, list)
+                             else _render_scalar(node))
+
+        _walk(self._root, prefix)
+        return out
 
     def __repr__(self):  # pragma: no cover
         return f"Config({sorted(self._root)})"

@@ -3,12 +3,14 @@
 Counterpart of ``oryx_tpu/common/lang.py``, cut down to
 ``AutoReadWriteLock`` (reference: AutoReadWriteLock.java:37), the
 plugin loader ``load_instance`` (ClassUtils.java:89), ``RateLimitCheck``
-(RateLimitCheck.java:28), ``logging_call`` (LoggingCallable.java:31)
-and ``collect_in_parallel`` (ExecUtils.java:93).
+(RateLimitCheck.java:28), ``logging_call`` (LoggingCallable.java:31),
+``collect_in_parallel`` (ExecUtils.java:93) and the shutdown hook
+(``ShutdownHook``, ``close_at_shutdown``; OryxShutdownHook.java:32).
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import importlib
 import inspect
@@ -23,7 +25,8 @@ _log = logging.getLogger(__name__)
 T = TypeVar("T")
 
 __all__ = ["AutoReadWriteLock", "load_class", "load_instance",
-           "RateLimitCheck", "logging_call", "collect_in_parallel"]
+           "RateLimitCheck", "logging_call", "collect_in_parallel",
+           "ShutdownHook", "GLOBAL_SHUTDOWN_HOOK", "close_at_shutdown"]
 
 # the package a configured class path must name: a config written for
 # the JAX package (``oryx_tpu.…``) would load that package's classes
@@ -110,6 +113,43 @@ def collect_in_parallel(num_items: int, fn: Callable[[int], T],
         return [fn(i) for i in range(num_items)]
     with ThreadPoolExecutor(max_workers=min(parallelism, num_items)) as pool:
         return list(pool.map(fn, range(num_items)))
+
+
+# -- shutdown hooks ---------------------------------------------------------
+
+class ShutdownHook:
+    """Ordered close-on-exit registry (reference: OryxShutdownHook.java:32,
+    JVMUtils.closeAtShutdown).  Closeables run in reverse registration
+    order, once, at ``run()`` or at interpreter exit."""
+
+    def __init__(self):
+        self._closeables: list[Any] = []
+        self._lock = threading.Lock()
+        self._triggered = False
+        atexit.register(self.run)
+
+    def add_close_at_shutdown(self, closeable: Any) -> None:
+        with self._lock:
+            if self._triggered:
+                raise RuntimeError("shutdown already in progress")
+            self._closeables.append(closeable)
+
+    def run(self) -> None:
+        with self._lock:
+            if self._triggered:
+                return
+            self._triggered = True
+            closeables = list(reversed(self._closeables))
+        for c in closeables:
+            with contextlib.suppress(Exception):
+                c.close()
+
+
+GLOBAL_SHUTDOWN_HOOK = ShutdownHook()
+
+
+def close_at_shutdown(closeable: Any) -> None:
+    GLOBAL_SHUTDOWN_HOOK.add_close_at_shutdown(closeable)
 
 
 class _RWLock:

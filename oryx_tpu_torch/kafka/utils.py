@@ -1,7 +1,8 @@
 """Topic admin against a broker URI.
 
 Counterpart of ``oryx_tpu/kafka/utils.py`` (reference: KafkaUtils.java
-maybeCreateTopic :63), cut down to what the serving layer calls.
+maybeCreateTopic :63, topicExists), cut down to what the layers and
+the operator CLI call.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from .inproc import resolve_broker
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["maybe_create_topic", "input_topic_partitions"]
+__all__ = ["maybe_create_topic", "topic_exists", "input_topic_partitions"]
 
 
 def input_topic_partitions(config) -> int:
@@ -38,3 +39,7 @@ def maybe_create_topic(broker_uri: str, topic: str,
                   partitions)
         broker.create_topic(topic, partitions)
 
+
+
+def topic_exists(broker_uri: str, topic: str) -> bool:
+    return resolve_broker(broker_uri).topic_exists(topic)

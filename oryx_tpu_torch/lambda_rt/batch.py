@@ -13,8 +13,7 @@ Not part of this package yet, each refused with an error naming its
 key: the side-door metrics server and the freshness gauges, tracing,
 the event log and the flight recorder (``oryx.obs.metrics-port``,
 ``oryx.obs.tracing.enabled``, ``oryx.obs.events.dir``,
-``oryx.obs.flight.dir``).  The JAX compile cache has no counterpart:
-``oryx.compile-cache-dir`` is not read.
+``oryx.obs.flight.dir``).
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import logging
 import threading
 import time
 
+from ..common import compile_cache
 from ..common.config import Config, refuse_configured
 from ..common.lang import load_instance
 from ..kafka import utils as kafka_utils
@@ -79,6 +79,7 @@ class BatchLayer:
     def start(self) -> None:
         _log.info("Starting batch layer (generation interval %ds)",
                   self.generation_interval_sec)
+        compile_cache.enable_from_config(self.config)
         # create the input topic at its configured partition count before
         # any lazy access can freeze it at one partition
         kafka_utils.maybe_create_topic(

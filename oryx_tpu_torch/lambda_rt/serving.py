@@ -17,7 +17,7 @@ breaker, behind the ingest admission gate.  Not part of this package
 yet: TLS and authentication (a configured keystore, user name or
 password raises), the serving cluster (``oryx.cluster.enabled`` raises:
 the ``/shard/*`` routes, heartbeats, the frame transport and the result
-cache), the compile cache, and tracing, the SLO engine, the event log
+cache), and tracing, the SLO engine, the event log
 and the flight recorder (each of ``UNPORTED_OBS_KEYS`` raises).
 """
 
@@ -27,6 +27,7 @@ import importlib
 import logging
 import threading
 
+from ..common import compile_cache
 from ..common.config import refuse_configured
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
@@ -154,6 +155,9 @@ class ServingLayer:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
+        # the kernels this layer's model builds at first use load from
+        # oryx.compile-cache-dir when an earlier process built them
+        compile_cache.enable_from_config(self.config)
         if self.update_broker and self.update_topic:
             if not self.no_init_topics:
                 kafka_utils.maybe_create_topic(self.update_broker,

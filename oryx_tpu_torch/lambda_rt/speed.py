@@ -27,6 +27,7 @@ import threading
 import time
 
 from ..app.als.speed import check_shard
+from ..common import compile_cache
 from ..common.config import Config, refuse_configured
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
@@ -84,6 +85,7 @@ class SpeedLayer:
     def start(self) -> None:
         _log.info("Starting speed layer (micro-batch %ds)",
                   self.generation_interval_sec)
+        compile_cache.enable_from_config(self.config)
         # create the input topic at its configured partition count before
         # any lazy access can freeze it at one partition
         kafka_utils.maybe_create_topic(

@@ -26,8 +26,8 @@ import torch
 from ..app.als.lsh import _popcount
 from . import cuda_build
 
-__all__ = ["phase_a", "phase_a_reference", "build", "plan", "LAUNCHES",
-           "BLOCK_ROWS", "SOURCE", "MIN_PLAIN_ROWS", "MAX_WIDTH",
+__all__ = ["phase_a", "phase_a_reference", "build", "plan", "check_shape",
+           "LAUNCHES", "BLOCK_ROWS", "SOURCE", "MIN_PLAIN_ROWS", "MAX_WIDTH",
            "pad_rows"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a.cu"
@@ -130,6 +130,17 @@ def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
     cuda_build.check_operand("phase_a", t, name, dtype, device, shape)
 
 
+def check_shape(n: int, f: int, b: int, bs: int = BLOCK_ROWS) -> None:
+    """Raise unless the kernel takes ``b`` queries over an ``n`` x ``f``
+    store in blocks of ``bs`` rows."""
+    if bs != BLOCK_ROWS or n % BLOCK_ROWS or f % _WIDTH_ALIGN \
+            or f > MAX_WIDTH or b == 0:
+        raise ValueError(
+            f"phase_a kernel needs bs == {BLOCK_ROWS}, N % {BLOCK_ROWS} == 0,"
+            f" F % {_WIDTH_ALIGN} == 0, F <= {MAX_WIDTH} and B > 0; got "
+            f"bs={bs}, Y {n}x{f}, B={b}")
+
+
 def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
             buckets: torch.Tensor | None = None,
             target: torch.Tensor | None = None, max_bits: int = 0,
@@ -153,12 +164,7 @@ def phase_a(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
                          f"tensor, got {Y.dtype} {tuple(Y.shape)}")
     n, f = Y.shape
     b = Qc.shape[0] if Qc.dim() == 2 else 0
-    if bs != BLOCK_ROWS or n % BLOCK_ROWS or f % _WIDTH_ALIGN \
-            or f > MAX_WIDTH or b == 0:
-        raise ValueError(
-            f"phase_a kernel needs bs == {BLOCK_ROWS}, N % {BLOCK_ROWS} == 0,"
-            f" F % {_WIDTH_ALIGN} == 0, F <= {MAX_WIDTH} and B > 0; got "
-            f"bs={bs}, Y {n}x{f}, B={b}")
+    check_shape(n, f, b, bs)
     dev = Y.device
     _check(Y, "Y", Y.dtype, dev, (n, f))
     _check(Qc, "Qc", Y.dtype, dev, (b, f))

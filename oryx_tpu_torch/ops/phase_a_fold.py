@@ -34,7 +34,8 @@ from . import cuda_build
 from . import phase_a as _pa
 
 __all__ = ["phase_a_fold", "phase_a_fold_reference", "slot_queries",
-           "check_fold_operands", "check_features", "build", "plan",
+           "check_fold_operands", "check_fold_shape", "check_shape",
+           "check_features", "build", "plan",
            "LAUNCHES", "BLOCK_ROWS", "SOURCE", "WIDTHS"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_fold.cu"
@@ -158,6 +159,32 @@ def phase_a_fold_reference(Qc: torch.Tensor, Yf: torch.Tensor,
     return out
 
 
+def check_fold_shape(kernel: str, nf: int, width: int, fold: int, b: int,
+                     bs: int = BLOCK_ROWS) -> int:
+    """Raise unless a folded kernel takes ``b`` queries over an ``nf`` x
+    ``width`` mirror of ``fold`` logical rows per physical row; returns
+    the logical row width w = W / fold."""
+    w = width // fold if fold else 0
+    if bs != BLOCK_ROWS or fold not in (2, 4) or width % 32 \
+            or w not in (8, 16) and w % 32 or nf % (bs // fold) or b == 0:
+        raise ValueError(
+            f"{kernel} kernel needs bs == {BLOCK_ROWS}, fold 2 or 4, W % 32 "
+            "== 0, W / fold 8, 16 or a multiple of 32, whole blocks and "
+            f"B > 0; got bs={bs}, fold={fold}, Yf {nf}x{width}, B={b}")
+    return w
+
+
+def check_shape(nf: int, width: int, fold: int, b: int,
+                bs: int = BLOCK_ROWS) -> int:
+    """``check_fold_shape`` for this kernel, which also needs W / fold in
+    ``WIDTHS``; returns w."""
+    w = check_fold_shape("phase_a_fold", nf, width, fold, b, bs)
+    if w not in WIDTHS:
+        raise ValueError(f"phase_a_fold kernel needs W / fold in {WIDTHS}, "
+                         f"got {w}")
+    return w
+
+
 def check_fold_operands(kernel: str, q, Yf, pen_f, bkt_f, target,
                         fold: int, bs: int, y_dtypes, pen_dtype) -> int:
     """Checks the folded kernels' C interface leaves to the caller;
@@ -166,14 +193,8 @@ def check_fold_operands(kernel: str, q, Yf, pen_f, bkt_f, target,
         raise ValueError(f"{kernel}: Yf must be a 2-D tensor of one of "
                          f"{y_dtypes}, got {Yf.dtype} {tuple(Yf.shape)}")
     nf, width = Yf.shape
-    w = width // fold if fold else 0
     b = q.shape[0] if q.dim() == 2 else 0
-    if bs != BLOCK_ROWS or fold not in (2, 4) or width % 32 \
-            or w not in (8, 16) and w % 32 or nf % (bs // fold) or b == 0:
-        raise ValueError(
-            f"{kernel} kernel needs bs == {BLOCK_ROWS}, fold 2 or 4, W % 32 "
-            "== 0, W / fold 8, 16 or a multiple of 32, whole blocks and "
-            f"B > 0; got bs={bs}, fold={fold}, Yf {nf}x{width}, B={b}")
+    w = check_fold_shape(kernel, nf, width, fold, b, bs)
     dev = Yf.device
     check = cuda_build.check_operand
     n_blocks = nf * fold // bs
@@ -217,11 +238,9 @@ def phase_a_fold(Qc: torch.Tensor, Yf: torch.Tensor, pen_f: torch.Tensor,
     w = check_fold_operands("phase_a_fold", Qc, Yf, pen_f, bkt_f, target,
                             fold, bs, (torch.float32, torch.bfloat16),
                             torch.float32)
-    if w not in WIDTHS:
-        raise ValueError(f"phase_a_fold kernel needs W / fold in {WIDTHS}, "
-                         f"got {w}")
     nf, width = Yf.shape
     b = Qc.shape[0]
+    check_shape(nf, width, fold, b, bs)
     cuda_build.check_operand("phase_a_fold", Qc, "Qc", Yf.dtype, Yf.device,
                              (b, width))
     features = check_features("phase_a_fold", features, w)

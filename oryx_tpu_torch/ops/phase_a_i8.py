@@ -29,7 +29,8 @@ from ..app.als.lsh import _popcount
 from . import cuda_build
 
 __all__ = ["phase_a_i8", "phase_a_i8_reference", "int_scores", "build",
-           "plan", "LAUNCHES", "BLOCK_ROWS", "I8_PENALTY", "SOURCE"]
+           "plan", "check_shape", "LAUNCHES", "BLOCK_ROWS", "I8_PENALTY",
+           "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_i8.cu"
 # rows per block maximum; the kernel's BS
@@ -132,6 +133,17 @@ def phase_a_i8_reference(q8: torch.Tensor, Y8: torch.Tensor,
     return out
 
 
+def check_shape(n: int, w: int, b: int, bs: int = BLOCK_ROWS) -> None:
+    """Raise unless the kernel takes ``b`` queries over an ``n`` x ``w``
+    int8 mirror in blocks of ``bs`` rows."""
+    if bs != BLOCK_ROWS or n % BLOCK_ROWS or w % _WIDTH_ALIGN \
+            or w > _MAX_WIDTH or b == 0:
+        raise ValueError(
+            f"phase_a_i8 kernel needs bs == {BLOCK_ROWS}, N % {BLOCK_ROWS} "
+            f"== 0, W % {_WIDTH_ALIGN} == 0, W <= {_MAX_WIDTH} and B > 0; "
+            f"got bs={bs}, Y8 {n}x{w}, B={b}")
+
+
 def phase_a_i8(q8: torch.Tensor, Y8: torch.Tensor, penalty_i: torch.Tensor,
                buckets: torch.Tensor | None = None,
                target: torch.Tensor | None = None, max_bits: int = 0,
@@ -155,12 +167,7 @@ def phase_a_i8(q8: torch.Tensor, Y8: torch.Tensor, penalty_i: torch.Tensor,
                          f"{Y8.dtype} {tuple(Y8.shape)}")
     n, w = Y8.shape
     b = q8.shape[0] if q8.dim() == 2 else 0
-    if bs != BLOCK_ROWS or n % BLOCK_ROWS or w % _WIDTH_ALIGN \
-            or w > _MAX_WIDTH or b == 0:
-        raise ValueError(
-            f"phase_a_i8 kernel needs bs == {BLOCK_ROWS}, N % {BLOCK_ROWS} "
-            f"== 0, W % {_WIDTH_ALIGN} == 0, W <= {_MAX_WIDTH} and B > 0; "
-            f"got bs={bs}, Y8 {n}x{w}, B={b}")
+    check_shape(n, w, b, bs)
     dev = Y8.device
     check = cuda_build.check_operand
     check("phase_a_i8", Y8, "Y8", torch.int8, dev, (n, w))

@@ -30,11 +30,11 @@ import torch
 from ..app.als.lsh import _popcount
 from . import cuda_build
 from . import phase_a_i8 as _i8
-from .phase_a_fold import check_fold_operands, slot_queries
+from .phase_a_fold import check_fold_operands, check_fold_shape, slot_queries
 
 __all__ = ["phase_a_i8_fold", "phase_a_i8_fold_reference", "build",
-           "check_operands", "plan", "library_plan", "query_tiles",
-           "LAUNCHES", "BLOCK_ROWS", "PHYS_WIDTH", "SOURCE"]
+           "check_operands", "check_shape", "plan", "library_plan",
+           "query_tiles", "LAUNCHES", "BLOCK_ROWS", "PHYS_WIDTH", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_i8_fold.cu"
 BLOCK_ROWS = _i8.BLOCK_ROWS
@@ -192,6 +192,18 @@ def phase_a_i8_fold_reference(q8: torch.Tensor, Y8f: torch.Tensor,
     return out
 
 
+def check_shape(nf: int, width: int, fold: int, b: int,
+                bs: int = BLOCK_ROWS) -> int:
+    """Raise unless the kernel takes ``b`` queries over an ``nf`` x
+    ``width`` folded int8 mirror: ``check_fold_shape`` and 32-byte
+    physical rows; returns w."""
+    w = check_fold_shape("phase_a_i8_fold", nf, width, fold, b, bs)
+    if width != PHYS_WIDTH:
+        raise ValueError(f"phase_a_i8_fold kernel needs {PHYS_WIDTH}-byte "
+                         f"physical rows (fold 2 or 4), got W={width}")
+    return w
+
+
 def check_operands(q8, Y8f, pen_i_f, bkt_f, target, fold: int,
                    bs: int) -> int:
     """Checks the kernel's C interface leaves to the caller, on any
@@ -199,9 +211,7 @@ def check_operands(q8, Y8f, pen_i_f, bkt_f, target, fold: int,
     w = check_fold_operands("phase_a_i8_fold", q8, Y8f, pen_i_f, bkt_f,
                             target, fold, bs, (torch.int8,), torch.int32)
     width = Y8f.shape[1]
-    if width != PHYS_WIDTH:
-        raise ValueError(f"phase_a_i8_fold kernel needs {PHYS_WIDTH}-byte "
-                         f"physical rows (fold 2 or 4), got W={width}")
+    check_shape(Y8f.shape[0], width, fold, q8.shape[0], bs)
     cuda_build.check_operand("phase_a_i8_fold", q8, "q8", torch.int8,
                              Y8f.device, (q8.shape[0], width))
     if any(t.data_ptr() % 16 for t in (pen_i_f, bkt_f) if t is not None):

@@ -6,8 +6,10 @@ mints a deadline and the request batcher sheds work whose budget ran
 out), ``run_with_resubscribe`` with its ``Backoff`` (the update-topic
 consumer), and ``Retry``, ``CircuitBreaker`` and
 ``ResilientTopicProducer`` around the input-topic producer of
-``/pref`` and ``/ingest``.  The process-wide table of named retries and
-breakers that feeds ``/metrics`` is not part of this package yet.
+``/pref`` and ``/ingest``, and ``Supervisor``, which restarts a layer
+run from the operator CLI (``deploy/main.py``).  The process-wide table
+of named retries and breakers that feeds ``/metrics`` is not part of
+this package yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from .faults import InjectedFault
 
 __all__ = ["Deadline", "DeadlineExceeded", "CircuitOpenError", "Backoff",
            "Retry", "CircuitBreaker", "ResilientTopicProducer",
-           "run_with_resubscribe"]
+           "Supervisor", "run_with_resubscribe"]
 
 _log = logging.getLogger(__name__)
 
@@ -289,6 +291,91 @@ class CircuitBreaker:
             raise
         self.record_success()
         return out
+
+
+# -- supervised restart ------------------------------------------------------
+
+class Supervisor:
+    """Restart-with-backoff around a layer's start/await_/close
+    lifecycle (deploy/main.py).
+
+    The layers' worker threads survive ``Exception`` but die on anything
+    harsher (an injected crash, a bug escaping the survival handlers);
+    ``await_`` returning while ``close`` was never requested is the
+    crash signal.  The supervisor rebuilds the layer from its factory
+    and restarts it, with backoff, up to ``max_restarts`` times; a layer
+    that stayed up ``healthy_reset_sec`` earns its budget back."""
+
+    def __init__(self, factory: Callable[[], Any], name: str = "layer",
+                 max_restarts: int = 5, backoff: Backoff | None = None,
+                 sleep: Callable[[float], None] = clockmod.sleep,
+                 healthy_reset_sec: float = 300.0,
+                 clock: Callable[[], float] = clockmod.monotonic):
+        self.factory = factory
+        self.name = name
+        self.max_restarts = max_restarts
+        self.backoff = backoff or Backoff(initial=0.2, maximum=5.0)
+        self._sleep = sleep
+        self._stop = threading.Event()
+        self.restarts = 0
+        self.layer = None
+        # the cap bounds crash loops, not the lifetime count of crashes
+        self.healthy_reset_sec = healthy_reset_sec
+        self._clock = clock
+
+    @classmethod
+    def from_config(cls, factory, name: str, config) -> "Supervisor":
+        path = "oryx.resilience.supervisor"
+        return cls(factory, name=name,
+                   max_restarts=config.get_int(f"{path}.max-restarts"),
+                   backoff=Backoff(
+                       initial=config.get_int(
+                           f"{path}.initial-backoff-ms") / 1000.0,
+                       maximum=config.get_int(
+                           f"{path}.max-backoff-ms") / 1000.0))
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def run(self) -> None:
+        """Blocks until the layer exits cleanly (stop requested or
+        KeyboardInterrupt) or the restart budget is spent, which
+        raises."""
+        while not self._stop.is_set():
+            started = self._clock()
+            self.layer = None  # a failed factory() must not re-close
+            try:               # the previous, already-closed layer
+                # factory() and start() are inside the try: a rebuild
+                # against a dependency still down counts as a crash and
+                # retries with backoff instead of ending the process
+                self.layer = self.factory()
+                self.layer.start()
+                self.layer.await_()
+            except KeyboardInterrupt:
+                self._stop.set()
+            except Exception:  # noqa: BLE001 — a failed (re)build is a
+                _log.exception("%s: layer failed", self.name)  # crash
+            finally:
+                if self.layer is not None:
+                    try:
+                        self.layer.close()
+                    except Exception:  # noqa: BLE001 — best effort
+                        _log.exception("%s: close() failed", self.name)
+            if self._stop.is_set():
+                return
+            if self._clock() - started >= self.healthy_reset_sec:
+                self.restarts = 0
+            if self.restarts >= self.max_restarts:
+                _log.error("%s: gave up after %d restart(s)", self.name,
+                           self.restarts)
+                raise RuntimeError(
+                    f"{self.name}: exceeded {self.max_restarts} restarts")
+            self.restarts += 1
+            pause = self.backoff.delay(self.restarts)
+            _log.warning("%s: layer died; restart %d/%d in %.2fs",
+                         self.name, self.restarts, self.max_restarts,
+                         pause)
+            self._sleep(pause)
 
 
 class ResilientTopicProducer:

@@ -2,8 +2,9 @@
 speed micro-batch, trains and evaluates k-means, builds an IVF index
 and measures its recall, trains a decision forest and serves /predict
 from it, and probes a model's device programs with JAX, ml_dtypes and
-the reference package blocked, and its entry points and benches refuse
-to fall back to the CPU silently."""
+the reference package blocked, its operator CLI starts under the same
+block, and its entry points and benches refuse to fall back to the CPU
+silently."""
 
 import os
 import subprocess
@@ -16,7 +17,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCKED_SCRIPT = textwrap.dedent("""
+_BLOCK = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     BLOCKED = ("jax", "jaxlib", "ml_dtypes", "oryx_tpu")
@@ -31,11 +32,15 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     for mod in list(sys.modules):
         if any(mod == b or mod.startswith(b + ".") for b in BLOCKED):
             del sys.modules[mod]
+""")
 
+_BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
     import numpy as np
     import oryx_tpu_torch
+    # every module but the CLI's __main__, which runs the CLI
     names = [m.name for m in pkgutil.walk_packages(
-        oryx_tpu_torch.__path__, "oryx_tpu_torch.")]
+        oryx_tpu_torch.__path__, "oryx_tpu_torch.")
+        if m.name != "oryx_tpu_torch.__main__"]
     for name in names:
         importlib.import_module(name)
 
@@ -53,7 +58,10 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     # the benches and the probes import, and a toy probe runs
     for mod in ("bench.load", "bench.traffic", "bench.kernel_probe",
                 "bench.grid", "bench.fold_in", "bench.diag.lsh_mask_probe",
-                "bench.diag.smallf_probe", "ops.phase_a_qm"):
+                "bench.diag.smallf_probe", "ops.phase_a_qm",
+                "bench.datasets", "bench.train", "bench.sweep", "bench.apps",
+                "bench.coldstart", "bench.e2e_smoke", "deploy.main",
+                "deploy.warmup", "common.compile_cache", "ops.launches"):
         assert "oryx_tpu_torch." + mod in names, mod
     from oryx_tpu_torch.bench.kernel_probe import probe_model
     rec = probe_model(model, batch=8, m=1)
@@ -183,6 +191,33 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert proc.stdout.startswith("OK")
     # every module of the slice was imported, not just the package root
     assert int(proc.stdout.split()[1]) >= 20
+
+
+_CLI_SCRIPT = _BLOCK + textwrap.dedent("""
+    import runpy
+    sys.argv = ["oryx_tpu_torch", "--help"]
+    try:
+        runpy.run_module("oryx_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+    leaked = sorted(m for m in sys.modules
+                    if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+    assert not leaked, leaked
+""")
+
+
+def test_cli_help_with_jax_blocked():
+    """``python -m oryx_tpu_torch --help`` with the same block: it lists
+    every subcommand of the reference's CLI."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    for name in ("batch", "speed", "serving", "router", "autoscale",
+                 "mirror", "kafka-setup", "kafka-tail", "kafka-input",
+                 "warmup", "config-to-properties"):
+        assert name in proc.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

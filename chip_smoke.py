@@ -135,10 +135,17 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       speed model's own vectors (rtol 1e-4, atol 1e-5); then the serving
       layer must hold each user's last UP vector bit for bit, and each
       user's ``/recommend`` must be the NumPy top-10 of that vector with
-      its known items excluded.  A ``lambda`` line gives the generation's
-      seconds by stage, each layer's load seconds, the micro-batch's
-      seconds and the milliseconds from the last ``/pref`` to the serving
-      layer answering with the new vectors.
+      its known items excluded.  The batch and speed layers serve their
+      side doors (``oryx.obs.metrics-port``) and every layer traces: the
+      batch side door's ``/metrics`` must give the generation's freshness
+      gauges, the speed side door's the micro-batch's, and the first
+      ``/pref``, sent with a sampled ``traceparent``, must show up as a
+      ``speed.fold_in`` span on the speed side door's ``/admin/traces``
+      under the serving layer's request span of the same trace.  A
+      ``lambda`` line gives the generation's seconds by stage, each
+      layer's load seconds, the micro-batch's seconds, the milliseconds
+      from the last ``/pref`` to the serving layer answering with the new
+      vectors, and both side doors' gauges.
 6. The IVF index and the k-means app (6b's generation made by a child
    process while the earlier phases run):
    a. The IVF index at the reference's protocol catalog, 10,485,760 x 50
@@ -267,9 +274,40 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    in ``build/kernels``: phase 1 sets the cache directory to ``build``
    before any layer starts, and the first configuration wins.
 
+10. The observability surface (``obs``): a ``ServingLayer`` from
+    ``als-example.conf`` with every obs key on (tracing at sample ratio
+    1.0, an availability and a latency objective, the event log, the
+    flight recorder with no debounce, ``profile-dir``) loads phase 4's
+    1M x 50 model off a ``file://`` update topic of its own.  256
+    ``/recommend`` requests at 32 clients, for users u0-u255, run three
+    times: untimed, with the sample ratio at 0, and at 1.0 with every
+    count set to 0 (only the routed kind's kernel may launch).  The
+    sampled answers must equal the plain phase-A versions' (ids in
+    order, rtol 1e-5).  ``/metrics`` must count every request, book
+    ``serve`` device time to the routed kind and ``measure`` time to the
+    route, and give a ``device_busy_fraction`` in (0, 1]; the Prometheus
+    text must carry the routed kind's ``oryx_device_time_us_serve_*``
+    counter; every OpenMetrics exemplar must name a trace on
+    ``/admin/traces``, where each sampled request's tree is
+    ``serving.request`` over ``serving.queue_wait`` and
+    ``serving.device_execute`` (its ``kernel_route`` the route, its
+    ``batch_size`` at least 1), whose stages sum to the root.
+    ``/admin/profile?ms=500`` during a fourth burst must write a Chrome
+    trace holding events of the routed kernel's ``__global__``
+    functions, and a second capture meanwhile must get 503 (``profile``
+    line: the events and the card's busy share over the window from the
+    trace's kernel events, beside ``device_busy_fraction``).  The event
+    log must hold one line per sampled request with its batch fields, a
+    ``POST /admin/flight/dump`` bundle the device time and the card's
+    memory, and ``/admin/diagnose`` and ``/admin/slo`` must answer.  The
+    ``obs`` line gives both rounds' p50 / p99 beside phase 4's, the
+    mean batch, the stage shares, and ``bench.obs_overhead``'s
+    per-request nanoseconds, run in this process, beside the
+    reference's 10 µs budget for the unsampled pipeline.
+
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
 topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
-deploy = 9); the default runs every phase.  A partial run still ends
+deploy = 9, obs = 10); the default runs every phase.  A partial run still ends
 with the two summary lines, its ``kernels`` line listing only what it
 ran.
 
@@ -284,7 +322,9 @@ before the last is a JSON ``{"kernels": [...]}`` summary: each kernel's
 ``launches`` are the timed round of the first configuration whose
 route chose it (``served_config``; the head configuration where its
 route did), and ``route_launches`` that configuration's route
-measurement; a kernel that served no timed round fails the run.  The
+measurement (``deploy_launches`` phase 9's CLI-served process,
+``obs_launches`` phase 10's sampled round); a kernel that served no
+timed round fails the run.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -469,12 +509,19 @@ DEPLOY_USERS = 100
 DEPLOY_WAIT_S = 300.0
 COLD_RATINGS = 200_000
 COLD_RANK = 50
+# phase 10: the observability surface on phase 4's model
+OBS_REQUESTS = 256
+OBS_CLIENTS = 32
+OBS_PROFILE_MS = 500
+OBS_OVERHEAD_ITERATIONS = 100_000
+# the reference's budget for the unsampled per-request obs pipeline (µs)
+OBS_BUDGET_US = 10.0
 # the phase-A kinds of a hand-written kernel
 KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
-          "deploy")
+          "deploy", "obs")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -2096,6 +2143,11 @@ def loop_config(work_dir: str):
         "oryx.update-topic.message.max-size": LOOP_MAX_MESSAGE,
         # the run drives the micro-batch itself
         "oryx.speed.streaming.generation-interval-sec": 3600,
+        # the batch and speed layers' side doors, and tracing on every
+        # layer: only a request that arrives sampled is sampled
+        "oryx.obs.metrics-port": 0,
+        "oryx.obs.tracing.enabled": True,
+        "oryx.obs.tracing.sample-ratio": 0.0,
     }, from_file(conf))
 
 
@@ -2250,14 +2302,16 @@ def train_at_scale(work_dir: str, lam: float, alpha: float) -> dict:
     return line
 
 
-def post_prefs(port: int, events) -> float:
+def post_prefs(port: int, events, first_headers=None) -> float:
     """POST each (user, item, strength) to /pref on one kept-alive
-    connection; returns the host clock after the last answer."""
+    connection, the first with ``first_headers``; returns the host clock
+    after the last answer."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
-        for user, item, value in events:
+        for j, (user, item, value) in enumerate(events):
             conn.request("POST", f"/pref/{user}/{item}",
-                         body=f"{value}".encode())
+                         body=f"{value}".encode(),
+                         headers=(first_headers or {}) if j == 0 else {})
             resp = conn.getresponse()
             resp.read()
             check(resp.status == 204, f"lambda: /pref/{user}/{item} "
@@ -2326,6 +2380,20 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
     t0 = time.perf_counter()
     batch.run_one_generation()
     generation_s = time.perf_counter() - t0
+    # its side door: the freshness gauges after the generation
+    batch.obs_server.start()
+    try:
+        status, body, _ = http_call(batch.obs_server.port, "GET",
+                                    "/metrics")
+    finally:
+        batch.close()
+    batch_fresh = json.loads(body)["freshness"] if status == 200 else {}
+    check(batch_fresh.get("batch_generation_records")
+          == prepared["loop_lines"]
+          and batch_fresh.get("input_lag_records") == 0
+          and batch_fresh.get("batch_generation_age_sec") is not None,
+          f"lambda: the batch side door's /metrics gave {status}: "
+          f"{batch_fresh}")
     stages = dict(batch.update_instance.stage_s)
     check(broker.get_offsets(batch._group, in_topic)
           == broker.latest_offsets(in_topic),
@@ -2389,7 +2457,11 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
                    f"{rng.uniform(0.5, 3.0):.3f}")
                   for j in range(PREF_EVENTS)]
         t0 = time.perf_counter()
-        t_last_pref = post_prefs(serving.port, events)
+        # the first /pref arrives sampled: its trace follows the record
+        # to the speed layer's fold-in
+        trace_id = f"{int(rng.integers(1, 2**62)):032x}"
+        t_last_pref = post_prefs(serving.port, events, {
+            "traceparent": f"00-{trace_id}-{'1' * 16}-01"})
         pref_s = t_last_pref - t0
         new_data = broker.read_ranges(in_topic, in_before,
                                       broker.latest_offsets(in_topic))
@@ -2409,6 +2481,29 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
         micro_batch_s = time.perf_counter() - t0
         check(speed.last_micro_batch["records"] == PREF_EVENTS,
               f"lambda: the micro-batch read {speed.last_micro_batch}")
+        # the speed layer's side door: its freshness gauges, and the
+        # sampled /pref's fold-in span under the serving layer's
+        # request span
+        door = speed.obs_server.port
+        status, body, _ = http_call(door, "GET", "/metrics")
+        speed_fresh = json.loads(body)["freshness"] if status == 200 \
+            else {}
+        check(speed_fresh.get("micro_batch_records") == PREF_EVENTS
+              and speed_fresh.get("ingest_to_servable_ms") is not None
+              and speed_fresh.get("input_lag_records") == 0
+              and "update_lag_records" in speed_fresh,
+              f"lambda: the speed side door's /metrics gave {status}: "
+              f"{speed_fresh}")
+        request_spans = json.loads(http_call(
+            serving.port, "GET", "/admin/traces")[1])["traces"].get(
+                trace_id, [])
+        fold_spans = json.loads(http_call(
+            door, "GET", "/admin/traces")[1])["traces"].get(trace_id, [])
+        check([s["name"] for s in request_spans] == ["serving.request"]
+              and [s["name"] for s in fold_spans] == ["speed.fold_in"]
+              and fold_spans[0]["parent_id"] == request_spans[0]["span_id"],
+              f"lambda: trace {trace_id}: serving {request_spans}, speed "
+              f"{fold_spans}")
         ups = [json.loads(m.message) for m in broker.read_ranges(
             up_topic, up_before, broker.latest_offsets(up_topic))]
         want = expected_ups(new_data, snap, smodel.implicit)
@@ -2482,6 +2577,8 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
             "pref_to_answer_ms": answer_ms,
             "recommend_checked": len(pref_users),
             "recommend_same_ids": same,
+            "batch_freshness": batch_fresh, "speed_freshness": speed_fresh,
+            "fold_in_span_ms": fold_spans[0]["duration_ms"],
             "synth_s": prepared["synth_s"],
             "input_write_s": prepared["loop_write_s"]}
     log(line)
@@ -4331,6 +4428,336 @@ def deploy_phase(publisher, work_dir: str) -> dict:
     return serve
 
 
+# -- phase 10: the observability surface -------------------------------------
+
+def obs_config(work_dir: str):
+    """Phase 10's config: the port's example config with every obs key
+    on, on a file:// broker and directories of its own."""
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    obs = os.path.join(work_dir, "obs")
+    broker = "file://" + os.path.join(obs, "broker")
+    return overlay_on({
+        "oryx.update-topic.broker": broker,
+        "oryx.input-topic.broker": broker,
+        "oryx.als.sample-rate": LSH_RATE,
+        "oryx.obs.tracing.enabled": True,
+        "oryx.obs.tracing.sample-ratio": 1.0,
+        "oryx.obs.tracing.max-traces": 4 * OBS_REQUESTS,
+        "oryx.obs.slo.enabled": True,
+        "oryx.obs.slo.objectives": {
+            "availability": {"kind": "availability", "target": 0.999},
+            "latency": {"kind": "latency", "target": 0.99,
+                        "threshold-ms": 500}},
+        "oryx.obs.events.dir": os.path.join(obs, "events"),
+        "oryx.obs.flight.dir": os.path.join(obs, "flight"),
+        "oryx.obs.flight.dump-on-exit": False,
+        # every trigger dumps: the manual dump is never debounced away
+        "oryx.obs.flight.debounce-sec": 0.0,
+        "oryx.obs.profile-dir": os.path.join(obs, "profile"),
+    }, from_file(os.path.join(REPO, "oryx_tpu_torch", "conf",
+                              "als-example.conf")))
+
+
+def traced_call(port: int, method: str, path: str):
+    """(status, body, milliseconds, X-Oryx-Trace id or None) of one
+    request on a new connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, headers={"Accept": "application/json"})
+        resp = conn.getresponse()
+        out = resp.read()
+        return (resp.status, out, (time.perf_counter() - t0) * 1e3,
+                resp.getheader("X-Oryx-Trace"))
+    finally:
+        conn.close()
+
+
+def percentiles(times_ms) -> dict:
+    lat = sorted(times_ms)
+    return {"p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))]}
+
+
+def kernel_symbols(wrapper: str) -> list[str]:
+    """The ``__global__`` functions of a wrapper's CUDA source."""
+    with open(os.path.join(REPO, KERNELS[wrapper][1]),
+              encoding="utf-8") as f:
+        return re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                          r"\([^)]*\)\s*)?(\w+)\s*\(", f.read())
+
+
+def profile_kernels(trace_file: str, symbols: list[str],
+                    window_ms: float) -> dict:
+    """Kernel events of an ``/admin/profile`` Chrome trace: how many
+    name one of ``symbols``, and the card's busy share over the capture
+    window (the union of every kernel event's interval)."""
+    with open(trace_file, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    pattern = re.compile(r"\b(" + "|".join(symbols) + r")\b")
+    routed = [e for e in kernels if pattern.search(e.get("name", ""))]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in kernels):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    names = sorted({pattern.search(e["name"]).group(1) for e in routed})
+    return {"kernel_events": len(kernels), "routed_events": len(routed),
+            "routed_symbols": names, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / window_ms}
+
+
+def obs_phase(publisher, work_dir: str, topic: dict | None) -> dict:
+    """Phase 10: a ServingLayer from the example config with every obs
+    key on, over phase 4's model; its answers, /metrics, traces, tail,
+    profile, event log and flight recorder; the cost of observability."""
+    import torch
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.bench import obs_overhead
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+    from oryx_tpu_torch.obs import anatomy
+    from oryx_tpu_torch.obs.device_time import _label
+
+    label = "1M_50f_f32_lsh0.3_topic"
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(work_dir, "model")
+    publisher.join(TOPIC_WAIT_S)
+    check(publisher.exitcode == 0,
+          f"obs: publishing the model failed ({publisher.exitcode})")
+    with open(os.path.join(model_dir, "published.json"),
+              encoding="utf-8") as f:
+        published = json.load(f)
+    _, X, known = topic_data(TOPIC_SEED)
+    cfg = obs_config(work_dir)
+    free()
+    layer = ServingLayer(cfg, port=0)
+    # the load's /ready polls stay unsampled: the ring keeps the bursts
+    layer.tracer.sample_ratio = 0.0
+    try:
+        layer.start()
+        port, mgr = layer.port, layer.model_manager
+        producer = InProcTopicProducer(
+            cfg.get_string("oryx.update-topic.broker"),
+            cfg.get_string("oryx.update-topic.message.topic"))
+        t0 = time.perf_counter()
+        producer.send("MODEL-REF", slices.model_ref_message(
+            os.path.join(model_dir, "model.pmml.xml"), model_dir,
+            published["manifest"]))
+        for u in range(N_USERS):
+            producer.send("UP", json.dumps(
+                ["X", f"u{u}", [float(v) for v in X[u]], known[f"u{u}"]]))
+        producer.close()
+        last = f"u{N_USERS - 1}"
+        wait_for(lambda: http_call(port, "GET", "/ready")[0] == 204
+                 and mgr.get_model()._route is not None
+                 and mgr.get_model().get_known_items(last)
+                 == set(known[last]),
+                 "obs: /ready, the route and the UP records", TOPIC_WAIT_S)
+        load_s = time.perf_counter() - t0
+        model = mgr.get_model()
+        kind = routed_kind(model)
+        check(kind in KERNEL_KINDS, f"obs: the route chose {kind!r}")
+        expected = next(k for k, v in KERNELS.items() if v[2] == kind)
+        route_label = model.kernel_route_label
+        users = [f"u{u}" for u in range(OBS_REQUESTS)]
+        paths = [f"/recommend/{u}?howMany=10" for u in users]
+
+        def burst(ratio: float) -> list:
+            layer.tracer.sample_ratio = ratio
+            with concurrent.futures.ThreadPoolExecutor(OBS_CLIENTS) as pool:
+                out = list(pool.map(
+                    lambda p: traced_call(port, "GET", p), paths))
+            for path, (status, body, _, _) in zip(paths, out):
+                check(status == 200,
+                      f"obs: {path} gave {status}: {body[:300]}")
+            return out
+
+        burst(1.0)  # untimed: the batcher learns its pacing
+        unsampled = burst(0.0)
+        check(all(r[3] is None for r in unsampled),
+              "obs: an unsampled response carried X-Oryx-Trace")
+        torch.cuda.synchronize()
+        reset_launches()
+        sampled = burst(1.0)
+        launches = read_launches()
+        check(launches[expected] > 0,
+              f"obs: {expected} launched no time: {launches}")
+        check(all(v == 0 for k, v in launches.items() if k != expected),
+              f"obs: another kernel than {expected} launched: {launches}")
+        trace_ids = [r[3] for r in sampled]
+        check(all(t and re.fullmatch(r"[0-9a-f]{32}", t)
+                  for t in trace_ids), "obs: a sampled answer lacks its "
+              "X-Oryx-Trace id")
+
+        # the answers, against the same model's plain phase-A versions
+        Q = np.stack([X[int(u[1:])] for u in users])
+        excl = [set(known[u]) for u in users]
+        want, _ = reference_top_n_batch(model, 10, Q, excl)
+        for path, (_, body, _, _), w in zip(paths, sampled, want):
+            got = [(d["id"], d["value"]) for d in json.loads(body)]
+            check(len(got) == 10 and all(np.isfinite(v) for _, v in got),
+                  f"obs: {path} gave {got}")
+            same_answers(got, w, RTOL["float32"], f"obs {path}")
+
+        # /metrics: JSON, Prometheus, OpenMetrics
+        route = "GET /recommend/{userID}"
+        metrics = json.loads(http_call(port, "GET", "/metrics")[1])
+        count = metrics["routes"][route]["count"]
+        check(count == 3 * OBS_REQUESTS,
+              f"obs: /metrics counts {count} of {3 * OBS_REQUESTS} requests")
+        by_route = metrics["device_time"]["by_route"]
+        serve = [r for r in by_route if r["route_class"] == "serve"
+                 and r["kernel_route"] == _label(route_label)]
+        check(serve, f"obs: no serve entry for {route_label}: {by_route}")
+        check(any(r["route_class"] == "measure" for r in by_route),
+              f"obs: no measure entry: {by_route}")
+        busy = metrics["freshness"]["device_busy_fraction"]
+        check(0.0 < busy <= 1.0, f"obs: device_busy_fraction {busy}")
+        prom = http_call(port, "GET", "/metrics?format=prometheus")[1]\
+            .decode()
+        counter = f"oryx_device_time_us_serve_{_label(route_label)}_total"
+        check(counter in prom, f"obs: {counter} not in the exposition")
+        om = http_call(port, "GET", "/metrics?format=openmetrics")[1]\
+            .decode()
+        check(om.endswith("# EOF\n"), "obs: OpenMetrics lacks # EOF")
+        exemplars = set(re.findall(r'# \{trace_id="([0-9a-f]{32})"\}', om))
+        traces = json.loads(http_call(
+            port, "GET", f"/admin/traces?limit={4 * OBS_REQUESTS}")[1])[
+                "traces"]
+        check(exemplars and exemplars <= set(traces),
+              f"obs: exemplars {sorted(exemplars - set(traces))} are not "
+              f"on /admin/traces")
+
+        # /admin/traces: each sampled request's tree
+        batches, sums_off = [], 0.0
+        for tid in trace_ids:
+            spans = traces.get(tid)
+            check(spans is not None, f"obs: trace {tid} not on the ring")
+            by_name = {s["name"]: s for s in spans}
+            check(set(by_name) == {"serving.request", "serving.queue_wait",
+                                   "serving.device_execute"},
+                  f"obs: trace {tid} has spans {sorted(by_name)}")
+            root = by_name["serving.request"]
+            ex = by_name["serving.device_execute"]
+            check(ex["parent_id"] == root["span_id"] ==
+                  by_name["serving.queue_wait"]["parent_id"],
+                  f"obs: trace {tid} parentage")
+            check(ex["attrs"].get("kernel_route") == route_label
+                  and ex["attrs"].get("batch_size", 0) >= 1,
+                  f"obs: trace {tid} execute attrs {ex['attrs']}")
+            batches.append(ex["attrs"]["batch_size"])
+            stages = anatomy.analyze_trace(spans)
+            sums_off = max(sums_off, abs(sum(stages["stages"].values())
+                                         - stages["total_ms"]))
+        check(sums_off <= 0.0005 * (len(anatomy.STAGES) + 1),
+              f"obs: stages miss their root by {sums_off} ms")
+        tail = json.loads(http_call(
+            port, "GET", f"/admin/tail?limit={4 * OBS_REQUESTS}&k=5")[1])
+        for entry in tail["top"]:
+            check(abs(sum(entry["stages"].values()) - entry["total_ms"])
+                  <= 0.0005 * (len(anatomy.STAGES) + 1),
+                  f"obs: /admin/tail stages miss {entry['trace_id']}")
+        mean_total = sum(v["mean_ms"] for v in tail["stages"].values())
+        stage_share = {k: v["mean_ms"] / mean_total
+                       for k, v in tail["stages"].items() if v["mean_ms"]}
+
+        # /admin/profile over a second burst; a second capture meanwhile
+        # gets 503
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            traffic = pool.submit(burst, 1.0)
+            time.sleep(0.05)
+            capture = pool.submit(http_call, port, "GET",
+                                  f"/admin/profile?ms={OBS_PROFILE_MS}")
+            time.sleep(0.15)
+            second = http_call(port, "GET", "/admin/profile?ms=10")
+            traffic.result()
+            status, body, _ = capture.result()
+        check(status == 200, f"obs: /admin/profile gave {status}: "
+              f"{body[:300]}")
+        check(second[0] == 503, f"obs: a concurrent capture gave "
+              f"{second[0]}, not 503")
+        profile = json.loads(body)
+        check(profile["activities"] == ["CPU", "CUDA"],
+              f"obs: the capture recorded {profile['activities']}")
+        busy_after = json.loads(http_call(port, "GET", "/metrics")[1])[
+            "freshness"]["device_busy_fraction"]
+        seen = profile_kernels(profile["trace_file"],
+                               kernel_symbols(expected),
+                               profile["captured_ms"])
+        check(seen["routed_events"] > 0,
+              f"obs: the capture holds no event of {expected}'s kernels "
+              f"({seen['kernel_events']} kernel events)")
+        log({"phase": "profile", "config": label, "kernel": expected,
+             "requested_ms": profile["requested_ms"],
+             "captured_ms": profile["captured_ms"], **seen,
+             "device_busy_fraction": busy_after,
+             "trace_bytes": os.path.getsize(profile["trace_file"]),
+             "second_capture_status": second[0]})
+
+        # the wide-event log: one line per sampled request
+        events_dir = cfg.get_string("oryx.obs.events.dir")
+        lines = []
+        for name in os.listdir(events_dir):
+            with open(os.path.join(events_dir, name), encoding="utf-8") as f:
+                lines += [json.loads(x) for x in f]
+        rec = [e for e in lines if e["route"] == route and e["sampled"]]
+        check(len(rec) == 3 * OBS_REQUESTS,
+              f"obs: {len(rec)} event lines for {3 * OBS_REQUESTS} "
+              f"sampled requests")
+        check(all(e.get("kernel_route") == route_label
+                  and e.get("batch_size", 0) >= 1 and "queue_wait_ms" in e
+                  for e in rec), "obs: an event line lacks its batch fields")
+
+        # the flight recorder, /admin/diagnose, /admin/slo
+        status, body, _ = http_call(port, "POST", "/admin/flight/dump")
+        dump = json.loads(body)
+        check(status == 200 and dump["dumped"], f"obs: dump gave {dump}")
+        with open(dump["path"], encoding="utf-8") as f:
+            bundle = json.load(f)
+        check(bundle["device_time"]["by_route"]
+              and bundle["device_memory"][0]["memory_stats"][
+                  "bytes_in_use"] > 0,
+              "obs: the bundle lacks the device time or the card's memory")
+        for path in ("/admin/diagnose", "/admin/slo"):
+            status = http_call(port, "GET", path)[0]
+            check(status == 200, f"obs: {path} gave {status}")
+        diagnosis = json.loads(http_call(port, "GET",
+                                         "/admin/diagnose")[1])
+    finally:
+        layer.close()
+    check(not layer.consuming, "obs: the consumer outlived close()")
+
+    # the cost of observability: the rounds against phase 4's, and the
+    # hot-path microbench in this process
+    over = obs_overhead.run_bench(iterations=OBS_OVERHEAD_ITERATIONS)
+    micro = over["microbench_ns_per_request"]
+    line = {"phase": "obs", "config": label, "kind": kind,
+            "route": route_label, "load_s": load_s,
+            "requests": OBS_REQUESTS, "concurrency": OBS_CLIENTS,
+            "launches": launches,
+            "sampled": percentiles(r[2] for r in sampled),
+            "unsampled": percentiles(r[2] for r in unsampled),
+            "phase4": ({k: topic[k] for k in ("p50_ms", "p99_ms",
+                                              "requests")}
+                       if topic else None),
+            "mean_batch": float(np.mean(batches)),
+            "device_busy_fraction": busy,
+            "device_time": metrics["device_time"],
+            "tail_stage_share": tail["tail"]["stage_share"],
+            "mean_stage_share": stage_share,
+            "event_lines": len(rec), "flight_dumps": 1,
+            "diagnosis": [c["cause"] for c in diagnosis["causes"]],
+            "overhead_ns": micro, "overhead_budget_us": OBS_BUDGET_US,
+            "overhead_worst_unsampled_us":
+                micro["unsampled_recorder_armed"] / 1e3,
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    return line
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -4391,7 +4818,7 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(work_dir, "ann_model"))
     spawn = multiprocessing.get_context("spawn")
     children = {}
-    if "topic" in phases or "deploy" in phases:
+    if phases & {"topic", "deploy", "obs"}:
         children["publisher"] = spawn.Process(
             target=publish_topic_model,
             args=(os.path.join(work_dir, "model"), TOPIC_SEED), daemon=True)
@@ -4460,6 +4887,12 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
     if "deploy" in phases:
         # phase 9: the operator entry point, warmup and the kernel cache
         deploy = deploy_phase(children["publisher"], work_dir)
+    obs = None
+    if "obs" in phases:
+        # phase 10: the observability surface on phase 4's model
+        obs = obs_phase(children["publisher"], work_dir,
+                        serves.get("1M_50f_f32_lsh0.3_topic"))
+        free()
     if "serving" in phases:
         entries = product_entries(cases, serves) + entries
     if deploy is not None:
@@ -4467,6 +4900,11 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         for entry in entries:
             if entry["name"] in deploy["launches"]:
                 entry["deploy_launches"] = deploy["launches"][entry["name"]]
+    if obs is not None:
+        # the routed kernel's launches in phase 10's sampled round
+        for entry in entries:
+            if entry["name"] in obs["launches"]:
+                entry["obs_launches"] = obs["launches"][entry["name"]]
     check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start,
          "phases": sorted(phases, key=PHASES.index)})

@@ -95,6 +95,9 @@ class ALSServingModelManager(AbstractServingModelManager):
         # slices bulk-loaded, and fallbacks to the monolithic artifacts
         self.slice_loads = 0
         self.slice_load_fallbacks = 0
+        # artifact bytes the last slice load read (the model_slice_bytes
+        # gauge)
+        self.model_slice_bytes = 0
         # seconds from MODEL(-REF) receipt to a servable model: the
         # artifact paths stamp it when their load crosses the serving
         # gate, the replay path when the UP stream does
@@ -241,6 +244,7 @@ class ALSServingModelManager(AbstractServingModelManager):
             ring = int(manifest["ring"])
             owned = slices.owned_slices(ring, 0, 1)
             features = self.model.features
+            total_bytes = 0
             entries = {int(e["slice"]): e for e in manifest["slices"]}
             self._ann_centroid_entry = manifest.get("ann")
             for s in owned:
@@ -248,6 +252,7 @@ class ALSServingModelManager(AbstractServingModelManager):
                     model_dir, entries[s], features)
                 if ids:
                     self.model.bulk_load_items(ids, matrix)
+                total_bytes += int(entries[s].get("bytes", 0))
                 self._collect_slice_ann(model_dir, entries[s], ids)
             x_ids, X, known = slices.read_x_known(
                 model_dir, manifest["x"], features)
@@ -256,9 +261,12 @@ class ALSServingModelManager(AbstractServingModelManager):
                 for uid, items in zip(x_ids, known):
                     if items:
                         self.model.add_known_items(uid, items)
+            total_bytes += int(manifest["x"].get("bytes", 0))
             self.slice_loads += len(owned)
-            _log.info("Slice-loaded %d slices (%d items, %d users)",
-                      len(owned), len(self.model.Y), len(self.model.X))
+            self.model_slice_bytes = total_bytes
+            _log.info("Slice-loaded %d slices (%d items, %d users, %d "
+                      "bytes)", len(owned), len(self.model.Y),
+                      len(self.model.X), total_bytes)
         except (slices.SliceIntegrityError, OSError, KeyError, IndexError,
                 TypeError, ValueError) as e:
             self.slice_load_fallbacks += 1

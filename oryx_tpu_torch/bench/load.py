@@ -137,6 +137,11 @@ class _Client:
 
     def get(self, path: str) -> bool:
         """GET ``path``, read the whole response; whether it was a 200."""
+        return self.get_traced(path)[0]
+
+    def get_traced(self, path: str) -> tuple[bool, str | None]:
+        """GET ``path``, read the whole response; whether it was a 200,
+        and the ``X-Oryx-Trace`` id a sampled response carries."""
         self.connect()
         self.conn.sendall(f"GET {path} HTTP/1.1\r\nHost: a\r\n\r\n"
                           .encode("latin-1"))
@@ -145,19 +150,22 @@ class _Client:
             raise ConnectionError("closed")
         status = int(status_line.split(b" ", 2)[1])
         clen = 0
+        trace = None
         while True:
             h = self.rfile.readline(65537)
             if h in (b"\r\n", b"\n", b""):
                 break
             if h[:15].lower() == b"content-length:":
                 clen = int(h[15:])
+            elif h[:13].lower() == b"x-oryx-trace:":
+                trace = h[13:].strip().decode("latin-1")
         remaining = clen
         while remaining:
             got = self.rfile.read(remaining)
             if not got:
                 raise ConnectionError("short body")
             remaining -= len(got)
-        return status == 200
+        return status == 200, trace
 
     def close(self) -> None:
         if self.conn is not None:
@@ -196,8 +204,9 @@ def run_recommend_load(base_url: str, user_ids: list[str],
                 path = (f"{path_prefix}/recommend/{user_ids[picks[i]]}"
                         f"?howMany={how_many}")
                 start = time.perf_counter()
+                trace = None
                 try:
-                    ok = client.get(path)
+                    ok, trace = client.get_traced(path)
                 except Exception:  # noqa: BLE001 — counted as error
                     ok = False
                     client.close()
@@ -248,9 +257,11 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
     transport; this measures the server.  Saturation shows as achieved
     qps below offered and a growing scheduled-to-completion tail.
 
-    Users are drawn uniformly.  The reference's Zipf draw, cache-bust
-    argument and X-Oryx-Cache / X-Oryx-Trace tallies serve its result
-    cache and tracing, which the port does not have yet."""
+    Users are drawn uniformly.  Sampled responses' ``X-Oryx-Trace`` ids
+    are tallied: ``worst_sampled`` names the recorded trace (on
+    ``/admin/traces``) behind each of the five slowest.  The reference's
+    Zipf draw, cache-bust argument and X-Oryx-Cache tally serve its
+    serving cluster's result cache, which the port does not have yet."""
     rng = RandomManager.random()
     n = max(1, int(rate_qps * duration_sec))
     arrivals = np.cumsum(rng.exponential(1.0 / rate_qps, n))
@@ -260,6 +271,8 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
     latencies: list[float] = []
     lateness: list[float] = []
     done_ts: list[float] = []
+    # (latency_ms, X-Oryx-Trace id) of the sampled responses
+    traced: list[tuple[float, str]] = []
     errors = [0]
     lock = threading.Lock()
     next_index = [0]
@@ -281,8 +294,9 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
                 late = max(0.0, time.perf_counter() - scheduled)
                 path = (f"{path_prefix}/recommend/{user_ids[picks[i]]}"
                         f"?howMany={how_many}")
+                trace = None
                 try:
-                    ok = client.get(path)
+                    ok, trace = client.get_traced(path)
                 except Exception:  # noqa: BLE001 — counted as error
                     ok = False
                     client.close()
@@ -293,6 +307,8 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
                     if ok:
                         latencies.append(ms)
                         done_ts.append(done - t0)
+                        if trace:
+                            traced.append((ms, trace))
                     else:
                         errors[0] += 1
         finally:
@@ -344,10 +360,16 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
         q3 = float(np.mean(late[n_l // 2:3 * n_l // 4]))
         q4 = float(np.mean(late[3 * n_l // 4:]))
         growing = q4 > q3 + 200.0  # ms of drift across ~1/4 of the run
+    # the worst sampled requests, slowest first: each id names a recorded
+    # span tree on /admin/traces, so a bad p99 splits into queue wait
+    # and device execute
+    worst = [{"ms": round(ms, 1), "trace": t}
+             for ms, t in sorted(traced, reverse=True)[:5]]
     return {
         "offered_qps": round(rate_qps, 1),
         "achieved_qps": round(achieved, 1),
         "errors": errors[0],
+        "worst_sampled": worst,
         "p50_ms": round(float(np.percentile(lat, 50)), 1) if len(lat) else None,
         "p95_ms": round(float(np.percentile(lat, 95)), 1) if len(lat) else None,
         "p99_ms": round(float(np.percentile(lat, 99)), 1) if len(lat) else None,

@@ -91,6 +91,9 @@ class Config:
     def get_optional_string(self, path: str) -> str | None:
         return self._optional(path, self.get_string)
 
+    def get_optional_int(self, path: str) -> int | None:
+        return self._optional(path, self.get_int)
+
     def get_optional_double(self, path: str) -> float | None:
         return self._optional(path, self.get_double)
 

@@ -7,13 +7,11 @@ data (SaveToHDFSFunction), commit the offsets (UpdateOffsetsFn), and
 TTL-delete old data and models (DeleteOldDataFn)).  A host-side
 generation loop hands the data to the configured ``BatchLayerUpdate``
 (a class of this package), whose training runs on ``device`` (None
-means ``cuda``).
-
-Not part of this package yet, each refused with an error naming its
-key: the side-door metrics server and the freshness gauges, tracing,
-the event log and the flight recorder (``oryx.obs.metrics-port``,
-``oryx.obs.tracing.enabled``, ``oryx.obs.events.dir``,
-``oryx.obs.flight.dir``).
+means ``cuda``).  The layer serves no public HTTP: its freshness gauges
+(``input_lag_records``, ``batch_generation_age_sec`` and the last
+generation's duration and records), traces and flight recorder answer
+on the side-door ``ObsServer`` at ``oryx.obs.metrics-port``, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -23,21 +21,20 @@ import threading
 import time
 
 from ..common import compile_cache
-from ..common.config import Config, refuse_configured
+from ..common.config import Config
 from ..common.lang import load_instance
 from ..kafka import utils as kafka_utils
 from ..kafka.api import KeyMessage
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
+from ..obs import flight_from_config, freshness, tracer_from_config
+from ..obs.server import ObsServer
 from ..resilience import faults
 from . import data_store
+from .metrics import MetricsRegistry
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["BatchLayer", "OBS_KEYS"]
-
-# the observability keys of the headless layers (queue item 3b)
-OBS_KEYS = ("oryx.obs.metrics-port", "oryx.obs.tracing.enabled",
-            "oryx.obs.events.dir", "oryx.obs.flight.dir")
+__all__ = ["BatchLayer"]
 
 
 class BatchLayer:
@@ -45,9 +42,6 @@ class BatchLayer:
     (None means ``cuda``) goes to the update class, which trains there."""
 
     def __init__(self, config: Config, device=None):
-        refuse_configured(config, OBS_KEYS,
-                          "the batch layer's observability surface is not "
-                          "part of this package yet")
         self.config = config
         self.id = config.get_optional_string("oryx.id")
         self.input_broker = config.get_string("oryx.input-topic.broker")
@@ -73,12 +67,34 @@ class BatchLayer:
         faults.configure_from_config(config)
         # the last generation's count of new input records
         self.last_generation_records = 0
+        # the freshness surface, read through the side door: the batch
+        # cadence seen from the producing side (the consuming layers
+        # report their own model_generation_age_sec)
+        self.metrics = MetricsRegistry()
+        self._last_generation_mono: float | None = None
+        self.metrics.gauge_fn(
+            "input_lag_records",
+            freshness.group_lag_fn(self.input_broker, self.input_topic,
+                                   self._group))
+        self.metrics.gauge_fn("batch_generation_age_sec",
+                              self._generation_age_sec)
+        # flight recorder (obs/flight.py; None until the config gate
+        # opens): a chaos fault mid-generation leaves a bundle
+        self.flight = flight_from_config(config, "batch", self.metrics)
+        self.obs_server = ObsServer(config, self.metrics,
+                                    tracer_from_config(config, "batch"),
+                                    extra_context={"flight": self.flight})
+
+    def _generation_age_sec(self) -> float | None:
+        t = self._last_generation_mono
+        return None if t is None else round(time.monotonic() - t, 3)
 
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
         _log.info("Starting batch layer (generation interval %ds)",
                   self.generation_interval_sec)
+        self.obs_server.start()
         compile_cache.enable_from_config(self.config)
         # create the input topic at its configured partition count before
         # any lazy access can freeze it at one partition
@@ -95,6 +111,9 @@ class BatchLayer:
 
     def close(self) -> None:
         self._stop.set()
+        if self.flight is not None:
+            self.flight.close()
+        self.obs_server.close()
         if self._thread:
             self._thread.join(10.0)
 
@@ -140,6 +159,7 @@ class BatchLayer:
         order gives at-least-once with idempotent overwrite (the
         reference's semantics)."""
         timestamp_ms = int(time.time() * 1000)
+        t_gen = time.monotonic()
         broker = resolve_broker(self.input_broker)
         self._recover_offsets(broker)
         # per-partition offsets; the first run reads each partition from
@@ -179,3 +199,9 @@ class BatchLayer:
         data_store.delete_old_data(self.data_dir, self.max_age_data_hours)
         data_store.delete_old_models(self.model_dir, self.max_age_model_hours)
         self.last_generation_records = len(new_data)
+        # freshness bookkeeping only after the generation fully landed
+        self._last_generation_mono = time.monotonic()
+        self.metrics.set_gauge(
+            "batch_generation_duration_ms",
+            round((self._last_generation_mono - t_gen) * 1000.0, 3))
+        self.metrics.set_gauge("batch_generation_records", len(new_data))

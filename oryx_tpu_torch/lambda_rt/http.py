@@ -6,9 +6,12 @@ ServingLayer.java:58-339, OryxApplication.java:41-98,
 CSVMessageBodyWriter.java:39, ErrorResource.java:36), cut down to
 HTTP/1.1: route patterns with path variables (including multi-segment
 tails), JSON/CSV content negotiation, gzip, plain-text and HTML error
-pages, per-request deadlines and read-only gating.  HTTP/2, TLS, DIGEST
-auth and the admission, result-cache and observability hooks come with
-later slices.
+pages, per-request deadlines, read-only gating, and the observability
+hooks of the dispatcher (the metrics registry's per-route record with a
+trace exemplar, the request span and its ``X-Oryx-Trace`` echo, the
+wide-event line and the flight recorder's ring append).  HTTP/2, TLS,
+DIGEST auth and the serving cluster's admission and result-cache hooks
+come with later slices.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import gzip
 import html as html_mod
 import json
 import re
+import time
 import urllib.parse
 from http.server import ThreadingHTTPServer
 from typing import Any, Callable, NamedTuple
@@ -199,6 +203,18 @@ class HttpApp:
                  request_deadline_ms: int = 0):
         self._routes = [(r, _compile(r.pattern)) for r in routes]
         self.context = context
+        # the dispatcher records into the registry /metrics reads
+        self.metrics = context.get("metrics")
+        # request tracing (obs/trace.py): None = disabled, and the whole
+        # apparatus costs one attribute check per request
+        self.tracer = context.get("tracer")
+        self._request_span = (f"{self.tracer.service}.request"
+                              if self.tracer is not None else None)
+        # wide-event request log (obs/events.py): None = disabled
+        self.events = context.get("events")
+        # flight recorder (obs/flight.py): None = disabled; armed it
+        # costs one ring append per request in the finally block
+        self.flight = context.get("flight")
         self.read_only = read_only
         self.context_path = "" if context_path in ("/", "") \
             else context_path.rstrip("/")
@@ -247,10 +263,59 @@ class HttpApp:
         handler.rfile.read(length)
 
     def handle(self, handler) -> None:
+        t0 = time.perf_counter()
+        handler._oryx_route = None
+        handler._oryx_status = 0
+        # reset per request: a handler object serves every request of a
+        # keep-alive connection, and a stale trace id must not leak onto
+        # the next response's X-Oryx-Trace header
+        handler._oryx_trace = None
+        span = None
+        if self.tracer is not None:
+            # a sampled (or inbound-sampled) request gets a request span
+            # and echoes X-Oryx-Trace; an unsampled one gets the shared
+            # no-op span — one branch, no allocation
+            span = self.tracer.begin_request(
+                self._request_span, handler.headers.get("Traceparent"))
+            if span.sampled:
+                handler._oryx_trace = span.trace_id
         try:
             self._handle(handler)
         except BrokenPipeError:  # client went away
             pass
+        finally:
+            self._observe(handler, span, t0)
+
+    def _observe(self, handler, span, t0: float) -> None:
+        """The per-request observability tail: every hook is best-effort
+        inside (a failing recorder degrades to a counter), so none can
+        fail the request it observes."""
+        route = handler._oryx_route or "unmatched"
+        status = handler._oryx_status
+        trace_id = handler._oryx_trace
+        if self.metrics is not None:
+            # unmatched paths pool under one bucket so scanners can't
+            # grow the registry; status 0 means the request died before
+            # any response was written.  A sampled request's trace id
+            # rides along as its latency bucket's exemplar.
+            self.metrics.record(route, status, time.perf_counter() - t0,
+                                trace_id=trace_id)
+        if span is not None and span.sampled:
+            self.tracer.end_request(span, status=status,
+                                    route=handler._oryx_route)
+        if self.events is None and self.flight is None:
+            return
+        # after end_request, so the request span and the batcher's
+        # retroactive spans are in the ring
+        dur_ms = (time.perf_counter() - t0) * 1000.0
+        spans = self.tracer.spans_for(trace_id) \
+            if self.tracer is not None and trace_id else None
+        if self.events is not None and self.events.should_emit(
+                status, dur_ms, trace_id is not None):
+            self.events.emit(route, status, dur_ms, trace_id, spans)
+        if self.flight is not None:
+            self.flight.observe_request(route, status, dur_ms, trace_id,
+                                        spans)
 
     def _handle(self, handler) -> None:
         parsed = urllib.parse.urlparse(handler.path)
@@ -269,6 +334,7 @@ class HttpApp:
             matched_path = True
             if route.method != lookup_method:
                 continue
+            handler._oryx_route = f"{route.method} {route.pattern}"
             if route.mutates and self.read_only:
                 self._send_error(handler, 403, "endpoint is read-only")
                 self._drain_body(handler)
@@ -324,15 +390,24 @@ class HttpApp:
     def _send(self, handler, result, head_only: bool, accept: str,
               gzip_ok: bool) -> None:
         status, result, extra_headers = _split_result(result)
+        trace_id = getattr(handler, "_oryx_trace", None)
         if result is None:
             status = status if status != 200 else 204
+            handler._oryx_status = status
             handler.send_response(status)
+            if trace_id:
+                handler.send_header("X-Oryx-Trace", trace_id)
             for k, v in extra_headers.items():
                 handler.send_header(k, v)
             handler.end_headers()
             return
+        handler._oryx_status = status
         payload, ctype = json_or_csv(result, accept)
         handler.send_response(status)
+        if trace_id:
+            # a sampled request: hand the trace id back, so a slow answer
+            # can be matched with its recorded trace (/admin/traces)
+            handler.send_header("X-Oryx-Trace", trace_id)
         for k, v in extra_headers.items():
             handler.send_header(k, v)
         handler.send_header("Content-Type", ctype)
@@ -354,9 +429,13 @@ class HttpApp:
         # uniform error page, HTML for browsers (reference:
         # ErrorResource.java:36, wired as the error page for every
         # status by ServingLayer.java:305-311)
+        handler._oryx_status = status
         payload, ctype = render_error_page(
             status, None, message, handler.headers.get("Accept", ""))
         handler.send_response(status)
+        trace_id = getattr(handler, "_oryx_trace", None)
+        if trace_id:
+            handler.send_header("X-Oryx-Trace", trace_id)
         for k, v in (headers or {}).items():
             handler.send_header(k, v)
         handler.send_header("Content-Type", ctype)

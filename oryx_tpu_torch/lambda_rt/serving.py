@@ -13,12 +13,15 @@ routes plus those of ``oryx.serving.application-resources`` through
 configured input topic is created at start with
 ``oryx.input-topic.partitions`` partitions, and ``/pref`` and
 ``/ingest`` append to it through a producer with retry and a circuit
-breaker, behind the ingest admission gate.  Not part of this package
-yet: TLS and authentication (a configured keystore, user name or
-password raises), the serving cluster (``oryx.cluster.enabled`` raises:
-the ``/shard/*`` routes, heartbeats, the frame transport and the result
-cache), and tracing, the SLO engine, the event log
-and the flight recorder (each of ``UNPORTED_OBS_KEYS`` raises).
+breaker, behind the ingest admission gate.  The observability surface is the
+reference's: the metrics registry behind ``/metrics``, device-time
+accounting, the freshness and model-load gauges, and, each behind its
+``oryx.obs.*`` gate, tracing, the SLO engine, the wide-event log, the
+flight recorder and ``/admin/profile``.  Not part of this package yet:
+TLS and authentication (a configured keystore, user name or password
+raises) and the serving cluster (``oryx.cluster.enabled`` raises: the
+``/shard/*`` routes, heartbeats, the frame transport and the result
+cache).
 """
 
 from __future__ import annotations
@@ -32,22 +35,25 @@ from ..common.config import refuse_configured
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
+from ..obs import (DeviceTimeAccountant, engine_from_config,
+                   events_from_config, flight_from_config, freshness,
+                   install_process_accountant, tracer_from_config)
+from ..obs import profile as profile_mod
 from ..resilience import faults
 from ..resilience.policy import (CircuitBreaker, ResilientTopicProducer,
                                  Retry, run_with_resubscribe)
 from ..serving.batcher import TopNBatcher
 from ..serving.ingest import IngestGate
 from .http import HttpApp, Route, make_server
+from .metrics import MetricsRegistry
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["ServingLayer", "UNPORTED_CLUSTER_KEYS", "UNPORTED_OBS_KEYS"]
+__all__ = ["ServingLayer", "UNPORTED_CLUSTER_KEYS"]
 
 # keys of the reference's layer whose features this package does not
 # have yet: each raises by name rather than being quietly ignored
 UNPORTED_CLUSTER_KEYS = ("oryx.cluster.enabled",)
-UNPORTED_OBS_KEYS = ("oryx.obs.tracing.enabled", "oryx.obs.slo.enabled",
-                     "oryx.obs.events.dir", "oryx.obs.flight.dir")
 
 
 class ServingLayer:
@@ -66,10 +72,6 @@ class ServingLayer:
         refuse_configured(config, UNPORTED_CLUSTER_KEYS,
                           "the serving cluster (/shard routes, heartbeats, "
                           "frame transport) is not part of this package yet")
-        refuse_configured(config, UNPORTED_OBS_KEYS,
-                          "the serving layer's tracing, SLO engine, event log "
-                          "and flight recorder are not part of this package "
-                          "yet")
         self.port = port if port is not None else config.get_int(
             f"{api}.port")
         self.read_only = config.get_bool(f"{api}.read-only")
@@ -113,10 +115,56 @@ class ServingLayer:
         if not self.ingest_gate.enabled:
             self.ingest_gate = None
         idle_ms = config.get_int(f"{api}.batch-idle-wait-ms")
+        # sampled tracing (obs/trace.py; None = disabled): the request
+        # span starts at the HTTP dispatcher, the batcher splits
+        # queue-wait from device-execute under it
+        self.tracer = tracer_from_config(config, "serving")
+        self.metrics = MetricsRegistry()
+        # continuous device-time accounting (obs/device_time.py): the
+        # batcher books serve-class brackets, the kernel router books
+        # its measure-class sweeps through the process-level hook
+        self.device_time = DeviceTimeAccountant(self.metrics)
+        install_process_accountant(self.device_time)
         self.top_n_batcher = TopNBatcher(
             max_batch=config.get_int(f"{api}.max-batch"),
             pipeline=config.get_int(f"{api}.scoring-pipeline-depth"),
-            idle_wait_s=None if idle_ms < 0 else idle_ms / 1000.0)
+            idle_wait_s=None if idle_ms < 0 else idle_ms / 1000.0,
+            tracer=self.tracer, accountant=self.device_time)
+        self._register_gauges()
+        # SLO burn-rate engine (obs/slo.py; None = disabled): evaluated
+        # lazily whenever the gauges are read, alert state at /admin/slo
+        self.slo_engine = engine_from_config(config, self.metrics)
+        if self.slo_engine is not None:
+            self.metrics.gauge_fn("slo_burn_rate",
+                                  self.slo_engine.burn_gauge)
+            self.metrics.gauge_fn("slo_error_budget_remaining",
+                                  self.slo_engine.budget_gauge)
+        # wide-event request log (obs/events.py; None = disabled)
+        self.events = events_from_config(config, "serving", self.metrics)
+        if self.events is not None and hasattr(self.model_manager,
+                                               "model_load_s"):
+            # a request served while the ANN index had failed closed
+            # carries the fallback count
+            mgr = self.model_manager
+
+            def _event_context() -> dict:
+                n = int(getattr(mgr, "ann_index_fallbacks", 0) or 0)
+                return {"ann_index_fallbacks": n} if n else {}
+
+            self.events.context_fn = _event_context
+        # flight recorder (obs/flight.py; None until oryx.obs.flight.dir
+        # opens the gate): black-box rings + anomaly-triggered bundles
+        self.flight = flight_from_config(
+            config, "serving", self.metrics, slo=self.slo_engine,
+            accountant=self.device_time)
+        if self.flight is not None and self.slo_engine is not None:
+            flight = self.flight
+            # a page transition -> one debounced bundle; the callback
+            # runs with the SLO lock held and trigger() never re-enters
+            # the engine (the bundle reads last_status, lock-free)
+            self.slo_engine.on_page = lambda name, st: flight.trigger(
+                "slo-page", {"objective": name,
+                             "burn_5m": st.get("burn_5m")})
         self.app = HttpApp(
             self._discover_routes(),
             context={
@@ -126,11 +174,46 @@ class ServingLayer:
                 "config": config,
                 "min_model_load_fraction": self.min_model_load_fraction,
                 "top_n_batcher": self.top_n_batcher,
+                "metrics": self.metrics,
+                "tracer": self.tracer,
+                "slo": self.slo_engine,
+                "events": self.events,
+                "flight": self.flight,
+                "device_time": self.device_time,
             },
             read_only=self.read_only,
             context_path=self.context_path,
             request_deadline_ms=config.get_int(
                 "oryx.resilience.request-deadline-ms"))
+
+    def _register_gauges(self) -> None:
+        """The freshness gauges (update-consumer lag and model generation
+        age, from a passive tap on the replay) and the model-load and
+        ANN-index gauges of a manager that has them."""
+        self._update_tap = freshness.UpdateStreamTap()
+        if self.update_broker and self.update_topic:
+            self.metrics.gauge_fn(
+                "update_lag_records",
+                freshness.topic_lag_fn(self.update_broker,
+                                       self.update_topic,
+                                       lambda: self._update_tap.consumed))
+            self.metrics.gauge_fn("model_generation_age_sec",
+                                  self._update_tap.model_age_sec)
+        if hasattr(self.model_manager, "model_load_s"):
+            mgr = self.model_manager
+            self.metrics.gauge_fn(
+                "model_load_s", lambda: float(mgr.model_load_s))
+            self.metrics.gauge_fn(
+                "model_slice_bytes", lambda: float(mgr.model_slice_bytes))
+            self.metrics.gauge_fn(
+                "slice_load_fallbacks",
+                lambda: float(mgr.slice_load_fallbacks))
+            self.metrics.gauge_fn(
+                "ann_index_bytes",
+                lambda: float(getattr(mgr, "ann_index_bytes", 0)))
+            self.metrics.gauge_fn(
+                "ann_index_fallbacks",
+                lambda: float(getattr(mgr, "ann_index_fallbacks", 0)))
 
     def _discover_routes(self) -> list[Route]:
         """The framework routes plus the ``ROUTES`` of every module named
@@ -169,6 +252,9 @@ class ServingLayer:
                                     "serving-consume"),
                 daemon=True, name="ServingLayerConsume")
             self._consume_thread.start()
+        if self.config.get_optional_string("oryx.obs.profile-dir"):
+            # /admin/profile captures on a handler's thread
+            profile_mod.prime()
         self._server = make_server(self.app, self.port)
         self.port = self._server.server_address[1]
         self._server_thread = threading.Thread(
@@ -181,9 +267,12 @@ class ServingLayer:
         # a failure mid-tail resubscribes with backoff and replays from
         # offset 0: recovery is the cold-start path
         broker = resolve_broker(self.update_broker)
+        # the freshness tap counts the raw records, to compare with the
+        # topic head's offsets
         run_with_resubscribe(
-            lambda: self.model_manager.consume(broker.consume(
-                self.update_topic, from_beginning=True, stop=self._stop)),
+            lambda: self.model_manager.consume(self._update_tap.wrap(
+                broker.consume(self.update_topic, from_beginning=True,
+                               stop=self._stop))),
             stop=self._stop, what="serving update consumer", log=_log)
 
     @property
@@ -202,6 +291,10 @@ class ServingLayer:
             self._server.shutdown()
             self._server.server_close()
         self.top_n_batcher.close()
+        if self.flight is not None:
+            self.flight.close()
+        if self.events is not None:
+            self.events.close()
         self.model_manager.close()
         if self.input_producer:
             self.input_producer.close()

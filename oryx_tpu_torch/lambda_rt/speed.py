@@ -12,31 +12,42 @@ publishes every delta through a producer that retries with backoff,
 and only then commits the ends: a failed publish costs redelivery,
 never loss (at least once).
 
+Observability, as in the reference: the layer is headless, so its
+freshness gauges — input and update consumer lag, model generation age,
+micro-batch duration and records, and the end-to-end
+``ingest_to_servable_ms`` measured from the ``ts`` record headers the
+serving front end stamps — answer on the side-door ``ObsServer`` at
+``oryx.obs.metrics-port``.  A record carrying a sampled ``traceparent``
+header gets a retroactive ``speed.fold_in`` span under its originating
+trace.
+
 Not part of this package yet, each refused with an error naming its
 key: the durable micro-batch checkpoint and its dedup fence
-(``oryx.speed.checkpoint-dir``), the sharded speed layer
-(``oryx.speed.shard`` other than ``0/1``), and the side-door metrics
-server, freshness gauges, tracing, event log and flight recorder
-(``oryx.obs.metrics-port`` and the rest of ``batch.OBS_KEYS``).
+(``oryx.speed.checkpoint-dir``) and the sharded speed layer
+(``oryx.speed.shard`` other than ``0/1``).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-import time
 
 from ..app.als.speed import check_shard
+from ..common import clock as clockmod
 from ..common import compile_cache
 from ..common.config import Config, refuse_configured
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
 from ..kafka.api import KEY_UP, KeyMessage
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
+from ..obs import (events_from_config, flight_from_config, freshness,
+                   tracer_from_config)
+from ..obs.server import ObsServer
+from ..obs.trace import parse_traceparent
 from ..resilience import faults
 from ..resilience.policy import (ResilientTopicProducer, Retry,
                                  run_with_resubscribe)
-from .batch import OBS_KEYS
+from .metrics import MetricsRegistry
 
 _log = logging.getLogger(__name__)
 
@@ -48,9 +59,6 @@ class SpeedLayer:
     micro-batch loop."""
 
     def __init__(self, config: Config, device=None):
-        refuse_configured(config, OBS_KEYS,
-                          "the speed layer's observability surface is not "
-                          "part of this package yet")
         refuse_configured(config, ("oryx.speed.checkpoint-dir",),
                           "the speed checkpoint is not part of this "
                           "package yet")
@@ -81,10 +89,38 @@ class SpeedLayer:
             retry=Retry.from_config("speed-publish", config))
         # the last micro-batch: input records, updates published, seconds
         self.last_micro_batch: dict | None = None
+        # the freshness surface, read through the side door
+        self.metrics = MetricsRegistry()
+        self.tracer = tracer_from_config(config, "speed")
+        self._update_tap = freshness.UpdateStreamTap()
+        self.metrics.gauge_fn(
+            "update_lag_records",
+            freshness.topic_lag_fn(self.update_broker, self.update_topic,
+                                   lambda: self._update_tap.consumed))
+        self.metrics.gauge_fn("model_generation_age_sec",
+                              self._update_tap.model_age_sec)
+        self.metrics.gauge_fn(
+            "input_lag_records",
+            freshness.group_lag_fn(self.input_broker, self.input_topic,
+                                   self._group))
+        # wide-event log (obs/events.py; None = disabled): the side
+        # door's lines carry the shard coordinate
+        self.events = events_from_config(
+            config, "speed", self.metrics,
+            static_fields={"speed_shard": "0/1"})
+        # flight recorder (obs/flight.py; None until the config gate
+        # opens): a chaos fault in this worker leaves a bundle
+        self.flight = flight_from_config(config, "speed", self.metrics)
+        self.obs_server = ObsServer(config, self.metrics, self.tracer,
+                                    extra_context={
+                                        "events": self.events,
+                                        "flight": self.flight,
+                                    })
 
     def start(self) -> None:
         _log.info("Starting speed layer (micro-batch %ds)",
                   self.generation_interval_sec)
+        self.obs_server.start()
         compile_cache.enable_from_config(self.config)
         # create the input topic at its configured partition count before
         # any lazy access can freeze it at one partition
@@ -114,6 +150,11 @@ class SpeedLayer:
             if t:
                 t.join(10.0)
         self.model_manager.close()
+        if self.flight is not None:
+            self.flight.close()
+        if self.events is not None:
+            self.events.close()
+        self.obs_server.close()
         self._producer.close()
 
     @property
@@ -124,15 +165,44 @@ class SpeedLayer:
 
     def _consume_updates(self) -> None:
         broker = resolve_broker(self.update_broker)
+        # the freshness tap counts the raw records, to compare with the
+        # topic head's offsets
         run_with_resubscribe(
-            lambda: self.model_manager.consume(broker.consume(
-                self.update_topic, from_beginning=True, stop=self._stop)),
+            lambda: self.model_manager.consume(self._update_tap.wrap(
+                broker.consume(self.update_topic, from_beginning=True,
+                               stop=self._stop))),
             stop=self._stop, what="speed update consumer", log=_log)
+
+    def _note_micro_batch(self, new_data: list[KeyMessage],
+                          n_updates: int, t_start: float) -> None:
+        """Per-micro-batch freshness gauges, and retroactive fold-in
+        spans for the records whose ``traceparent`` header carries a
+        sampled trace; best-effort, after the commit."""
+        now = clockmod.monotonic()
+        self.metrics.set_gauge("micro_batch_duration_ms",
+                               round((now - t_start) * 1000.0, 3))
+        self.metrics.set_gauge("micro_batch_records", len(new_data))
+        oldest = freshness.oldest_ingest_ts_ms(new_data)
+        if oldest is not None:
+            # the worst case of the batch: the longest a record waited
+            # between its /ingest and its deltas becoming servable
+            self.metrics.set_gauge(
+                "ingest_to_servable_ms",
+                max(0, int(clockmod.now() * 1000) - oldest))
+        if self.tracer is None:
+            return
+        for km in new_data:
+            ctx = parse_traceparent((km.headers or {}).get("traceparent"))
+            if ctx is None or not ctx[2]:
+                continue
+            self.tracer.record_span(
+                "speed.fold_in", (ctx[0], ctx[1]), t_start, now,
+                {"batch_records": len(new_data), "updates": n_updates})
 
     def _publish_batch(self, in_broker, updates: list[str],
                        ends: list[int]) -> int:
         """Publish one derived micro-batch, then commit the input ends."""
-        up_headers = {"ts": str(int(time.time() * 1000))}
+        up_headers = {"ts": str(int(clockmod.now() * 1000))}
         for update in updates:
             # chaos seam: UP delta publish failure — the offsets must
             # not advance past an unpublished delta
@@ -161,14 +231,15 @@ class SpeedLayer:
         ends = broker.latest_offsets(self.input_topic)
         if all(e <= p for e, p in zip(ends, pos)):
             return pos
-        t_batch = time.monotonic()
+        t_batch = clockmod.monotonic()
         new_data: list[KeyMessage] = broker.read_ranges(
             self.input_topic, pos, ends)
         updates = list(self.model_manager.build_updates(new_data))
         n_updates = self._publish_batch(broker, updates, ends)
         self.last_micro_batch = {
             "records": len(new_data), "updates": n_updates,
-            "seconds": time.monotonic() - t_batch}
+            "seconds": clockmod.monotonic() - t_batch}
+        self._note_micro_batch(new_data, n_updates, t_batch)
         return ends
 
     def _micro_batch_loop(self) -> None:

@@ -30,6 +30,7 @@ from ..common.io_utils import mkdirs
 from ..common.lang import collect_in_parallel
 from ..common.rand import RandomManager
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF, KeyMessage, TopicProducer
+from ..obs.profile import _activities, capture_lock
 from . import params as hp
 
 _log = logging.getLogger(__name__)
@@ -42,13 +43,12 @@ __all__ = ["MLUpdate", "MODEL_FILE_NAME"]
 @contextlib.contextmanager
 def _profile(trace_dir: str):
     """A torch.profiler trace of the block (host, and the card when
-    there is one), written to ``trace_dir/trace.json``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    there is one), written to ``trace_dir/trace.json``.  The profiler is
+    process-global: the block waits for an ``/admin/profile`` capture in
+    flight (at most its 60 s ceiling), and one arriving meanwhile gets
+    503 (``obs/profile.capture_lock``)."""
+    from torch.profiler import profile
+    with capture_lock(), profile(activities=_activities()) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 

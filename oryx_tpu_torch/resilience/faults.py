@@ -25,24 +25,27 @@ mode       effect at the call site
            operation twice (a producer retry's redelivery)
 ========== ==========================================================
 
-``fired(name)`` counts consumed activations.  Point names are the
-reference's, verbatim.  ``configure_from_config`` arms any name, so a
-chaos config written for the reference may arm points this package
-never fires yet: ``serving-scan-dispatch`` (the reference's batcher
-dispatch) and ``reshard-warm-stall`` (its serving cluster's re-shard
-warm-up) come with the batcher's chaos hook and the serving cluster.
+``fired(name)`` counts consumed activations, and a fire listener
+(``add_fire_listener``: the flight recorder's chaos trigger) sees each
+one.  Point names are the reference's, verbatim.
+``configure_from_config`` arms any name, so a chaos config written for
+the reference may arm a point this package never fires yet:
+``reshard-warm-stall`` (the serving cluster's re-shard warm-up) comes
+with the serving cluster.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-import time
 from typing import Callable
+
+from ..common import clock as clockmod
 
 _log = logging.getLogger(__name__)
 
 __all__ = ["InjectedFault", "inject", "clear", "fire", "fired",
+           "add_fire_listener", "remove_fire_listener",
            "configure_from_config"]
 
 _MODES = ("error", "delay", "drop", "duplicate")
@@ -73,6 +76,9 @@ _FIRED: dict[str, int] = {}
 _ACTIVE = False
 # configure_from_config arms once per process (until clear())
 _CONFIG_APPLIED = False
+# observers of every consumed activation (the flight recorder's chaos
+# trigger); a copy-on-write tuple, so fire() reads it without the lock
+_LISTENERS: tuple = ()
 
 
 def inject(point: str, mode: str = "error", times: int | None = 1,
@@ -107,6 +113,22 @@ def fired(point: str) -> int:
         return _FIRED.get(point, 0)
 
 
+def add_fire_listener(fn) -> None:
+    """Register ``fn(point, mode)`` to observe every consumed fault
+    activation.  It is called after the spec is consumed and the lock
+    released, before the fault's action runs; a raising listener is
+    swallowed, so observers never alter the seam."""
+    global _LISTENERS
+    with _LOCK:
+        _LISTENERS = _LISTENERS + (fn,)
+
+
+def remove_fire_listener(fn) -> None:
+    global _LISTENERS
+    with _LOCK:
+        _LISTENERS = tuple(f for f in _LISTENERS if f is not fn)
+
+
 def fire(point: str,
          error: Callable[[], BaseException] | None = None) -> str | None:
     """Consume one activation of ``point`` if armed: raise for
@@ -128,8 +150,13 @@ def fire(point: str,
         mode, delay = spec.mode, spec.delay_sec
         factory = spec.error or error
     _log.info("Fault fired: %s mode=%s", point, mode)
+    for listener in _LISTENERS:
+        try:
+            listener(point, mode)
+        except Exception:  # noqa: BLE001 — observers never alter the seam
+            pass
     if mode == "delay":
-        time.sleep(delay)
+        clockmod.sleep(delay)
         return None
     if mode == "error":
         raise factory() if factory else InjectedFault(

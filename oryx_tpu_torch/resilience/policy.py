@@ -7,9 +7,11 @@ out), ``run_with_resubscribe`` with its ``Backoff`` (the update-topic
 consumer), and ``Retry``, ``CircuitBreaker`` and
 ``ResilientTopicProducer`` around the input-topic producer of
 ``/pref`` and ``/ingest``, and ``Supervisor``, which restarts a layer
-run from the operator CLI (``deploy/main.py``).  The process-wide table
-of named retries and breakers that feeds ``/metrics`` is not part of
-this package yet.
+run from the operator CLI (``deploy/main.py``).  Every named
+:class:`Retry` and :class:`CircuitBreaker` registers itself in a
+process-wide table; :func:`resilience_snapshot` renders their counters
+for ``/metrics`` (the serving layer's, and the batch and speed layers'
+side door, ``obs/server.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import logging
 import random
 import threading
 import time
+import weakref
 from typing import Any, Callable
 
 from ..common import clock as clockmod
@@ -25,9 +28,27 @@ from .faults import InjectedFault
 
 __all__ = ["Deadline", "DeadlineExceeded", "CircuitOpenError", "Backoff",
            "Retry", "CircuitBreaker", "ResilientTopicProducer",
-           "Supervisor", "run_with_resubscribe"]
+           "Supervisor", "resilience_snapshot", "run_with_resubscribe"]
 
 _log = logging.getLogger(__name__)
+
+# -- the named-instance table (the /metrics feed) ---------------------------
+
+_REGISTRY: "weakref.WeakValueDictionary[str, Any]" = \
+    weakref.WeakValueDictionary()
+_REGISTRY_LOCK = threading.Lock()
+
+
+def _register(name: str, instance) -> None:
+    with _REGISTRY_LOCK:
+        _REGISTRY[name] = instance
+
+
+def resilience_snapshot() -> dict:
+    """{name: stats} for every live named Retry and CircuitBreaker."""
+    with _REGISTRY_LOCK:
+        items = list(_REGISTRY.items())
+    return {name: inst.stats() for name, inst in sorted(items)}
 
 
 class Backoff:
@@ -150,6 +171,7 @@ class Retry:
         self.calls = 0
         self.retries = 0
         self.give_ups = 0
+        _register(name, self)
 
     @classmethod
     def from_config(cls, name: str, config, retryable=None) -> "Retry":
@@ -193,6 +215,12 @@ class Retry:
                            self.name, e, attempt, self.max_attempts)
                 self._sleep(pause)
 
+    def stats(self) -> dict:
+        with self._lock:
+            return {"kind": "retry", "calls": self.calls,
+                    "retries": self.retries, "give_ups": self.give_ups,
+                    "max_attempts": self.max_attempts}
+
 
 class CircuitBreaker:
     """Closed -> open after ``failure_threshold`` consecutive failures;
@@ -220,6 +248,7 @@ class CircuitBreaker:
         self.opens = 0
         self.rejected = 0
         self.calls = 0
+        _register(name, self)
 
     @classmethod
     def from_config(cls, name: str, config,
@@ -291,6 +320,13 @@ class CircuitBreaker:
             raise
         self.record_success()
         return out
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"kind": "breaker", "state": self._state,
+                    "consecutive_failures": self._failures,
+                    "opens": self.opens, "rejected": self.rejected,
+                    "calls": self.calls}
 
 
 # -- supervised restart ------------------------------------------------------

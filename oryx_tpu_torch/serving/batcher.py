@@ -4,9 +4,9 @@ one device dispatch.
 Counterpart of ``oryx_tpu/serving/batcher.py`` (reference equivalent:
 SURVEY §2.14 P6 — Tomcat's 400-thread pool fans a single request out
 across cores; here many concurrent requests become ONE batched
-``ALSServingModel.top_n_batch``).  The fault-injection point and the
-tracing/device-time hooks of the reference wait for the resilience and
-observability slices.
+``ALSServingModel.top_n_batch``), with the reference's chaos point
+``serving-scan-dispatch``, its queue-wait/device-execute spans and its
+serve-class device-time booking.
 
 Design: adaptive queue-drain batching bounded by a measured in-flight
 cap.  Handler threads enqueue a scoring job and block; dispatcher
@@ -27,6 +27,7 @@ from typing import Iterable
 import numpy as np
 
 from ..common import clock as clockmod
+from ..resilience import faults
 from ..resilience.policy import Deadline, DeadlineExceeded
 
 __all__ = ["TopNBatcher"]
@@ -40,10 +41,11 @@ _MAX_EXEC_S = 5.0
 
 class _Job:
     __slots__ = ("model", "how_many", "vector", "exclude", "done",
-                 "result", "error", "t_enq", "deadline")
+                 "result", "error", "t_enq", "deadline", "trace_ctx")
 
     def __init__(self, model, how_many: int, vector: np.ndarray,
-                 exclude: set[str], deadline: Deadline | None = None):
+                 exclude: set[str], deadline: Deadline | None = None,
+                 trace_ctx: tuple[str, str] | None = None):
         self.model = model
         self.how_many = how_many
         self.vector = vector
@@ -53,6 +55,9 @@ class _Job:
         self.error: BaseException | None = None
         self.t_enq = clockmod.monotonic()
         self.deadline = deadline
+        # (trace_id, parent_span_id) captured at submit on a sampled
+        # request; None (the common case) costs nothing
+        self.trace_ctx = trace_ctx
 
 
 class TopNBatcher:
@@ -61,7 +66,8 @@ class TopNBatcher:
     and each drain groups jobs by model identity."""
 
     def __init__(self, max_batch: int = 1024, pipeline: int = 32,
-                 idle_wait_s: float | None = None):
+                 idle_wait_s: float | None = None, tracer=None,
+                 accountant=None):
         """``pipeline`` dispatcher threads keep that many batched device
         calls in flight at once: dispatch latency (dominated by the
         host<->device round trip) overlaps instead of serializing, so
@@ -76,8 +82,21 @@ class TopNBatcher:
         the measured transport: behind a high-latency tunnel the cap
         is 2 ms (enough for a synchronized burst to land, invisible
         next to the round trip), on a locally attached chip (measured
-        round trip under ~5 ms) it is 0 — immediate dispatch."""
+        round trip under ~5 ms) it is 0 — immediate dispatch.
+
+        ``tracer`` (obs/trace.py, or None) splits each sampled
+        request's batcher residence into a queue-wait span and a
+        device-execute span.
+
+        ``accountant`` (obs/device_time.py, or None) books every
+        batched device-execute bracket as route-class ``serve`` time
+        against the model's kernel route and generation — the
+        occupancy behind ``device_busy_fraction``.  The bracket is the
+        span's: a wall interval from drain pickup to the results on the
+        host, so it includes the window's host share."""
         self.max_batch = max_batch
+        self._tracer = tracer
+        self._accountant = accountant
         self._idle_wait = idle_wait_s
         self._cond = threading.Condition()
         self._pending: list[_Job] = []
@@ -127,9 +146,17 @@ class TopNBatcher:
                 self.deadline_rejects += 1
             raise DeadlineExceeded("request deadline expired before "
                                    "scoring was queued")
+        trace_ctx = None
+        if self._tracer is not None:
+            # submit runs on the request's handler thread, whose current
+            # span is the request span; its context is captured here for
+            # the dispatcher thread, which has no trace state of its own
+            cur = self._tracer.current()
+            if cur.sampled:
+                trace_ctx = (cur.trace_id, cur.span_id)
         job = _Job(model, how_many,
                    np.asarray(user_vector, dtype=np.float32), set(exclude),
-                   deadline=deadline)
+                   deadline=deadline, trace_ctx=trace_ctx)
         with self._cond:
             if self._stopped:
                 # shutdown race: keep-alive handler threads may outlive
@@ -296,6 +323,26 @@ class TopNBatcher:
             if stopped:
                 return
 
+    def _record_spans(self, group: list[_Job], t_exec: float,
+                      t_done: float, status: str) -> None:
+        """Queue-wait / device-execute spans for the sampled jobs of a
+        drained group, recorded after the fact from stored monotonic
+        stamps; the tracer absorbs recorder failures."""
+        traced = [j for j in group if j.trace_ctx is not None]
+        if not traced:
+            return
+        route = getattr(group[0].model, "kernel_route_label", None)
+        exec_attrs = {"batch_size": len(group)}
+        if route:
+            # which measured phase-A kind served this drain
+            exec_attrs["kernel_route"] = route
+        for j in traced:
+            self._tracer.record_span("serving.queue_wait", j.trace_ctx,
+                                     j.t_enq, t_exec)
+            self._tracer.record_span("serving.device_execute",
+                                     j.trace_ctx, t_exec, t_done,
+                                     dict(exec_attrs), status)
+
     def _dispatch(self, jobs: list[_Job]) -> int:
         """Score a drained batch; returns how many jobs actually reached
         the device (0 = all shed, caller must not learn pacing from it)."""
@@ -315,16 +362,35 @@ class TopNBatcher:
         t_pickup = clockmod.monotonic()
         if jobs:
             # queue wait of this drain = the oldest job's enqueue->pickup
-            # age; EWMA'd so the signal tracks load, not one straggler
+            # age; EWMA'd so the signal tracks load, not one straggler.
+            # Sampled before the dispatch seam below: an emulated device
+            # delay is service time, not queue wait
             qw = max(t_pickup - j.t_enq for j in jobs)
             with self._cond:
                 self._qwait_ewma = 0.7 * self._qwait_ewma + 0.3 * qw
                 self._qwait_at = t_pickup
+        # chaos / device-emulation seam: one fire per drained dispatch.
+        # mode=delay stands in for device time the host does not burn;
+        # mode=error fails the whole drain, surfaced per job, never
+        # killing the dispatcher thread
+        try:
+            faults.fire("serving-scan-dispatch")
+        except Exception as e:  # noqa: BLE001 — injected
+            for j in jobs:
+                j.error = e
+                j.done.set()
+            return 0
         by_model: dict[int, list[_Job]] = {}
         for j in jobs:
             by_model.setdefault(id(j.model), []).append(j)
+        # the device window opens at drain pickup (before the emulation
+        # seam, whose delay is device time); groups after the first open
+        # at the previous group's completion
+        next_exec_start = t_pickup
         for group in by_model.values():
             model = group[0].model
+            t_exec = next_exec_start
+            status = "ok"
             try:
                 results = model.top_n_batch(
                     [j.how_many for j in group],
@@ -333,8 +399,20 @@ class TopNBatcher:
                 for j, r in zip(group, results):
                     j.result = r
             except BaseException as e:  # noqa: BLE001 — surfaced per job
+                status = "error"
                 for j in group:
                     j.error = e
+            next_exec_start = clockmod.monotonic()
+            if self._accountant is not None:
+                # continuous occupancy: the device_execute span's bracket,
+                # booked as serve-class time against the model's route
+                # and generation
+                self._accountant.note(
+                    "serve", getattr(model, "kernel_route_label", None),
+                    getattr(model, "generation", None),
+                    next_exec_start - t_exec)
+            if self._tracer is not None:
+                self._record_spans(group, t_exec, next_exec_start, status)
             with self._cond:
                 # under the lock: up to `pipeline` dispatcher threads
                 # land here concurrently, and a bare += loses updates

@@ -474,17 +474,63 @@ def test_generation_commits_offsets_and_recovers_a_lost_commit(tmp_path):
     assert [m.key for m in msgs].count("MODEL-REF") == 3
 
 
+def _side_door(port: int, path: str, method: str = "GET"):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request(method, path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
 @pytest.mark.parametrize("key,value", [
     ("oryx.obs.metrics-port", 0),
     ("oryx.obs.tracing.enabled", True),
-    ("oryx.obs.events.dir", "/tmp/events"),
-    ("oryx.obs.flight.dir", "/tmp/flight"),
+    ("oryx.obs.events.dir", "events"),
+    ("oryx.obs.flight.dir", "flight"),
 ])
-def test_deferred_batch_keys_raise(tmp_path, key, value):
+def test_obs_batch_key_starts_its_feature(tmp_path, key, value):
+    """Each observability key that used to be refused starts the layer:
+    the side door's /metrics carries the freshness gauges, tracing
+    answers /admin/traces there, the flight recorder /admin/flight and a
+    dumped bundle.  The batch layer keeps no event log (nor does the
+    reference's): with only ``events.dir`` the layer runs a generation
+    and writes nothing there."""
+    if isinstance(value, str):
+        value = str(tmp_path / value)
+    door = {} if key in ("oryx.obs.metrics-port", "oryx.obs.events.dir") \
+        else {"oryx.obs.metrics-port": 0}
     cfg = _layer_config(tmp_path, f"memory://tb-{time.monotonic_ns()}",
-                        **{key: value})
-    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-        BatchLayer(cfg, device="cpu")
+                        **{key: value, **door})
+    batch = BatchLayer(cfg, device="cpu")
+    batch.start()
+    try:
+        if key == "oryx.obs.events.dir":
+            assert not batch.obs_server.enabled
+            batch.run_one_generation()
+            assert not os.path.exists(value)
+            return
+        port = batch.obs_server.port
+        status, body = _side_door(port, "/metrics")
+        assert status == 200
+        out = json.loads(body)
+        assert {"input_lag_records", "batch_generation_age_sec"} <= \
+            set(out["freshness"])
+        if key == "oryx.obs.tracing.enabled":
+            status, body = _side_door(port, "/admin/traces")
+            assert status == 200 and json.loads(body)["service"] == "batch"
+        elif key == "oryx.obs.flight.dir":
+            assert _side_door(port, "/admin/flight")[0] == 200
+            status, body = _side_door(port, "/admin/flight/dump", "POST")
+            dump = json.loads(body)
+            assert status == 200 and dump["dumped"], dump
+            assert os.path.exists(dump["path"])
+        else:
+            assert _side_door(port, "/admin/traces")[0] == 404
+    finally:
+        batch.close()
 
 
 def test_batch_layer_raises_without_cuda(tmp_path, monkeypatch):

@@ -20,8 +20,10 @@ reference's (``oryx_tpu/app/als/ivf.py``) on the same seeded inputs.
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -33,6 +35,7 @@ from oryx_tpu.app.als import slices as jslices
 from oryx_tpu.app.als.serving_manager import \
     ALSServingModelManager as JaxManager
 from oryx_tpu.common import config as jconfig
+from oryx_tpu.common import pmml as jpmml_io
 from oryx_tpu.ops import ann as jann
 from oryx_tpu.resilience import faults as jfaults
 from oryx_tpu_torch import convert
@@ -395,7 +398,21 @@ def _published(tmp_path, n_users=192, n_items=1024):
     return X, Y, cents, cells
 
 
-def test_artifacts_match_reference_bytes_and_round_trip(tmp_path):
+class _FrozenClock(datetime.datetime):
+    """The PMML header's wall clock, pinned: documents written a second
+    apart would otherwise differ in their <Timestamp> alone."""
+
+    @classmethod
+    def now(cls, tz=None):
+        return datetime.datetime(2026, 1, 1, tzinfo=tz)
+
+
+def test_artifacts_match_reference_bytes_and_round_trip(tmp_path,
+                                                        monkeypatch):
+    frozen = types.SimpleNamespace(datetime=_FrozenClock,
+                                   timezone=datetime.timezone)
+    monkeypatch.setattr(jpmml_io, "datetime", frozen)
+    monkeypatch.setattr(pmml_io, "datetime", frozen)
     X, Y, cents, cells = _published(tmp_path, 32, 512)
     jdir, jslim, _ = _publish(tmp_path, "jax", Y, X, 16, cents, cells)
     tdir, tslim, _ = _publish(tmp_path, "torch", Y, X, 16, cents, cells)

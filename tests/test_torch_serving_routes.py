@@ -257,16 +257,33 @@ def _loaded(layer, n_users=N_USERS, n_items=N_ITEMS):
             and model.get_yty_solver(blocking=False) is not None)
 
 
+def _solvers_current(model) -> bool:
+    """Whether both Gramian solvers were solved from the stores as they
+    stand: a solver present, no solve in flight and none pending.  The
+    caches of both packages clear their dirty mark when a solve begins,
+    and an update during the solve marks it again, so a clean, idle
+    cache holds a solve begun after the last applied UP.  (A blocking
+    get is not that condition: with the cache clean and a solve in
+    flight, it returns the older solver without waiting, in both
+    packages.)  A non-blocking get starts the solve a dirty cache
+    needs."""
+    for get, cache in ((model.get_xtx_solver, model.cached_xtx_solver),
+                       (model.get_yty_solver, model.cached_yty_solver)):
+        get(blocking=False)
+        with cache._cond:
+            if cache._dirty or cache._in_flight or cache._solver is None:
+                return False
+    return True
+
+
 def _ready(layers: Layers):
     for layer in (layers.jl, layers.tl):
         _wait(lambda: _loaded(layer), "the replay")
     for layer in (layers.jl, layers.tl):
-        # a blocking get waits for a solve already in flight, which may
-        # have begun before the replay's last UP and left the cache
-        # dirty; the second get then solves the whole replay's Gramian
+        # every UP is applied (the last user's is the replay's last
+        # record), so nothing dirties the solvers after this
         model = layer.model_manager.get_model()
-        for _ in range(2):
-            model.get_yty_solver(blocking=True)
+        _wait(lambda: _solvers_current(model), "the Gramian solvers")
     for p in layers.ports:
         _wait(lambda: _get(p, "/ready")[0] in (200, 204), "/ready")
 

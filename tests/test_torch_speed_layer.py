@@ -10,6 +10,7 @@ fold-in's tolerance, ``tests/test_torch_fold_in.py``)."""
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import numpy as np
@@ -296,10 +297,6 @@ def test_failed_publish_commits_nothing(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("oryx.speed.checkpoint-dir", "/tmp/ckpt"),
     ("oryx.speed.shard", "1/2"),
-    ("oryx.obs.metrics-port", 0),
-    ("oryx.obs.tracing.enabled", True),
-    ("oryx.obs.events.dir", "/tmp/events"),
-    ("oryx.obs.flight.dir", "/tmp/flight"),
 ])
 def test_deferred_speed_keys_raise(tmp_path, key, value):
     cfg = _config(tmp_path, f"tspeed-{time.monotonic_ns()}",
@@ -309,6 +306,67 @@ def test_deferred_speed_keys_raise(tmp_path, key, value):
     if key == "oryx.speed.shard":
         with pytest.raises(ValueError, match="oryx.speed.shard"):
             ALSSpeedModelManager(cfg, device="cpu")
+
+
+def _side_door(port: int, path: str, method: str = "GET"):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request(method, path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("oryx.obs.metrics-port", 0),
+    ("oryx.obs.tracing.enabled", True),
+    ("oryx.obs.events.dir", "events"),
+    ("oryx.obs.flight.dir", "flight"),
+])
+def test_obs_speed_key_starts_its_feature(tmp_path, key, value):
+    """Each observability key that used to be refused starts the layer,
+    and its feature answers on the side door: /metrics with the
+    freshness gauges, /admin/traces, an event line stamped with the
+    shard (every request emits at ``always-slow-ms`` 0), /admin/flight
+    and a dumped bundle."""
+    if isinstance(value, str):
+        value = str(tmp_path / value)
+    extra = {key: value}
+    if key != "oryx.obs.metrics-port":
+        extra["oryx.obs.metrics-port"] = 0
+    if key == "oryx.obs.events.dir":
+        extra["oryx.obs.events.always-slow-ms"] = 0
+    speed = SpeedLayer(_config(tmp_path, f"tspeed-{time.monotonic_ns()}",
+                               **extra), device="cpu")
+    speed.start()
+    try:
+        port = speed.obs_server.port
+        status, body = _side_door(port, "/metrics")
+        assert status == 200
+        assert {"input_lag_records", "update_lag_records",
+                "model_generation_age_sec"} <= \
+            set(json.loads(body)["freshness"])
+        if key == "oryx.obs.tracing.enabled":
+            status, body = _side_door(port, "/admin/traces")
+            assert status == 200 and json.loads(body)["service"] == "speed"
+        elif key == "oryx.obs.events.dir":
+            (name,) = os.listdir(value)
+            with open(os.path.join(value, name), encoding="utf-8") as f:
+                line = json.loads(f.readline())
+            assert line["route"] == "GET /metrics" and \
+                line["speed_shard"] == "0/1"
+        elif key == "oryx.obs.flight.dir":
+            assert _side_door(port, "/admin/flight")[0] == 200
+            status, body = _side_door(port, "/admin/flight/dump", "POST")
+            dump = json.loads(body)
+            assert status == 200 and dump["dumped"], dump
+            assert os.path.exists(dump["path"])
+        else:
+            assert _side_door(port, "/admin/traces")[0] == 404
+    finally:
+        speed.close()
 
 
 def test_speed_layer_and_manager_raise_without_cuda(tmp_path, monkeypatch):

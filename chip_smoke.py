@@ -123,8 +123,9 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       the AUC.
    b. The lambda loop through the port's layers, from
       ``oryx_tpu_torch/conf/als-example.conf`` on a temporary ``file://``
-      broker at rank 100, 3 sweeps and 8 slices: 1,000,000 drawn
-      interactions at the same user and item counts on the input topic;
+      broker at rank 100, 3 sweeps and 8 slices: 500,000 drawn
+      interactions over 69,247 users (half MovieLens-20M's, at its
+      density) and its 26,744 items on the input topic;
       one ``BatchLayer`` generation, which must commit its offsets,
       publish a MODEL-REF whose manifest names 8 slices and write a PMML
       with the features, lambda and implicit flag; a ``ServingLayer``
@@ -305,11 +306,40 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     per-request nanoseconds, run in this process, beside the
     reference's 10 µs budget for the unsampled pipeline.
 
+11. The serving cluster on one card (``cluster``): two replicas, shards
+    ``0/2`` and ``1/2``, each a ``ServingLayer`` from
+    ``als-example.conf`` in a process of its own, load their halves of a
+    2,097,152 x 50 float32 model (10,000 users, 9 known items each;
+    published in 8 slices by a child process while the earlier phases
+    run) off a ``file://`` update topic, and announce themselves with
+    heartbeats; the router (``cluster/router.py``) runs in this
+    process.  DIGEST credentials guard every door, the router's and the
+    replicas' (the scatter hop answers their challenge).  Once both
+    replicas have loaded and measured their routes (each must route a
+    kernel kind, with no route error, 4 slice loads and no fallback),
+    64 untimed ``/recommend``, then, with every count set to 0 in each
+    replica, 256 ``/recommend`` and 32 ``/recommendToAnonymous`` (1-8
+    context items) through the router at 32 clients: each replica's
+    routed kernel must have launched and no other phase-A kernel.
+    Every ``/recommend`` answer must equal the single-node exact scan
+    over the whole catalog in this process (``exact_top_n``; ids in
+    order, rtol 1e-5); every fold-in answer the exact top-10 of a
+    float64 fold-in over the whole catalog's Gramian (``fold_in_f64``;
+    ids in order, rtol 1e-4, atol 1e-5).  One ``/pref`` through the
+    router must land on the input topic; the router's ``/metrics`` must
+    show both shards live and covered, with no partial answer and no
+    shard failure.  Then 256 ``/recommend`` straight to replica 0 (its
+    shard alone), after 8 ``/recommendToAnonymous`` through the router
+    one at a time.  A ``cluster_replica`` line per replica (routed kind,
+    launches, load seconds) and a ``cluster`` line (seconds to the
+    router's ``/ready`` and to both loads, the router's and replica 0's
+    p50 / p99, the scatter's counters).
+
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
 topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
-deploy = 9, obs = 10); the default runs every phase.  A partial run still ends
-with the two summary lines, its ``kernels`` line listing only what it
-ran.
+deploy = 9, obs = 10, cluster = 11); the default runs every phase. A
+partial run still ends with the two summary lines, its ``kernels`` line
+listing only what it ran.
 
 With ``--trace DIR`` the fold-in round of phase 4 runs once more, after
 the timed one, under ``torch.profiler``: its operator tables and Chrome
@@ -323,8 +353,9 @@ before the last is a JSON ``{"kernels": [...]}`` summary: each kernel's
 route chose it (``served_config``; the head configuration where its
 route did), and ``route_launches`` that configuration's route
 measurement (``deploy_launches`` phase 9's CLI-served process,
-``obs_launches`` phase 10's sampled round); a kernel that served no
-timed round fails the run.  The
+``obs_launches`` phase 10's sampled round, ``cluster_launches`` each
+replica's routed round in phase 11); a kernel that served no timed
+round fails the run.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -418,8 +449,11 @@ AUC_LEARNED = 0.6
 ROW_CHECKS = 512
 ROW_RTOL = 1e-3
 # phase 5b: the lambda loop through the port's three layers on a file://
-# broker, from oryx_tpu_torch/conf/als-example.conf
-LOOP_RATINGS = 1_000_000
+# broker, from oryx_tpu_torch/conf/als-example.conf; half MovieLens-20M's
+# users at its density (cut from 1,000,000 interactions over all of them
+# so that the default run, phase 11 included, stays near 1,000 s)
+LOOP_USERS = 69_247
+LOOP_RATINGS = 500_000
 LOOP_SEED = TRAIN_SEED + 1
 LOOP_T0 = 1_700_000_000_000
 LOOP_SLICES = 8
@@ -517,11 +551,23 @@ OBS_OVERHEAD_ITERATIONS = 100_000
 # the reference's budget for the unsampled per-request obs pipeline (µs)
 OBS_BUDGET_US = 10.0
 # the phase-A kinds of a hand-written kernel
+# phase 11: the serving cluster on one card
+CLUSTER_ITEMS = 2_097_152
+CLUSTER_FEATURES = 50
+CLUSTER_USERS = 10_000
+CLUSTER_RING = 8
+CLUSTER_SEED = SEED + 16
+CLUSTER_REQUESTS = 256
+CLUSTER_ANONYMOUS = 32
+CLUSTER_CLIENTS = 32
+CLUSTER_SERIAL = 8
+CLUSTER_USER = "oryx-smoke"
+CLUSTER_WAIT_S = 900.0
 KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
-          "deploy", "obs")
+          "deploy", "obs", "cluster")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -2154,8 +2200,8 @@ def loop_config(work_dir: str):
 def lambda_data(work_dir: str) -> None:
     """Phase 5's data, made in a child process while the card works on
     phases 2-4; touches no card.  The MovieLens-20M-shaped interactions
-    5a trains on go to ``ml20m.npz``; 1M more drawn interactions at the
-    same user and item counts go onto 5b's input topic as
+    5a trains on go to ``ml20m.npz``; 500,000 more drawn interactions
+    over half its users and all its items go onto 5b's input topic as
     ``u,i,strength,ts`` lines, timestamps in random order (so the
     generation's time split holds out a random tenth)."""
     from oryx_tpu_torch.bench.train import synthesize_movielens
@@ -2172,7 +2218,7 @@ def lambda_data(work_dir: str) -> None:
     broker = cfg.get_string("oryx.input-topic.broker")
     topic = cfg.get_string("oryx.input-topic.message.topic")
     users, items, values, _, _ = synthesize_movielens(
-        ML_USERS, ML_ITEMS, LOOP_RATINGS, seed=LOOP_SEED)
+        LOOP_USERS, ML_ITEMS, LOOP_RATINGS, seed=LOOP_SEED)
     ts = LOOP_T0 + np.random.default_rng(LOOP_SEED).permutation(
         len(users)).astype(np.int64) * 1000
     kafka_utils.maybe_create_topic(
@@ -4758,6 +4804,416 @@ def obs_phase(publisher, work_dir: str, topic: dict | None) -> dict:
     return line
 
 
+# -- phase 11: the serving cluster on one card --------------------------------
+
+def cluster_data(seed: int):
+    """(Y, X, known items) of the cluster's model."""
+    rng = np.random.default_rng(seed)
+    Y = rng.standard_normal((CLUSTER_ITEMS, CLUSTER_FEATURES),
+                            dtype=np.float32)
+    X = rng.standard_normal((CLUSTER_USERS, CLUSTER_FEATURES),
+                            dtype=np.float32)
+    known = {f"u{u}": sorted({f"i{j}" for j in rng.integers(
+        0, CLUSTER_ITEMS, KNOWN_PER_USER)}) for u in range(CLUSTER_USERS)}
+    return Y, X, known
+
+
+def publish_cluster_model(model_dir: str, seed: int) -> None:
+    """Write the cluster's model directory (the PMML document, the
+    sliced factors and the users with their known items).  Runs in a
+    child process while the card works on the earlier phases; touches
+    no card."""
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.common import pmml as pmml_io
+    # below the timed phases' host work: it has until phase 11
+    os.nice(10)
+    t0 = time.perf_counter()
+    Y, X, known = cluster_data(seed)
+    y_ids = [f"i{j}" for j in range(CLUSTER_ITEMS)]
+    x_ids = [f"u{u}" for u in range(CLUSTER_USERS)]
+    doc = pmml_io.build_skeleton_pmml()
+    pmml_io.add_extension(doc, "features", CLUSTER_FEATURES)
+    pmml_io.add_extension(doc, "implicit", True)
+    pmml_io.add_extension_content(doc, "XIDs", x_ids)
+    pmml_io.add_extension_content(doc, "YIDs", y_ids)
+    pmml_io.write(doc, os.path.join(model_dir, "model.pmml.xml"))
+    slim = slices.publish_sliced(model_dir, y_ids, Y, x_ids, X, known,
+                                 CLUSTER_RING)
+    with open(os.path.join(model_dir, "published.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"manifest": slim,
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+def cluster_overlay(work_dir: str, password: str, shard: int | None) -> dict:
+    """The keys phase 11 sets over the port's example config: a
+    ``file://`` broker of its own, DIGEST credentials on every door, and
+    for a replica its shard of two."""
+    broker = "file://" + os.path.join(work_dir, "cluster", "broker")
+    overlay = {"oryx.update-topic.broker": broker,
+               "oryx.input-topic.broker": broker,
+               "oryx.serving.api.user-name": CLUSTER_USER,
+               "oryx.serving.api.password": password,
+               "oryx.cluster.heartbeat-interval-ms": 200}
+    if shard is not None:
+        overlay.update({"oryx.cluster.enabled": True,
+                        "oryx.cluster.shard": f"{shard}/2",
+                        "oryx.cluster.replica-id": f"replica-{shard}"})
+    return overlay
+
+
+def cluster_config(overlay: dict):
+    from oryx_tpu_torch.common.config import from_file, overlay_on
+    return overlay_on(overlay, from_file(os.path.join(
+        REPO, "oryx_tpu_torch", "conf", "als-example.conf")))
+
+
+def replica_state(layer) -> dict:
+    """What the parent reads of a replica: its load, its route and its
+    kernels' launch counts."""
+    mgr = layer.model_manager
+    model = mgr.get_model()
+    out = {"launches": read_launches(), "loaded": False}
+    if model is not None:
+        route = model._route_current(len(model.Y.row_ids())) \
+            if model._route is not None else None
+        out.update(loaded=model.get_fraction_loaded() >= 1.0
+                   and route is not None,
+                   items=len(model.Y), users=len(model.X),
+                   slice_loads=mgr.slice_loads,
+                   slice_load_fallbacks=mgr.slice_load_fallbacks,
+                   model_load_s=mgr.model_load_s,
+                   twophase_fallbacks=model.twophase_fallbacks,
+                   kind=routed_kind(model) if route is not None else None,
+                   route=model.kernel_route_label,
+                   route_errors=(route or {}).get("errors"),
+                   yty_from_manifest=mgr.partial_yty() is not None)
+    return out
+
+
+def cluster_replica(conn, overlay: dict, device: str) -> None:
+    """One replica of phase 11, a ServingLayer in a process of its own:
+    it sends its port, then answers the parent's commands — ``reset``
+    sets its kernels' launch counts to 0, ``state`` sends
+    ``replica_state``, ``stop`` closes the layer."""
+    import torch
+    from oryx_tpu_torch.common import compile_cache
+    from oryx_tpu_torch.common.config import from_dict
+    from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+    from oryx_tpu_torch.ops import cuda_build
+    # the libraries phase 1 built, in build/kernels
+    compile_cache.enable_from_config(from_dict(
+        {"oryx.compile-cache-dir": str(cuda_build.BUILD_DIR.parent)}))
+    layer = ServingLayer(cluster_config(overlay), port=0, device=device)
+    try:
+        layer.start()
+        conn.send(layer.port)
+        while True:
+            cmd = conn.recv()
+            if cmd == "stop":
+                break
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            if cmd == "reset":
+                reset_launches()
+                conn.send(None)
+            else:
+                conn.send(replica_state(layer))
+    finally:
+        layer.close()
+
+
+class DigestClient:
+    """The phase's HTTP client: the serving tier's DIGEST scheme (MD5,
+    ``qop="auth"``), one challenge, then the cached nonce with a counter;
+    a request answered 401 is challenged again."""
+
+    def __init__(self, user: str, password: str):
+        self.user, self.password = user, password
+        self._lock = threading.Lock()
+        self._state = None  # (realm, nonce, next nc)
+
+    def _header(self, method: str, path: str) -> str | None:
+        import hashlib
+        import secrets
+        with self._lock:
+            if self._state is None:
+                return None
+            realm, nonce, nc = self._state
+            self._state = (realm, nonce, nc + 1)
+
+        def md5(text: str) -> str:
+            return hashlib.md5(text.encode()).hexdigest()
+
+        cnonce, ncs = secrets.token_hex(8), f"{nc:08x}"
+        ha1 = md5(f"{self.user}:{realm}:{self.password}")
+        ha2 = md5(f"{method}:{path}")
+        response = md5(f"{ha1}:{nonce}:{ncs}:{cnonce}:auth:{ha2}")
+        return (f'Digest username="{self.user}", realm="{realm}", '
+                f'nonce="{nonce}", uri="{path}", qop=auth, nc={ncs}, '
+                f'cnonce="{cnonce}", response="{response}"')
+
+    def call(self, port: int, method: str, path: str,
+             body: bytes | None = None):
+        """(status, body, milliseconds) of one authenticated request."""
+        for _ in range(3):
+            header = self._header(method, path)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            try:
+                t0 = time.perf_counter()
+                conn.request(method, path, body=body, headers={
+                    "Accept": "application/json",
+                    **({"Authorization": header} if header else {})})
+                resp = conn.getresponse()
+                out = resp.read()
+                ms = (time.perf_counter() - t0) * 1e3
+                challenge = resp.getheader("WWW-Authenticate", "")
+            finally:
+                conn.close()
+            if resp.status != 401:
+                return resp.status, out, ms
+            pairs = dict((k, q or b) for k, q, b in re.findall(
+                r'(\w+)=(?:"([^"]*)"|([^, ]*))', challenge))
+            check("nonce" in pairs, f"cluster: a 401 without a challenge "
+                  f"from port {port}")
+            with self._lock:
+                self._state = (pairs.get("realm", ""), pairs["nonce"], 1)
+        raise RuntimeError(f"check failed: cluster: port {port} refused "
+                           f"the credentials for {path}")
+
+
+def cluster_phase(publisher, work_dir: str) -> dict:
+    """Phase 11: two serving-cluster replicas (shards 0/2 and 1/2, each
+    a ServingLayer in a process of its own on the one card) load their
+    halves of a 2,097,152 x 50 float32 model off a ``file://`` update
+    topic; the router (this process) merges them behind DIGEST auth on
+    every door.  Its answers against the single-node exact scan and a
+    float64 fold-in, the replicas' routed kernels, /metrics and the
+    write path."""
+    import secrets
+    import torch
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.cluster.router import RouterLayer
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer, \
+        resolve_broker
+
+    t_phase = time.perf_counter()
+    password = secrets.token_hex(12)
+    spawn = multiprocessing.get_context("spawn")
+    pipes, procs = [], []
+    router = None
+    try:
+        for shard in (0, 1):
+            parent, child = spawn.Pipe()
+            proc = spawn.Process(
+                target=cluster_replica, daemon=True,
+                args=(child, cluster_overlay(work_dir, password, shard),
+                      DEVICE))
+            proc.start()
+            pipes.append(parent)
+            procs.append(proc)
+        router_cfg = cluster_config(cluster_overlay(work_dir, password,
+                                                    None))
+        router = RouterLayer(router_cfg, port=0, device=DEVICE)
+        router.start()
+        client = DigestClient(CLUSTER_USER, password)
+        ports = []
+        for shard, conn in enumerate(pipes):
+            check(conn.poll(300), f"cluster: replica {shard} did not start")
+            try:
+                ports.append(conn.recv())
+            except EOFError:
+                raise RuntimeError(f"check failed: cluster: replica {shard} "
+                                   f"exited {procs[shard].exitcode} at "
+                                   f"start") from None
+
+        def state(conn) -> dict:
+            conn.send("state")
+            return conn.recv()
+
+        # the oracle: the whole catalog in this process, as the
+        # replicas hold it (the slices' 8-decimal rounding)
+        Y, X, known = cluster_data(CLUSTER_SEED)
+        Y = np.round(Y.astype(np.float64), 8).astype(np.float32)
+        X = np.round(X.astype(np.float64), 8).astype(np.float32)
+        full = build_model(CLUSTER_FEATURES, Y, X, known, "float32")
+        del Y
+        gram = gramian64(full)
+        t_wait = time.perf_counter()
+        publisher.join(CLUSTER_WAIT_S)
+        check(publisher.exitcode == 0,
+              f"cluster: publishing the model failed ({publisher.exitcode})")
+        model_dir = os.path.join(work_dir, "cluster_model")
+        with open(os.path.join(model_dir, "published.json"),
+                  encoding="utf-8") as f:
+            published = json.load(f)
+        waited_s = time.perf_counter() - t_wait
+        producer = InProcTopicProducer(
+            router_cfg.get_string("oryx.update-topic.broker"),
+            router_cfg.get_string("oryx.update-topic.message.topic"))
+        t0 = time.perf_counter()
+        producer.send("MODEL-REF", slices.model_ref_message(
+            os.path.join(model_dir, "model.pmml.xml"), model_dir,
+            published["manifest"]))
+        producer.close()
+        wait_for(lambda: client.call(router.port, "GET", "/ready")[0]
+                 in (200, 204), "cluster: the router's /ready",
+                 CLUSTER_WAIT_S)
+        ready_s = time.perf_counter() - t0
+        wait_for(lambda: all(state(c)["loaded"] for c in pipes),
+                 "cluster: the replicas' loads and routes", CLUSTER_WAIT_S)
+        loaded_s = time.perf_counter() - t0
+        states = [state(c) for c in pipes]
+        for shard, st in enumerate(states):
+            check(st["kind"] in KERNEL_KINDS and not st["route_errors"],
+                  f"cluster: replica {shard} routes {st['kind']!r} "
+                  f"({st['route_errors']})")
+            check(st["slice_loads"] == CLUSTER_RING // 2
+                  and st["slice_load_fallbacks"] == 0
+                  and st["users"] == CLUSTER_USERS
+                  and st["yty_from_manifest"],
+                  f"cluster: replica {shard} loaded {st}")
+        check(sum(st["items"] for st in states) == CLUSTER_ITEMS,
+              f"cluster: the shards hold {[st['items'] for st in states]} "
+              f"of {CLUSTER_ITEMS} items")
+
+        rng = np.random.default_rng(CLUSTER_SEED + 1)
+        users = [f"u{u}" for u in rng.choice(CLUSTER_USERS,
+                                             CLUSTER_REQUESTS,
+                                             replace=False)]
+        paths = [f"/recommend/{u}?howMany=10" for u in users]
+        ctxs = contexts(rng, CLUSTER_ITEMS, CLUSTER_ANONYMOUS)
+        anon_paths = round_paths(ctxs, [None] * len(ctxs))
+
+        def burst(port: int, todo: list) -> list:
+            with concurrent.futures.ThreadPoolExecutor(
+                    CLUSTER_CLIENTS) as pool:
+                out = list(pool.map(
+                    lambda p: client.call(port, "GET", p), todo))
+            for path, (status, body, _) in zip(todo, out):
+                check(status == 200,
+                      f"cluster: {path} gave {status}: {body[:300]}")
+            return out
+
+        burst(router.port, paths[:64])  # untimed: the batchers learn
+        for conn in pipes:
+            conn.send("reset")
+            conn.recv()
+        routed = burst(router.port, paths)
+        anonymous = burst(router.port, anon_paths)
+        states = [state(c) for c in pipes]
+        replicas = []
+        for shard, st in enumerate(states):
+            expected = next(k for k, v in KERNELS.items()
+                            if v[2] == st["kind"])
+            launches = st["launches"]
+            check(launches[expected] > 0,
+                  f"cluster: replica {shard}'s {expected} launched no "
+                  f"time: {launches}")
+            check(all(v == 0 for k, v in launches.items() if k != expected),
+                  f"cluster: replica {shard} launched another kernel than "
+                  f"{expected}: {launches}")
+            replicas.append({"shard": f"{shard}/2", "kind": st["kind"],
+                             "route": st["route"], "kernel": expected,
+                             "launches": launches, "items": st["items"],
+                             "model_load_s": st["model_load_s"],
+                             "twophase_fallbacks":
+                                 st["twophase_fallbacks"]})
+            log({"phase": "cluster_replica", **replicas[-1]})
+
+        # /recommend: the single-node exact top-N over the whole catalog
+        Q = np.stack([X[int(u[1:])] for u in users])
+        want = exact_top_n(full, 10, Q, [set(known[u]) for u in users])
+        for path, (_, body, _), w in zip(paths, routed, want):
+            got = [(d["id"], d["value"]) for d in json.loads(body)]
+            check(len(got) == 10, f"cluster: {path} gave {got}")
+            same_answers(got, w, RTOL["float32"], f"cluster {path}")
+        # /recommendToAnonymous: a float64 fold-in over the summed
+        # Gramian, then the exact top-N of its vector
+        Qa = []
+        for ctx in ctxs:
+            x = fold_in_f64(gram, full, ctx, None)
+            check(x is not None, f"cluster: {ctx} folded into nothing")
+            Qa.append(x.astype(np.float32))
+        want = exact_top_n(full, 10, np.stack(Qa),
+                           [{i for i, _ in c} for c in ctxs])
+        for path, (_, body, _), w in zip(anon_paths, anonymous, want):
+            got = [(d["id"], d["value"]) for d in json.loads(body)]
+            check(len(got) == 10, f"cluster: {path} gave {got}")
+            check([i for i, _ in got] == [i for i, _ in w],
+                  f"cluster {path}: ids {got} != {w}")
+            np.testing.assert_allclose(
+                [v for _, v in got], [v for _, v in w], rtol=FOLD_RTOL,
+                atol=FOLD_ATOL, err_msg=f"cluster {path}")
+
+        # one /pref through the router onto the input topic
+        in_topic = router_cfg.get_string("oryx.input-topic.message.topic")
+        broker = resolve_broker(router_cfg.get_string(
+            "oryx.input-topic.broker"))
+        before = sum(broker.latest_offsets(in_topic))
+        status = client.call(router.port, "POST", f"/pref/{users[0]}/i7",
+                             b"2.5")[0]
+        check(status in (200, 204), f"cluster: /pref gave {status}")
+        check(sum(broker.latest_offsets(in_topic)) == before + 1,
+              "cluster: /pref appended no record to the input topic")
+
+        # /metrics: both shards live; no partial answer, no shard failure
+        metrics = json.loads(client.call(router.port, "GET",
+                                         "/metrics")[1])
+        cl = metrics["cluster"]
+        live = sorted(r["shard"] for r in
+                      cl["membership"]["replicas"].values()
+                      if r["live"] and r["ready"])
+        check(cl["covered_shards"] == [0, 1] and live == [0, 1]
+              and cl["membership"]["shards"] == 2,
+              f"cluster: /metrics shows {cl['membership']}")
+        check(metrics["counters"].get("partial_answers", 0) == 0
+              and cl["scatter"]["shard_failures"] == 0,
+              f"cluster: partial answers or shard failures: "
+              f"{metrics['counters']} {cl['scatter']}")
+        # the fold-in route one request at a time: its cost without the
+        # 32 clients' queueing
+        serial = [client.call(router.port, "GET", p)
+                  for p in anon_paths[:CLUSTER_SERIAL]]
+        check(all(r[0] == 200 for r in serial),
+              "cluster: a serial /recommendToAnonymous failed")
+        # one replica's own /recommend (its shard alone), for its latency
+        own = burst(ports[0], paths)
+    finally:
+        if router is not None:
+            router.close()
+        for conn in pipes:
+            try:
+                conn.send("stop")
+            except OSError:
+                pass
+        for proc in procs:
+            proc.join(60)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(30)
+    check(all(p.exitcode == 0 for p in procs),
+          f"cluster: a replica exited {[p.exitcode for p in procs]}")
+    line = {"phase": "cluster", "items": CLUSTER_ITEMS,
+            "features": CLUSTER_FEATURES, "users": CLUSTER_USERS,
+            "replicas": replicas, "concurrency": CLUSTER_CLIENTS,
+            "publish_s": published["seconds"], "publish_waited_s": waited_s,
+            "router_ready_s": ready_s, "replicas_loaded_s": loaded_s,
+            "router": {"requests": len(routed),
+                       **percentiles(r[2] for r in routed)},
+            "router_anonymous": {"requests": len(anonymous),
+                                 **percentiles(r[2] for r in anonymous)},
+            "router_anonymous_serial": {
+                "requests": len(serial),
+                **percentiles(r[2] for r in serial)},
+            "replica0_own": {"requests": len(own),
+                             **percentiles(r[2] for r in own)},
+            "scatter": cl["scatter"],
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    return line
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -4825,6 +5281,12 @@ def main(argv=None) -> int:
     if "lambda" in phases:
         children["preparer"] = spawn.Process(
             target=lambda_data, args=(work_dir,), daemon=True)
+    if "cluster" in phases:
+        os.makedirs(os.path.join(work_dir, "cluster_model"))
+        children["cluster_publisher"] = spawn.Process(
+            target=publish_cluster_model,
+            args=(os.path.join(work_dir, "cluster_model"), CLUSTER_SEED),
+            daemon=True)
     if "ann" in phases:
         children["ann_publisher"] = spawn.Process(
             target=publish_ann_generation,
@@ -4893,6 +5355,11 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         obs = obs_phase(children["publisher"], work_dir,
                         serves.get("1M_50f_f32_lsh0.3_topic"))
         free()
+    cluster = None
+    if "cluster" in phases:
+        # phase 11: two replicas and the router on one card
+        cluster = cluster_phase(children["cluster_publisher"], work_dir)
+        free()
     if "serving" in phases:
         entries = product_entries(cases, serves) + entries
     if deploy is not None:
@@ -4905,6 +5372,13 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         for entry in entries:
             if entry["name"] in obs["launches"]:
                 entry["obs_launches"] = obs["launches"][entry["name"]]
+    if cluster is not None:
+        # each replica's launches of its routed kernel in the routed round
+        for entry in entries:
+            per = [r["launches"][entry["name"]] for r in cluster["replicas"]
+                   if entry["name"] in r["launches"]]
+            if any(per):
+                entry["cluster_launches"] = per
     check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start,
          "phases": sorted(phases, key=PHASES.index)})

@@ -5,8 +5,15 @@ Counterpart of ``oryx_tpu/app/als/serving_manager.py`` (reference:
 ALSServingModelManager.java:45-160 — UP handling with known items
 :70-105, the solver trigger at the load fraction :96-103, MODEL and
 MODEL-REF handling with the retain logic :107-130, the rescorer
-providers of ``oryx.als.rescorer-provider-class`` :120-137).  It serves one
-catalog shard (``0/1``): the whole catalog.  The measured-cost kernel
+providers of ``oryx.als.rescorer-provider-class`` :120-137).  It serves
+the catalog shard ``oryx.cluster.shard`` (``i/N``; ``0/1``, the whole
+catalog, unless ``oryx.cluster.enabled``): Y vectors whose id hashes to
+another shard are skipped, while the user store and the known items stay
+whole.  Every Y record advances the cluster's item ordinals (the merge's
+tie-break) before the shard filter, from the manifest's total item count
+on a slice load, so every replica assigns the same ordinal to the same
+id; a slice load keeps its owned slices' manifest Gramians for
+``/shard/yty``.  The measured-cost kernel
 route is installed when the load fraction crosses
 ``oryx.serving.min-model-load-fraction`` and re-checked on every MODEL
 (a no-op while the store's capacity is unchanged).  With
@@ -15,8 +22,7 @@ route is installed when the load fraction crosses
 per-slice cells where the manifest names them, else trained here; its
 recall certificate is measured before the route, and any failure serves
 the exact kinds and counts ``ann_index_fallbacks``.  Not part of this
-package yet: item sharding over several cards (``item-shards`` 1) and
-the serving cluster's other shards.
+package yet: item sharding over several cards (``item-shards`` 1).
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import time
 import numpy as np
 
 from ...api.serving import AbstractServingModelManager
+from ...cluster.membership import KEY_HEARTBEAT
+from ...cluster.sharding import is_local_item, parse_shard_spec
 from ...common import pmml as pmml_io
 from ...common import store
 from ...common.device import resolve_device
@@ -66,11 +74,6 @@ class ALSServingModelManager(AbstractServingModelManager):
             raise ValueError("oryx.serving.api.item-shards must be 1: item "
                              "sharding over several cards is not part of "
                              "this package yet")
-        if config.get_bool("oryx.cluster.enabled") and (
-                config.get_optional_string("oryx.cluster.shard")
-                or "0/1") != "0/1":
-            raise ValueError("oryx.cluster.shard: this package serves the "
-                             "whole catalog (0/1) only")
         self.sample_rate = config.get_double("oryx.als.sample-rate")
         self.factor_dtype = config.get_string("oryx.als.factor-dtype")
         self.int8_selection = config.get_string(
@@ -90,8 +93,29 @@ class ALSServingModelManager(AbstractServingModelManager):
         # integrity counters: poison payloads refused, not absorbed
         self.rejected_updates = 0
         self.rejected_models = 0
-        # accepted MODEL/MODEL-REF documents since offset 0
+        # -- serving-cluster state (cluster/) ----------------------------
+        # the catalog shard this replica materializes ("0/1" = the whole
+        # catalog, plain single-node serving)
+        spec = (config.get_optional_string("oryx.cluster.shard")
+                if config.get_bool("oryx.cluster.enabled") else None)
+        self.shard_index, self.shard_count = parse_shard_spec(spec or "0/1")
+        # accepted MODEL/MODEL-REF documents since offset 0: the
+        # replica's model generation, identical across replicas of the
+        # totally ordered topic, carried in heartbeats
         self.generation = 0
+        # item id -> first-appearance index in the Y update stream: the
+        # cluster's canonical tie-break ordinal (cluster/merge.py),
+        # counting every Y id seen, those this shard skips included
+        self.item_ordinals: dict[str, int] = {}
+        # the next ordinal: not len(item_ordinals), since a slice-loaded
+        # replica holds its local slices' ordinals only — it advances
+        # from the manifest's total item count
+        self._ordinal_next = 0
+        # Y vectors skipped as another shard's
+        self.skipped_remote_items = 0
+        # the owned slices' summed manifest Gramians: /shard/yty answers
+        # from them without a device scan until a Y write lands
+        self._slice_yty: np.ndarray | None = None
         # slices bulk-loaded, and fallbacks to the monolithic artifacts
         self.slice_loads = 0
         self.slice_load_fallbacks = 0
@@ -122,6 +146,11 @@ class ALSServingModelManager(AbstractServingModelManager):
             self._consume_up(message)
         elif key in (KEY_MODEL, KEY_MODEL_REF):
             self._consume_model(key, message)
+        elif key == KEY_HEARTBEAT:
+            # cluster control plane on the shared update topic: the
+            # layers' consumers filter it, this guard covers direct
+            # manager drives
+            return
         else:
             raise ValueError(f"Bad key: {key}")
 
@@ -139,7 +168,19 @@ class ALSServingModelManager(AbstractServingModelManager):
             if extras is not None:
                 model.add_known_items(id_, [str(i) for i in extras])
         elif kind == "Y":
-            model.set_item_vector(id_, vector)
+            # the ordinal comes before the shard filter, and the counter
+            # advances for every Y record (a slice-loaded replica cannot
+            # tell a remote manifest item from a new one), so every
+            # replica assigns the same ordinal to the same id;
+            # setdefault keeps a known id's ordinal
+            self.item_ordinals.setdefault(id_, self._ordinal_next)
+            self._ordinal_next += 1
+            if is_local_item(id_, self.shard_index, self.shard_count):
+                model.set_item_vector(id_, vector)
+                # a live Y write outdates the manifest's Gramian
+                self._slice_yty = None
+            else:
+                self.skipped_remote_items += 1
         else:
             raise ValueError(f"Bad message: {message}")
         # outside the log rate limiter: a replay that ends inside one
@@ -186,27 +227,42 @@ class ALSServingModelManager(AbstractServingModelManager):
                          "current model")
             return
         implicit = pmml_io.get_extension_value(pmml, "implicit") == "true"
+        x_ids = list(pmml_io.get_extension_content(pmml, "XIDs") or [])
+        y_ids = list(pmml_io.get_extension_content(pmml, "YIDs") or [])
+        # a shard counts and retains its local items only; the known
+        # items keep the global id universe (exclusion works by id)
+        local_y = [i for i in y_ids
+                   if is_local_item(i, self.shard_index, self.shard_count)] \
+            if self.shard_count > 1 else y_ids
         if self.model is None or features != self.model.features:
             _log.warning("No previous model, or # features changed; "
                          "creating new one")
             # a replacement model re-fires the solver and route trigger
             # at its own load fraction
             self._triggered_solver = False
-            self.model = ALSServingModel(
+            model = ALSServingModel(
                 features, implicit, self.sample_rate,
                 self.rescorer_provider,
                 dtype=self.factor_dtype, device=self.device,
                 int8_selection=self.int8_selection,
                 fold_scan=self.fold_scan)
+            # its expected ids before it is published: an empty model
+            # reads as wholly loaded, and /ready and the replica's
+            # heartbeat would call it ready (the reference publishes
+            # the model first)
+            model.set_expected_ids(x_ids, local_y)
+            self.model = model
+        else:
+            self.model.set_expected_ids(x_ids, local_y)
         _log.info("Updating model")
-        x_ids = list(pmml_io.get_extension_content(pmml, "XIDs") or [])
-        y_ids = list(pmml_io.get_extension_content(pmml, "YIDs") or [])
-        self.model.set_expected_ids(x_ids, y_ids)
         self.model.retain_recent_and_known_items(x_ids, y_ids)
         self.model.retain_recent_and_user_ids(x_ids)
-        self.model.retain_recent_and_item_ids(y_ids)
+        self.model.retain_recent_and_item_ids(local_y)
         self.generation += 1
         self._model_received_at = t_model
+        # a new generation outdates the held manifest Gramian; a slice
+        # load below sets the fresh one
+        self._slice_yty = None
         # the previous generation's published index is stale
         self._ann_centroid_entry = None
         self._ann_cells_by_id = {}
@@ -237,22 +293,37 @@ class ALSServingModelManager(AbstractServingModelManager):
         _log.info("Model updated: %s", self.model)
 
     def _load_from_manifest(self, model_dir: str, manifest: dict) -> None:
-        """Bulk-load every slice and the user artifact; any integrity
-        failure falls back to :meth:`_load_full_artifacts` and counts
-        ``slice_load_fallbacks``."""
+        """Bulk-load this shard's slices and the user artifact; any
+        integrity failure falls back to :meth:`_load_full_artifacts` and
+        counts ``slice_load_fallbacks``."""
         try:
             ring = int(manifest["ring"])
-            owned = slices.owned_slices(ring, 0, 1)
+            owned = slices.owned_slices(ring, self.shard_index,
+                                        self.shard_count)
+            if owned is None:
+                raise slices.SliceIntegrityError(
+                    f"slice ring {ring} incompatible with shard count "
+                    f"{self.shard_count} (pick a ring the shard count "
+                    f"divides)")
             features = self.model.features
             total_bytes = 0
+            gramian = np.zeros((features, features), dtype=np.float64)
+            # the Gramians live in the store's manifest only (the
+            # topic's copy leaves them out); without them /shard/yty
+            # scans the store
+            full = slices.read_manifest(model_dir)
+            grams = (full or {}).get("gramians")
             entries = {int(e["slice"]): e for e in manifest["slices"]}
             self._ann_centroid_entry = manifest.get("ann")
             for s in owned:
-                ids, matrix, _ordinals = slices.read_slice(
+                ids, matrix, ordinals = slices.read_slice(
                     model_dir, entries[s], features)
                 if ids:
                     self.model.bulk_load_items(ids, matrix)
+                    self.item_ordinals.update(zip(ids, ordinals))
                 total_bytes += int(entries[s].get("bytes", 0))
+                if grams is not None:
+                    gramian += np.asarray(grams[s], dtype=np.float64)
                 self._collect_slice_ann(model_dir, entries[s], ids)
             x_ids, X, known = slices.read_x_known(
                 model_dir, manifest["x"], features)
@@ -262,14 +333,19 @@ class ALSServingModelManager(AbstractServingModelManager):
                     if items:
                         self.model.add_known_items(uid, items)
             total_bytes += int(manifest["x"].get("bytes", 0))
+            self._ordinal_next = max(self._ordinal_next,
+                                     int(manifest["items"]))
             self.slice_loads += len(owned)
             self.model_slice_bytes = total_bytes
-            _log.info("Slice-loaded %d slices (%d items, %d users, %d "
-                      "bytes)", len(owned), len(self.model.Y),
-                      len(self.model.X), total_bytes)
+            self._slice_yty = gramian if grams is not None else None
+            _log.info("Slice-loaded %d/%d slices (%d items, %d users, %d "
+                      "bytes) for shard %d/%d", len(owned), ring,
+                      len(self.model.Y), len(self.model.X), total_bytes,
+                      self.shard_index, self.shard_count)
         except (slices.SliceIntegrityError, OSError, KeyError, IndexError,
                 TypeError, ValueError) as e:
             self.slice_load_fallbacks += 1
+            self._slice_yty = None
             # a failed slice load discredits the manifest and its index
             # artifacts: the IVF build trains here over what the fallback
             # loads
@@ -281,17 +357,27 @@ class ALSServingModelManager(AbstractServingModelManager):
 
     def _load_full_artifacts(self, model_dir: str) -> None:
         """The fallback: the monolithic ``Y``/``X`` artifacts the
-        publisher also writes, the state a full-stream replay builds."""
+        publisher also writes, filtered to this shard, with ordinals by
+        artifact position — the state a full-stream replay builds (the
+        artifact order is the stream order)."""
         from .update import load_features
         try:
             y_ids, Y = load_features(store.join(model_dir, "Y"))
-            if y_ids:
-                self.model.bulk_load_items(y_ids, Y)
+            local = [j for j, iid in enumerate(y_ids)
+                     if is_local_item(iid, self.shard_index,
+                                      self.shard_count)]
+            if local:
+                self.model.bulk_load_items(
+                    [y_ids[j] for j in local], Y[local])
+            self.skipped_remote_items += len(y_ids) - len(local)
+            for j, iid in enumerate(y_ids):
+                self.item_ordinals.setdefault(iid, j)
+            self._ordinal_next = max(self._ordinal_next, len(y_ids))
             x_ids, X = load_features(store.join(model_dir, "X"))
             if x_ids:
                 self.model.bulk_load_users(x_ids, X)
-            _log.info("Fallback-loaded monolithic artifacts: %d items, %d "
-                      "users", len(y_ids), len(x_ids))
+            _log.info("Fallback-loaded monolithic artifacts: %d local "
+                      "items, %d users", len(local), len(x_ids))
         except (OSError, ValueError) as e:
             # the store is unreachable: the model stays below the
             # serving gate — log, don't die
@@ -387,3 +473,11 @@ class ALSServingModelManager(AbstractServingModelManager):
                 return None
             cells[i] = c
         return cells
+
+    def partial_yty(self) -> np.ndarray | None:
+        """This shard's Gramian from the manifest's per-slice partials
+        (``/shard/yty`` then answers without a device scan), or None
+        when none is held: a replay-loaded model, a Y write since the
+        load, or a manifest without Gramians."""
+        g = self._slice_yty
+        return None if g is None else np.asarray(g, dtype=np.float64)

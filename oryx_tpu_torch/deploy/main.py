@@ -7,15 +7,18 @@ the built-in defaults — and the three Main classes: construct the layer
 from config, register a shutdown hook, start, await).  ``warmup``
 builds and loads the kernel libraries before traffic
 (deploy/warmup.py), ``config-to-properties`` prints the resolved
-configuration, and ``serving --shard`` / ``speed --shard`` pass the
-reference's overlay to the layers, which refuse it by key until the
-serving cluster and the sharded speed layer are part of this package.
+configuration, ``serving --shard i/N`` starts a serving-cluster replica
+of catalog shard ``i`` of ``N``, and ``router`` the cluster's
+scatter-gather gateway (cluster/router.py).  ``speed --shard`` passes
+the reference's overlay to the speed layer, which refuses it by key
+until the sharded speed layer is part of this package, and the router
+refuses ``--async`` (``oryx.cluster.async.enabled``) by key.
 
 One flag the reference does not have: ``--device`` on ``batch``,
-``speed``, ``serving`` and ``warmup``.  Its default is the CUDA card;
-``--device cpu`` runs on the host when asked.  ``router``,
-``autoscale`` and ``mirror`` are listed so that ``--help`` shows the
-reference's surface, and each exits non-zero at once, by name.
+``speed``, ``serving``, ``router`` and ``warmup``.  Its default is the
+CUDA card; ``--device cpu`` runs on the host when asked.  ``autoscale``
+and ``mirror`` are listed so that ``--help`` shows the reference's
+surface, and each exits non-zero at once, by name.
 
 Usage:
     python -m oryx_tpu_torch <subcommand> [--conf my.conf] ...
@@ -39,8 +42,6 @@ _log = logging.getLogger(__name__)
 # the reference's subcommands whose layers this package does not have
 # yet: each refuses by name
 UNPORTED_COMMANDS = {
-    "router": "the cluster gateway (scatter-gather router over sharded "
-              "serving replicas)",
     "autoscale": "the gauge-driven replica autoscaler",
     "mirror": "the cross-region update-topic mirror",
 }
@@ -122,6 +123,21 @@ def _cmd_serving(args) -> int:
                config)
     # which hand-written kernels served this process
     _log.info("serving: kernel launches=%s", json.dumps(launches.counts()))
+    return 0
+
+
+def _cmd_router(args) -> int:
+    """The scatter-gather gateway: the public REST front end over a
+    fleet of shard replicas (cluster/router.py).  ``--async`` sets
+    ``oryx.cluster.async.enabled``, which the router refuses by name
+    until its asyncio front end is part of this package."""
+    from ..cluster.router import RouterLayer
+    config = _load_config(args.conf)
+    if args.async_mode is not None:
+        config = from_dict({"oryx.cluster.async.enabled":
+                            bool(args.async_mode)}, config)
+    _run_layer(lambda: RouterLayer(config, device=args.device), "router",
+               config)
     return 0
 
 
@@ -241,8 +257,9 @@ _COMMANDS = [
     ("batch", _cmd_batch, "run the batch (training) layer"),
     ("speed", _cmd_speed, "run the speed (incremental) layer"),
     ("serving", _cmd_serving, "run the serving (REST) layer"),
-    ("router", _cmd_unported,
-     "not part of this package yet: " + UNPORTED_COMMANDS["router"]),
+    ("router", _cmd_router,
+     "run the cluster gateway: scatter-gather router over sharded "
+     "serving replicas (see serving --shard)"),
     ("autoscale", _cmd_unported,
      "not part of this package yet: " + UNPORTED_COMMANDS["autoscale"]),
     ("mirror", _cmd_unported,
@@ -269,10 +286,17 @@ def main(argv: list[str] | None = None) -> int:
         p = sub.add_parser(name, help=help_)
         p.add_argument("--conf", help="HOCON config file overlaying defaults")
         p.set_defaults(fn=fn)
-        if name in ("batch", "speed", "serving", "warmup"):
+        if name in ("batch", "speed", "serving", "router", "warmup"):
             p.add_argument("--device", default=None,
                            help="torch device (default: the CUDA card; "
                                 "'cpu' runs on the host)")
+        if name == "router":
+            p.add_argument("--async", dest="async_mode",
+                           action=argparse.BooleanOptionalAction,
+                           default=None,
+                           help="serve the public door on the asyncio "
+                                "front end (oryx.cluster.async.enabled; "
+                                "not part of this package yet)")
         if name == "speed":
             p.add_argument("--shard", default=None, metavar="i/N",
                            help="fold in only item slice i of N "

@@ -6,20 +6,26 @@ ServingLayer.java:58-339, OryxApplication.java:41-98,
 CSVMessageBodyWriter.java:39, ErrorResource.java:36), cut down to
 HTTP/1.1: route patterns with path variables (including multi-segment
 tails), JSON/CSV content negotiation, gzip, plain-text and HTML error
-pages, per-request deadlines, read-only gating, and the observability
-hooks of the dispatcher (the metrics registry's per-route record with a
-trace exemplar, the request span and its ``X-Oryx-Trace`` echo, the
-wide-event line and the flight recorder's ring append).  HTTP/2, TLS,
-DIGEST auth and the serving cluster's admission and result-cache hooks
-come with later slices.
+pages, per-request deadlines, read-only gating, DIGEST auth (MD5,
+``qop="auth"``, a bounded nonce set), TLS through ``make_server``'s
+``ssl_context``, the serving cluster's admission gate, and the
+observability hooks of the dispatcher (the metrics registry's per-route
+record with a trace exemplar, the request span and its ``X-Oryx-Trace``
+echo, the wide-event line and the flight recorder's ring append).
+HTTP/2 (the reference's ALPN ``h2`` offer and its cleartext prior
+knowledge) and the router's result-cache hooks come with a later slice:
+TLS offers ``http/1.1`` only.
 """
 
 from __future__ import annotations
 
 import gzip
+import hashlib
 import html as html_mod
 import json
 import re
+import secrets
+import threading
 import time
 import urllib.parse
 from http.server import ThreadingHTTPServer
@@ -90,6 +96,10 @@ class Route(NamedTuple):
     pattern: str              # e.g. "/recommend/{userID}", "/similarity/{itemID:+}"
     handler: Callable[["Request"], Any]
     mutates: bool = False     # disabled in read-only mode
+    # a data-plane route behind the admission controller (when one is
+    # in the app context): overload sheds it as a fast 503 +
+    # Retry-After; control and health routes stay open
+    admission: bool = False
 
 
 class Request(NamedTuple):
@@ -199,8 +209,9 @@ class HttpApp:
     """Routes + app context, servable by ``make_server``."""
 
     def __init__(self, routes: list[Route], context: dict[str, Any],
-                 read_only: bool = False, context_path: str = "/",
-                 request_deadline_ms: int = 0):
+                 read_only: bool = False,
+                 user_name: str | None = None, password: str | None = None,
+                 context_path: str = "/", request_deadline_ms: int = 0):
         self._routes = [(r, _compile(r.pattern)) for r in routes]
         self.context = context
         # the dispatcher records into the registry /metrics reads
@@ -215,7 +226,15 @@ class HttpApp:
         # flight recorder (obs/flight.py): None = disabled; armed it
         # costs one ring append per request in the finally block
         self.flight = context.get("flight")
+        # the admission controller (cluster/admission.py): gates routes
+        # marked admission=True; absent = no per-request cost
+        self.admission = context.get("admission")
         self.read_only = read_only
+        self.user_name = user_name
+        self.password = password
+        self.realm = "Oryx"
+        self._nonces: set[str] = set()
+        self._nonce_lock = threading.Lock()
         self.context_path = "" if context_path in ("/", "") \
             else context_path.rstrip("/")
         self.request_deadline_ms = request_deadline_ms
@@ -238,6 +257,51 @@ class HttpApp:
         if ms is None:
             return None
         return Deadline.after(ms / 1000.0)
+
+    # -- DIGEST auth (reference: InMemoryRealm + DIGEST auth config) -------
+
+    def _auth_ok(self, handler) -> bool:
+        if self.user_name is None:
+            return True
+        auth = handler.headers.get("Authorization", "")
+        if not auth.startswith("Digest "):
+            return False
+        pairs = re.findall(r'(\w+)=(?:"([^"]*)"|([^, ]*))', auth[7:])
+        parts = {k: (quoted or bare) for k, quoted, bare in pairs}
+        nonce = parts.get("nonce", "")
+        with self._nonce_lock:
+            if nonce not in self._nonces:
+                return False
+        if parts.get("username") != self.user_name:
+            return False
+        ha1 = hashlib.md5(f"{self.user_name}:{self.realm}:"
+                          f"{self.password}".encode()).hexdigest()
+        ha2 = hashlib.md5(
+            f"{handler.command}:{parts.get('uri', '')}".encode()).hexdigest()
+        if "qop" in parts:
+            expected = hashlib.md5(
+                f"{ha1}:{nonce}:{parts.get('nc', '')}:"
+                f"{parts.get('cnonce', '')}:{parts.get('qop', '')}:"
+                f"{ha2}".encode()).hexdigest()
+        else:
+            expected = hashlib.md5(f"{ha1}:{nonce}:{ha2}".encode()).hexdigest()
+        return secrets.compare_digest(expected, parts.get("response", ""))
+
+    def _challenge(self, handler) -> None:
+        nonce = secrets.token_hex(16)
+        with self._nonce_lock:
+            self._nonces.add(nonce)
+            if len(self._nonces) > 10000:
+                self._nonces.clear()
+                self._nonces.add(nonce)
+        handler._oryx_status = 401
+        handler.send_response(401)
+        handler.send_header(
+            "WWW-Authenticate",
+            f'Digest realm="{self.realm}", nonce="{nonce}", qop="auth"')
+        # keep-alive clients block on a close-delimited body without this
+        handler.send_header("Content-Length", "0")
+        handler.end_headers()
 
     # -- dispatch ------------------------------------------------------------
 
@@ -318,6 +382,10 @@ class HttpApp:
                                         spans)
 
     def _handle(self, handler) -> None:
+        if not self._auth_ok(handler):
+            self._challenge(handler)
+            self._drain_body(handler)
+            return
         parsed = urllib.parse.urlparse(handler.path)
         path = urllib.parse.unquote(parsed.path)
         if self.context_path and path.startswith(self.context_path):
@@ -338,6 +406,22 @@ class HttpApp:
             if route.mutates and self.read_only:
                 self._send_error(handler, 403, "endpoint is read-only")
                 self._drain_body(handler)
+                return
+            if route.admission and self.admission is not None:
+                ok, retry_after = self.admission.try_acquire()
+                if not ok:
+                    # measured overload: a fast 503 the client can back
+                    # off on, instead of queueing into the collapse
+                    self._send_error(
+                        handler, 503, "overloaded; retry later",
+                        headers={"Retry-After": str(retry_after)})
+                    self._drain_body(handler)
+                    return
+                try:
+                    self._dispatch_route(handler, route, path, m, query,
+                                         method)
+                finally:
+                    self.admission.release()
                 return
             self._dispatch_route(handler, route, path, m, query, method)
             return
@@ -457,9 +541,18 @@ _REASONS = {200: "OK", 204: "No Content", 400: "Bad Request",
 _KNOWN_METHODS = frozenset({"GET", "HEAD", "POST", "DELETE"})
 
 
-def make_server(app: HttpApp, port: int) -> ThreadingHTTPServer:
-    """HTTP/1.1 server with keep-alive hosting the app; port 0 picks a
-    free one.
+def make_server(app: HttpApp, port: int,
+                ssl_context=None) -> ThreadingHTTPServer:
+    """HTTP/1.1 (or, with ``ssl_context``, HTTPS) server with keep-alive
+    hosting the app; port 0 picks a free one.
+
+    TLS termination is stdlib ``ssl`` wrapping the listening socket, as
+    in the reference (whose connector is HTTP or HTTPS by keystore,
+    ServingLayer.java:202-255).  The handshake is deferred to the
+    per-connection handler thread (``do_handshake_on_connect=False``),
+    so a client that connects and never speaks stalls one worker
+    thread, not the accept loop.  ALPN offers ``http/1.1`` only: the
+    reference's ``h2`` offer comes with HTTP/2.
 
     The per-request parser is hand-rolled rather than
     ``BaseHTTPRequestHandler``, as in the reference: the stdlib handler
@@ -473,12 +566,22 @@ def make_server(app: HttpApp, port: int) -> ThreadingHTTPServer:
     class _Handler(socketserver.StreamRequestHandler):
         wbufsize = -1  # buffered response writes, one flush per request
 
+        def setup(self):
+            if ssl_context is not None:
+                # handshake here, in this connection's worker thread,
+                # with a bound so a silent client can't hold the thread
+                # forever; the accept loop was never involved
+                self.request.settimeout(30)
+                self.request.do_handshake()
+                self.request.settimeout(None)
+            super().setup()
+
         def handle(self):
             try:
                 while self._handle_one():
                     pass
             except (ConnectionError, TimeoutError, OSError):
-                pass  # client went away
+                pass  # client went away / TLS handshake failed
 
         def _handle_one(self) -> bool:
             line = self.rfile.readline(65537)
@@ -545,4 +648,13 @@ def make_server(app: HttpApp, port: int) -> ThreadingHTTPServer:
         # default backlog of 5 refuses connections under load
         request_queue_size = 512
 
-    return _Server(("0.0.0.0", port), _Handler)
+    server = _Server(("0.0.0.0", port), _Handler)
+    if ssl_context is not None:
+        try:
+            ssl_context.set_alpn_protocols(["http/1.1"])
+        except NotImplementedError:  # pragma: no cover - exotic builds
+            pass
+        server.socket = ssl_context.wrap_socket(
+            server.socket, server_side=True,
+            do_handshake_on_connect=False)
+    return server

@@ -17,11 +17,20 @@ breaker, behind the ingest admission gate.  The observability surface is the
 reference's: the metrics registry behind ``/metrics``, device-time
 accounting, the freshness and model-load gauges, and, each behind its
 ``oryx.obs.*`` gate, tracing, the SLO engine, the wide-event log, the
-flight recorder and ``/admin/profile``.  Not part of this package yet:
-TLS and authentication (a configured keystore, user name or password
-raises) and the serving cluster (``oryx.cluster.enabled`` raises: the
-``/shard/*`` routes, heartbeats, the frame transport and the result
-cache).
+flight recorder and ``/admin/profile``.  A configured keystore (a PEM
+certificate chain with its key) serves HTTPS on ``secure-port``, and a
+configured user name and password put DIGEST auth on every route.
+
+With ``oryx.cluster.enabled`` the layer is a replica of the serving
+cluster (reference :248-359): its manager loads catalog shard
+``oryx.cluster.shard`` (``i/N``), the ``/shard/*`` routes of
+``cluster/shard_resources.py`` ride beside the public ones, a heartbeat
+publisher announces the replica on the update topic once the port is
+bound, the update replay skips heartbeats, and the chaos point
+``reshard-warm-stall`` sits on the replay.  The reference's framed
+transport and replica result cache are not part of this package yet:
+``oryx.cluster.transport.enabled`` and
+``oryx.cluster.replica-cache.enabled`` raise by name.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ import importlib
 import logging
 import threading
 
+from ..cluster.membership import HeartbeatPublisher, without_heartbeats
+from ..cluster.result_cache import ShardResultCache
+from ..cluster.sharding import parse_shard_spec
 from ..common import compile_cache
 from ..common.config import refuse_configured
 from ..common.lang import load_instance, logging_call
@@ -51,9 +63,10 @@ _log = logging.getLogger(__name__)
 
 __all__ = ["ServingLayer", "UNPORTED_CLUSTER_KEYS"]
 
-# keys of the reference's layer whose features this package does not
-# have yet: each raises by name rather than being quietly ignored
-UNPORTED_CLUSTER_KEYS = ("oryx.cluster.enabled",)
+# keys of the reference's replica whose features this package does not
+# have yet: each raises by name rather than being quietly ignored (the
+# replica result cache's key is refused by ShardResultCache)
+UNPORTED_CLUSTER_KEYS = ("oryx.cluster.transport.enabled",)
 
 
 class ServingLayer:
@@ -65,16 +78,33 @@ class ServingLayer:
     def __init__(self, config, port: int | None = None, device=None):
         self.config = config
         api = "oryx.serving.api"
-        for key in ("keystore-file", "user-name", "password"):
-            if config.get_optional_string(f"{api}.{key}") is not None:
-                raise ValueError(f"{api}.{key}: TLS and authentication are "
-                                 f"not part of this package yet")
-        refuse_configured(config, UNPORTED_CLUSTER_KEYS,
-                          "the serving cluster (/shard routes, heartbeats, "
-                          "frame transport) is not part of this package yet")
-        self.port = port if port is not None else config.get_int(
-            f"{api}.port")
+        # serving-cluster replica mode (cluster/): one catalog shard,
+        # the internal /shard/* scatter targets, and heartbeats on the
+        # update topic so the router routes here
+        self.cluster_enabled = config.get_bool("oryx.cluster.enabled")
+        self.heartbeat: HeartbeatPublisher | None = None
+        if self.cluster_enabled:
+            refuse_configured(config, UNPORTED_CLUSTER_KEYS,
+                              "the framed internal transport is not part "
+                              "of this package yet")
+            ShardResultCache.from_config(config)
+        # TLS: a PEM certificate chain and key (keystore-password
+        # decrypts the key; the reference's key-alias does not apply to
+        # PEM) serve HTTPS on secure-port (reference :46-64)
+        self.keystore_file = config.get_optional_string(
+            f"{api}.keystore-file")
+        self.keystore_password = config.get_optional_string(
+            f"{api}.keystore-password")
+        if port is not None:
+            self.port = port
+        elif self.keystore_file:
+            self.port = config.get_int(f"{api}.secure-port")
+        else:
+            self.port = config.get_int(f"{api}.port")
+        self.scheme = "https" if self.keystore_file else "http"
         self.read_only = config.get_bool(f"{api}.read-only")
+        self.user_name = config.get_optional_string(f"{api}.user-name")
+        self.password = config.get_optional_string(f"{api}.password")
         self.context_path = config.get_string(f"{api}.context-path")
         self.input_broker = config.get_optional_string(
             "oryx.input-topic.broker")
@@ -182,6 +212,8 @@ class ServingLayer:
                 "device_time": self.device_time,
             },
             read_only=self.read_only,
+            user_name=self.user_name,
+            password=self.password,
             context_path=self.context_path,
             request_deadline_ms=config.get_int(
                 "oryx.resilience.request-deadline-ms"))
@@ -221,6 +253,11 @@ class ServingLayer:
         package)."""
         from ..serving import framework as framework_resources
         routes: list[Route] = list(framework_resources.ROUTES)
+        if self.cluster_enabled:
+            # the router's internal scatter targets ride beside the
+            # public resources (same server, same auth and TLS)
+            from ..cluster import shard_resources
+            routes.extend(shard_resources.ROUTES)
         resources = self.config.get_optional_string(
             "oryx.serving.application-resources")
         package = __name__.split(".")[0]
@@ -255,24 +292,64 @@ class ServingLayer:
         if self.config.get_optional_string("oryx.obs.profile-dir"):
             # /admin/profile captures on a handler's thread
             profile_mod.prime()
-        self._server = make_server(self.app, self.port)
+        ssl_context = None
+        if self.keystore_file:
+            import ssl
+            ssl_context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_context.load_cert_chain(self.keystore_file,
+                                        password=self.keystore_password)
+        self._server = make_server(self.app, self.port,
+                                   ssl_context=ssl_context)
         self.port = self._server.server_address[1]
         self._server_thread = threading.Thread(
             target=self._server.serve_forever, daemon=True,
             name="ServingLayerHTTP")
         self._server_thread.start()
         _log.info("Serving layer listening on port %d", self.port)
+        if self.cluster_enabled and self.update_broker and self.update_topic:
+            # announce the replica once the port is bound: the heartbeat
+            # carries the live URL
+            c = "oryx.cluster"
+            shard, of = parse_shard_spec(
+                self.config.get_optional_string(f"{c}.shard") or "0/1")
+            host = self.config.get_string(f"{c}.advertise-host")
+            self.heartbeat = HeartbeatPublisher(
+                InProcTopicProducer(self.update_broker, self.update_topic),
+                shard=shard, of=of,
+                url=f"{self.scheme}://{host}:{self.port}",
+                manager=self.model_manager,
+                min_fraction=self.min_model_load_fraction,
+                interval_sec=self.config.get_int(
+                    f"{c}.heartbeat-interval-ms") / 1000.0,
+                replica_id=self.config.get_optional_string(
+                    f"{c}.replica-id"),
+                region=self.config.get_optional_string(
+                    f"{c}.region.name"))
+            self.heartbeat.start()
+
+    @staticmethod
+    def _replay_stall_seam(stream):
+        """Chaos seam ``reshard-warm-stall``: mode=delay stalls the
+        update replay per record — a new-topology replica that hangs
+        mid-warm never reaches ready, so the router keeps serving the
+        old topology.  Unarmed: one boolean check per record."""
+        for km in stream:
+            faults.fire("reshard-warm-stall")
+            yield km
 
     def _consume_updates(self) -> None:
         # a failure mid-tail resubscribes with backoff and replays from
         # offset 0: recovery is the cold-start path
         broker = resolve_broker(self.update_broker)
-        # the freshness tap counts the raw records, to compare with the
-        # topic head's offsets
+        # cluster heartbeats share the update topic: control plane, not
+        # model state, filtered before the manager.  The freshness tap
+        # counts the raw records (heartbeats included), to compare with
+        # the topic head's offsets
         run_with_resubscribe(
-            lambda: self.model_manager.consume(self._update_tap.wrap(
-                broker.consume(self.update_topic, from_beginning=True,
-                               stop=self._stop))),
+            lambda: self.model_manager.consume(without_heartbeats(
+                self._replay_stall_seam(self._update_tap.wrap(
+                    broker.consume(self.update_topic, from_beginning=True,
+                                   stop=self._stop))))),
             stop=self._stop, what="serving update consumer", log=_log)
 
     @property
@@ -287,6 +364,8 @@ class ServingLayer:
 
     def close(self) -> None:
         self._stop.set()
+        if self.heartbeat is not None:
+            self.heartbeat.close()
         if self._server:
             self._server.shutdown()
             self._server.server_close()

@@ -19,7 +19,8 @@ micro-batch duration and records, and the end-to-end
 serving front end stamps — answer on the side-door ``ObsServer`` at
 ``oryx.obs.metrics-port``.  A record carrying a sampled ``traceparent``
 header gets a retroactive ``speed.fold_in`` span under its originating
-trace.
+trace.  The update consumer skips the serving cluster's heartbeats, as
+the reference's does (:213-217).
 
 Not part of this package yet, each refused with an error naming its
 key: the durable micro-batch checkpoint and its dedup fence
@@ -33,6 +34,7 @@ import logging
 import threading
 
 from ..app.als.speed import check_shard
+from ..cluster.membership import without_heartbeats
 from ..common import clock as clockmod
 from ..common import compile_cache
 from ..common.config import Config, refuse_configured
@@ -165,12 +167,15 @@ class SpeedLayer:
 
     def _consume_updates(self) -> None:
         broker = resolve_broker(self.update_broker)
-        # the freshness tap counts the raw records, to compare with the
-        # topic head's offsets
+        # serving-cluster heartbeats ride the same update topic: control
+        # plane, filtered before the model manager.  The freshness tap
+        # counts the raw records (heartbeats included), to compare with
+        # the topic head's offsets
         run_with_resubscribe(
-            lambda: self.model_manager.consume(self._update_tap.wrap(
-                broker.consume(self.update_topic, from_beginning=True,
-                               stop=self._stop))),
+            lambda: self.model_manager.consume(without_heartbeats(
+                self._update_tap.wrap(
+                    broker.consume(self.update_topic, from_beginning=True,
+                                   stop=self._stop)))),
             stop=self._stop, what="speed update consumer", log=_log)
 
     def _note_micro_batch(self, new_data: list[KeyMessage],

@@ -1,21 +1,20 @@
 """Shared observability HTTP resources + the side-door metrics server.
 
-Counterpart of ``oryx_tpu/obs/server.py``, without the router's
-cross-replica joins (``?join=1`` on ``/admin/traces``, ``/admin/tail``
-and ``/admin/diagnose`` scrapes replicas through the serving cluster's
-scatter registry, which is not part of this package yet: every answer
-here is this process's own).  The handlers every tier mounts (the
-serving tier on its main port, via serving/framework.py):
+Counterpart of ``oryx_tpu/obs/server.py``.  The handlers every tier
+mounts (the serving tier and the router on their main port, via
+serving/framework.py and cluster/router.py):
 
 - ``GET /metrics`` — JSON by default; ``?format=prometheus`` renders
   the text exposition, ``?format=openmetrics`` the exemplar-carrying
   form, ``?format=prometheus-json`` the structured mergeable snapshot.
 - ``GET /admin/traces``, ``/admin/tail``, ``/admin/slo``,
   ``/admin/region``, ``/admin/flight``, ``/admin/diagnose``, and
-  ``POST /admin/flight/dump``.
+  ``POST /admin/flight/dump``.  On the router (a context with a
+  ``scatter``), ``?join=1`` on the traces, the tail and the diagnosis
+  scrapes every live replica and merges its answer in.
 - ``GET /admin/profile?ms=N`` — on-demand ``torch.profiler`` capture
   (obs/profile.py); 404 unless ``oryx.obs.profile-dir`` is set, and a
-  mutating route, so read-only gating applies.
+  mutating route, so read-only gating and DIGEST auth apply.
 
 The speed and batch layers serve no public HTTP, so their freshness
 gauges and fold-in traces would otherwise be invisible;
@@ -29,7 +28,6 @@ import logging
 import threading
 
 from ..api.serving import OryxServingException
-from ..common.config import refuse_configured
 from ..lambda_rt.http import (HttpApp, Request, Route, TextResponse,
                               make_server)
 from ..resilience.policy import resilience_snapshot
@@ -42,8 +40,8 @@ _log = logging.getLogger(__name__)
 __all__ = ["admin_traces", "admin_tail", "admin_slo", "admin_profile",
            "admin_region", "admin_flight", "admin_flight_dump",
            "admin_diagnose", "registry_metrics",
-           "own_prometheus_snapshot", "prometheus_response", "ObsServer",
-           "OPENMETRICS_CTYPE", "OBS_ROUTES"]
+           "own_prometheus_snapshot", "prometheus_response",
+           "gather_traces", "ObsServer", "OPENMETRICS_CTYPE", "OBS_ROUTES"]
 
 # the OpenMetrics media type a conforming scraper negotiates for
 OPENMETRICS_CTYPE = ("application/openmetrics-text; version=1.0.0; "
@@ -114,24 +112,72 @@ def _tracer(req: Request):
     return tracer
 
 
+# joined-ring payload caps: a cluster-complete trace dump must not grow
+# without bound with the replica count
+_JOIN_MAX_TRACES_FACTOR = 4
+_JOIN_MAX_SPANS_PER_TRACE = 2048
+
+
+def gather_traces(req: Request, tracer, limit: int,
+                  join: bool) -> tuple[dict, int | None]:
+    """This process's trace ring, optionally joined (``join``) with
+    every live replica's ring through the scatter registry — the router
+    only; on a tier without a scatter path ``join`` is a no-op.  Returns
+    ``(traces, replicas_joined)``; the payload is capped at ``4 x
+    limit`` traces and 2048 spans per trace."""
+    traces = {tid: list(spans) for tid, spans
+              in tracer.traces_snapshot(limit=limit).items()}
+    sg = req.context.get("scatter")
+    if not join or sg is None:
+        return traces, None
+    scraped = 0
+    for _, payload in sg.scrape_replicas(
+            f"/admin/traces?limit={limit}", deadline=req.deadline):
+        scraped += 1
+        for tid, spans in (payload.get("traces") or {}).items():
+            if tid not in traces \
+                    and len(traces) >= _JOIN_MAX_TRACES_FACTOR * limit:
+                continue
+            merged = traces.setdefault(tid, [])
+            room = _JOIN_MAX_SPANS_PER_TRACE - len(merged)
+            if room > 0:
+                merged.extend(spans[:room])
+    return traces, scraped
+
+
+def _wants_join(req: Request, default: str) -> bool:
+    return req.q1("join", default) not in ("0", "false", "")
+
+
 def admin_traces(req: Request):
     """Finished traces from this process's bounded ring; a span tree is
-    reassembled client-side from parent ids."""
+    reassembled client-side from parent ids.  On the router, ``?join=1``
+    merges every live replica's ring by trace id."""
     tracer = _tracer(req)
-    return {"service": tracer.service,
-            "record_failures": tracer.record_failures,
-            "traces": tracer.traces_snapshot(limit=req.q_int("limit", 64))}
+    traces, joined = gather_traces(req, tracer, req.q_int("limit", 64),
+                                   _wants_join(req, "0"))
+    out = {"service": tracer.service,
+           "record_failures": tracer.record_failures,
+           "traces": traces}
+    if joined is not None:
+        out["joined_replicas"] = joined
+    return out
 
 
 def admin_tail(req: Request):
     """Tail anatomy (obs/anatomy.py): per-stage histograms, the share
     of p99 mass each stage owns, and the top-k slowest traces with
-    stage breakdowns."""
+    stage breakdowns.  On the router the report joins the replicas'
+    rings by default (``?join=0`` keeps it local), so the serving-side
+    stages are attributed."""
     tracer = _tracer(req)
-    traces = tracer.traces_snapshot(limit=req.q_int("limit", 256))
+    traces, joined = gather_traces(req, tracer, req.q_int("limit", 256),
+                                   _wants_join(req, "1"))
     report = anatomy.tail_report(traces, top_k=req.q_int("k", 10),
                                  route_prefix=req.q1("route"))
     report["service"] = tracer.service
+    if joined is not None:
+        report["joined_replicas"] = joined
     acct = req.context.get("device_time")
     if acct is not None:
         # device occupancy alongside the stage taxonomy: which kernel
@@ -150,10 +196,9 @@ def admin_slo(req: Request):
 
 
 def admin_region(req: Request):
-    """Region identity, from ``oryx.cluster.region.name``.  A process
-    of this package has no mirror or membership view, so the answer is
-    the configured name alone, as the reference's is for such a
-    process."""
+    """Region identity, from ``oryx.cluster.region.name``; a process
+    with richer region state (the router's membership view) merges it
+    in through the ``region_info`` context hook."""
     config = req.context.get("config")
     name = config.get_optional_string("oryx.cluster.region.name") \
         if config is not None else None
@@ -204,11 +249,12 @@ def admin_flight_dump(req: Request):
 
 def admin_diagnose(req: Request):
     """Auto-triage (obs/diagnose.py): the rule engine over this
-    process's metric surface, a ranked cause list with runbook
-    anchors."""
+    process's metric surface, a ranked cause list with runbook anchors.
+    On the router ``?join=1`` (its default there) scrapes every live
+    replica's surface and diagnoses the merged view."""
     # `from . import diagnose` would resolve to the function the package
     # re-exports over the submodule of the same name
-    from .diagnose import build_surface, diagnose
+    from .diagnose import build_surface, diagnose, merge_surfaces
     registry = req.context.get("metrics")
     if registry is None:
         raise OryxServingException(404, "metrics not enabled")
@@ -219,8 +265,22 @@ def admin_diagnose(req: Request):
         slo_status=engine.last_status() if engine is not None else None,
         resilience=resilience_snapshot(),
         device=acct.snapshot() if acct is not None else None)
+    sg = req.context.get("scatter")
+    joined = None
+    if sg is not None and _wants_join(req, "1"):
+        surfaces = [surface]
+        joined = 0
+        for _, payload in sg.scrape_replicas(
+                "/admin/diagnose?join=0", deadline=req.deadline):
+            replica_surface = payload.get("surface")
+            if isinstance(replica_surface, dict):
+                surfaces.append(replica_surface)
+                joined += 1
+        surface = merge_surfaces(surfaces)
     out = diagnose(surface)
     out["surface"] = surface
+    if joined is not None:
+        out["joined_replicas"] = joined
     return out
 
 
@@ -232,7 +292,8 @@ ADMIN_ROUTES = [
     Route("GET", "/admin/region", admin_region),
     Route("GET", "/admin/flight", admin_flight),
     Route("GET", "/admin/diagnose", admin_diagnose),
-    # mutating: captures device state to disk — read-only mode gates it
+    # mutating: captures device state to disk — read-only mode and
+    # DIGEST auth (when configured) both gate it
     Route("GET", "/admin/profile", admin_profile, mutates=True),
     # mutating for the same reason: writes a bundle to the store
     Route("POST", "/admin/flight/dump", admin_flight_dump,
@@ -243,10 +304,10 @@ OBS_ROUTES = [Route("GET", "/metrics", registry_metrics), *ADMIN_ROUTES]
 
 
 class ObsServer:
-    """Minimal metrics/traces HTTP server for the headless tiers.  Like
-    the serving layer, it refuses DIGEST credentials
-    (``oryx.serving.api.user-name``/``password``) by name: DIGEST auth is
-    not part of this package yet."""
+    """Minimal metrics/traces HTTP server for the headless tiers.  It
+    honors the main serving port's gates: read-only mode and DIGEST
+    credentials (``oryx.serving.api.user-name``/``password``) guard the
+    mutating ``/admin/profile`` here too."""
 
     def __init__(self, config, registry, tracer,
                  port: int | None = None,
@@ -256,17 +317,14 @@ class ObsServer:
         self._server = None
         self._thread = None
         api = "oryx.serving.api"
-        if self.enabled:
-            refuse_configured(config, (f"{api}.user-name",
-                                       f"{api}.password"),
-                              "DIGEST authentication is not part of this "
-                              "package yet")
         self.app = HttpApp(OBS_ROUTES, context={
             "metrics": registry,
             "tracer": tracer,
             "config": config,
             **(extra_context or {}),
-        }, read_only=config.get_bool(f"{api}.read-only"))
+        }, read_only=config.get_bool(f"{api}.read-only"),
+           user_name=config.get_optional_string(f"{api}.user-name"),
+           password=config.get_optional_string(f"{api}.password"))
 
     @property
     def enabled(self) -> bool:

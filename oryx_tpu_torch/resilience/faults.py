@@ -27,11 +27,14 @@ mode       effect at the call site
 
 ``fired(name)`` counts consumed activations, and a fire listener
 (``add_fire_listener``: the flight recorder's chaos trigger) sees each
-one.  Point names are the reference's, verbatim.
-``configure_from_config`` arms any name, so a chaos config written for
-the reference may arm a point this package never fires yet:
-``reshard-warm-stall`` (the serving cluster's re-shard warm-up) comes
-with the serving cluster.
+one.  Point names are the reference's, verbatim, including the serving
+cluster's: ``router-shard-timeout`` (the scatter, once per shard query:
+a stalled or failing shard), ``replica-heartbeat-drop`` and
+``replica-group-flap`` (a replica's heartbeat publisher: a silent or
+straggling replica), and ``reshard-warm-stall`` (a replica's update
+replay, per record).  ``configure_from_config`` arms any name, so a
+chaos config written for the reference may arm a point of a module this
+package does not have yet, which then never fires.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """The port's operator CLI (``python -m oryx_tpu_torch``) against the
 reference's (``python -m oryx_tpu``): its example confs parse, the topic
 commands and ``config-to-properties`` print what the reference prints
-for the same conf, unported subcommands refuse by name, and a serving
-layer started from the CLI on the CPU answers ``/recommend`` as the
+for the same conf, unported subcommands refuse by name, a serving layer
+started from the CLI on the CPU answers ``/recommend`` as the
 reference's layer does on the same ``file://`` update topic, then exits
-0 on SIGINT.  Every wait is bounded."""
+0 on SIGINT, and two ``serving --shard i/2`` replicas behind a
+``router`` started from the CLI answer ``/recommend`` as the single
+layer does.  Every wait is bounded."""
 
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from oryx_tpu_torch.common.config import from_file
 from oryx_tpu_torch.deploy.main import UNPORTED_COMMANDS
 from oryx_tpu_torch.deploy.main import main as tmain
 from oryx_tpu_torch.kafka import inproc as tinproc
+from oryx_tpu_torch.lambda_rt.serving import ServingLayer as TorchLayer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_CONFS = sorted(glob.glob(os.path.join(REPO, "oryx_tpu_torch", "conf",
@@ -144,15 +147,18 @@ def test_help_lists_the_reference_subcommands(capsys):
         assert name in port[:port.index("}")]
 
 
-@pytest.mark.parametrize("argv, key", [
-    (["serving", "--shard", "0/2"], "oryx.cluster.enabled"),
-    (["speed", "--shard", "1/2"], "oryx.speed.shard"),
+@pytest.mark.parametrize("argv, extra, key", [
+    (["serving", "--shard", "0/2"], {"cluster.transport.enabled": True},
+     "oryx.cluster.transport.enabled"),
+    (["speed", "--shard", "1/2"], {}, "oryx.speed.shard"),
+    (["router", "--async"], {}, "oryx.cluster.async.enabled"),
 ])
-def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, key):
-    """--shard passes the reference's overlay; the layer refuses its key
-    at once, before the supervisor's restart budget."""
+def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key):
+    """--shard (and the router's --async) pass the reference's overlay;
+    the layer refuses a key it does not serve yet at once, before the
+    supervisor's restart budget."""
     broker_dir = tmp_path / "broker"
-    conf = _write_conf(tmp_path, f"file://{broker_dir}")
+    conf = _write_conf(tmp_path, f"file://{broker_dir}", **extra)
     try:
         with pytest.raises(ValueError, match=key):
             tmain([*argv, "--conf", conf, "--device", "cpu"])
@@ -286,3 +292,85 @@ def test_cli_serving_answers_as_reference_and_exits_on_sigint(tmp_path):
     assert "serving: kernel launches=" in text
     # the layer read its cache directory from the conf
     assert f"kernel library cache at {tmp_path / 'cache'}" in text
+
+
+def test_cli_cluster_replicas_and_router_answer_as_one_layer(tmp_path):
+    """``serving --shard 0/2`` and ``1/2`` start two replicas, ``router``
+    merges them: its /recommend equals a single layer's on the same
+    topic (ids in order, scores within rtol 1e-5), and every process
+    exits 0 on SIGINT."""
+    broker_dir = tmp_path / "broker"
+    uri = f"file://{broker_dir}"
+    base = open(os.path.join(REPO, "oryx_tpu_torch", "conf",
+                             "als-example.conf"), encoding="utf-8").read()
+    ports = [_free_port() for _ in range(3)]
+    confs = []
+    for j, port in enumerate(ports):
+        conf = tmp_path / f"node{j}.conf"
+        conf.write_text(
+            base + f'\noryx.update-topic.broker = "{uri}"\n'
+            f'oryx.input-topic.broker = "{uri}"\n'
+            f"oryx.serving.api.port = {port}\n"
+            "oryx.cluster.heartbeat-interval-ms = 100\n"
+            f'oryx.compile-cache-dir = "{tmp_path / "cache"}"\n')
+        confs.append(str(conf))
+    topic = from_file(confs[0]).get_string("oryx.update-topic.message.topic")
+    _publish(uri, topic)
+    single = TorchLayer(from_file(confs[0]), port=0, device="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    argvs = [["serving", "--shard", "0/2", "--conf", confs[0]],
+             ["serving", "--shard", "1/2", "--conf", confs[1]],
+             ["router", "--conf", confs[2]]]
+    procs, logs = [], []
+    try:
+        for j, argv in enumerate(argvs):
+            logs.append(tmp_path / f"node{j}.log")
+            with open(logs[-1], "w", encoding="utf-8") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "oryx_tpu_torch", *argv,
+                     "--device", "cpu"], cwd=REPO, env=env, stdout=log_f,
+                    stderr=subprocess.STDOUT))
+        single.start()
+
+        def ready(p):
+            try:
+                return _get(p, "/ready")[0] in (200, 204)
+            except OSError:
+                return False
+
+        def loaded(layer):
+            model = layer.model_manager.get_model()
+            return model is not None and model.get_fraction_loaded() >= 1.0
+
+        def replayed():
+            # the router is ready once both replicas cross the load
+            # fraction; their heartbeats say when the replay is whole
+            replicas = json.loads(_get(ports[2], "/metrics")[1])[
+                "cluster"]["membership"]["replicas"].values()
+            return len(replicas) == 2 and all(
+                r["fraction"] >= 1.0 and r["live"] for r in replicas)
+
+        _wait(lambda: all(p.poll() is None for p in procs)
+              and ready(ports[2]), "the CLI's router")
+        _wait(replayed, "the replicas' replay")
+        _wait(lambda: loaded(single), "the single layer")
+        for u in range(0, N_USERS, 3):
+            path = f"/recommend/u{u}?howMany=7"
+            got, want = (_get(p, path) for p in (ports[2], single.port))
+            assert got[0] == want[0] == 200, (path, got)
+            got = [(d["id"], d["value"]) for d in json.loads(got[1])]
+            want = [(d["id"], d["value"]) for d in json.loads(want[1])]
+            assert [i for i, _ in got] == [i for i, _ in want], path
+            np.testing.assert_allclose([v for _, v in got],
+                                       [v for _, v in want], rtol=1e-5)
+        for proc, log in zip(procs, logs):
+            proc.send_signal(signal.SIGINT)
+            assert proc.wait(60) == 0, log.read_text()[-3000:]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        single.close()
+        _drop(broker_dir)
+    assert "Router listening on port" in logs[2].read_text()

@@ -1,7 +1,8 @@
 """oryx_tpu_torch stands alone: it imports, serves, trains and folds a
 speed micro-batch, trains and evaluates k-means, builds an IVF index
 and measures its recall, trains a decision forest and serves /predict
-from it, and probes a model's device programs with JAX, ml_dtypes and
+from it, answers /recommend through two cluster replicas and the
+router, and probes a model's device programs with JAX, ml_dtypes and
 the reference package blocked, its operator CLI starts under the same
 block, and its entry points and benches refuse to fall back to the CPU
 silently."""
@@ -61,7 +62,10 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
                 "bench.diag.smallf_probe", "ops.phase_a_qm",
                 "bench.datasets", "bench.train", "bench.sweep", "bench.apps",
                 "bench.coldstart", "bench.e2e_smoke", "deploy.main",
-                "deploy.warmup", "common.compile_cache", "ops.launches"):
+                "deploy.warmup", "common.compile_cache", "ops.launches",
+                "cluster.merge", "cluster.membership", "cluster.admission",
+                "cluster.result_cache", "cluster.scatter",
+                "cluster.shard_resources", "cluster.router"):
         assert "oryx_tpu_torch." + mod in names, mod
     from oryx_tpu_torch.bench.kernel_probe import probe_model
     rec = probe_model(model, batch=8, m=1)
@@ -175,6 +179,39 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
         assert answer == "yes", answer
     finally:
         layer.close()
+
+    # the serving cluster: two replicas of the forest-free ALS model
+    # behind the router, one /recommend through the scatter
+    from oryx_tpu_torch.cluster.router import RouterLayer
+    ccfg = {"oryx.update-topic.broker": "memory://iso",
+            "oryx.input-topic.broker": None,
+            "oryx.serving.model-manager-class":
+                "oryx_tpu_torch.app.als.serving_manager."
+                "ALSServingModelManager",
+            "oryx.serving.application-resources":
+                "oryx_tpu_torch.serving.als",
+            "oryx.cluster.heartbeat-interval-ms": 50}
+    nodes = [ServingLayer(from_dict({**ccfg, "oryx.cluster.enabled": True,
+                                     "oryx.cluster.shard": f"{s}/2"}),
+                          port=0, device="cpu") for s in range(2)]
+    router = RouterLayer(from_dict(ccfg), port=0, device="cpu")
+    for node in nodes + [router]:
+        node.start()
+    try:
+        rows = None
+        deadline = time.monotonic() + 60
+        while rows is None and time.monotonic() < deadline:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{router.port}/recommend/u1",
+                        timeout=10) as resp:
+                    rows = json.loads(resp.read())
+            except urllib.error.HTTPError:
+                time.sleep(0.05)
+        assert rows and all("id" in r for r in rows), rows
+    finally:
+        for node in nodes + [router]:
+            node.close()
     leaked = sorted(m for m in sys.modules
                     if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
@@ -235,6 +272,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                              TerminalNode)
     from oryx_tpu_torch.app.rdf.update import RDFUpdate
     from oryx_tpu_torch.app.classreg import NumericPrediction
+    from oryx_tpu_torch.cluster.router import RouterLayer
     from oryx_tpu_torch.app.schema import (CategoricalValueEncodings,
                                            InputSchema)
     from oryx_tpu_torch.common.config import from_dict
@@ -263,7 +301,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: RDFUpdate(cfg),
                  lambda: RDFSpeedModelManager(cfg),
                  lambda: RDFServingModelManager(cfg),
-                 lambda: RDFServingModel(forest, encodings, schema)):
+                 lambda: RDFServingModel(forest, encodings, schema),
+                 lambda: RouterLayer(from_dict(
+                     {"oryx.update-topic.broker": "memory://no-card"}))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the explicit CPU request is honoured

@@ -27,6 +27,7 @@ from oryx_tpu_torch.bench import obs_overhead as tobs_overhead
 from oryx_tpu_torch.common import clock as tclock
 from oryx_tpu_torch.common import config as tconfig
 from oryx_tpu_torch.lambda_rt.http import Request
+from oryx_tpu_torch.lambda_rt.metrics import MetricsRegistry
 from oryx_tpu_torch.lambda_rt.serving import ServingLayer
 from oryx_tpu_torch.lambda_rt.speed import SpeedLayer
 from oryx_tpu_torch.ml import mlupdate
@@ -253,11 +254,21 @@ def test_profile_slow_seam_stretches_only_the_capture(tmp_path,
 
 
 def test_side_door_refuses_digest_credentials_by_name():
+    """With DIGEST credentials the side door refuses a request that
+    does not carry them (401 and a challenge), as the main serving port
+    does; tests/test_torch_http_auth.py answers the challenge."""
     cfg = tconfig.from_dict({"oryx.obs.metrics-port": 0,
                              "oryx.serving.api.user-name": "oryx",
                              "oryx.serving.api.password": "pw"})
-    with pytest.raises(ValueError, match=r"oryx\.serving\.api\.user-name"):
-        ObsServer(cfg, None, None)
+    side = ObsServer(cfg, MetricsRegistry(), None)
+    assert side.app.user_name == "oryx" and side.app.password == "pw"
+    side.start()
+    try:
+        status, _, headers = _http(side.port, "GET", "/metrics")
+        assert status == 401
+        assert headers["WWW-Authenticate"].startswith('Digest realm="Oryx"')
+    finally:
+        side.close()
     # no side door, nothing to guard
     off = tconfig.from_dict({"oryx.serving.api.user-name": "oryx"})
     assert not ObsServer(off, None, None).enabled

@@ -1,8 +1,12 @@
-"""The port's ServingLayer refuses, by name, each reference key whose
-feature the port does not have yet (the serving cluster), instead of
-constructing and quietly ignoring it; and each observability key that
-used to be refused (tracing, the SLO engine, the event log and the
-flight recorder) now starts its layer and its feature answers."""
+"""The port's ServingLayer and RouterLayer refuse, by name, each
+reference key whose feature the port does not have yet (the serving
+cluster's framed transport, result caches, asyncio front end and region
+mirror), instead of constructing and quietly ignoring it; and each key
+that used to be refused now starts its layer and its feature answers:
+the observability keys (tracing, the SLO engine, the event log and the
+flight recorder), the serving cluster's replica mode
+(``oryx.cluster.enabled``), TLS (``keystore-file``) and DIGEST auth
+(``user-name`` and ``password``)."""
 
 import http.client
 import json
@@ -10,8 +14,10 @@ import os
 
 import pytest
 
+from oryx_tpu_torch.cluster.router import RouterLayer
 from oryx_tpu_torch.common import config as tconfig
 from oryx_tpu_torch.lambda_rt.serving import ServingLayer
+from tests.test_torch_http_auth import _self_signed_pem
 
 BASE = {
     "oryx.serving.model-manager-class":
@@ -21,14 +27,38 @@ BASE = {
 
 
 @pytest.mark.parametrize("key,value", [
-    ("oryx.cluster.enabled", True),
+    ("oryx.cluster.transport.enabled", True),
+    ("oryx.cluster.replica-cache.enabled", True),
 ])
 def test_unported_key_is_refused_by_name(tmp_path, key, value):
-    if isinstance(value, str):
-        value = str(tmp_path / value)
-    cfg = tconfig.from_dict({**BASE, key: value})
+    """A replica (``oryx.cluster.enabled``) refuses the framed transport
+    and its result cache."""
+    cfg = tconfig.from_dict({**BASE, "oryx.cluster.enabled": True,
+                             key: value})
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         ServingLayer(cfg, port=0, device="cpu")
+
+
+ROUTER_BASE = {"oryx.update-topic.broker": "memory://refusals",
+               "oryx.input-topic.broker": None}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("oryx.cluster.cache.enabled", True),
+    ("oryx.cluster.coalesce.enabled", True),
+    ("oryx.cluster.async.enabled", True),
+    ("oryx.cluster.transport.enabled", True),
+    ("oryx.cluster.region.mirror.source-broker", "memory://far"),
+    ("oryx.cluster.region.mirror.source-topic", "FarUpdate"),
+    ("oryx.cluster.region.mirror.checkpoint-dir", "/tmp/mirror"),
+])
+def test_router_refuses_unported_key_by_name(key, value):
+    cfg = tconfig.from_dict({**ROUTER_BASE, key: value})
+    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
+        RouterLayer(cfg, port=0, device="cpu")
+    # at the defaults the router constructs
+    RouterLayer(tconfig.from_dict(ROUTER_BASE), port=0,
+                device="cpu").scatter.close()
 
 
 def _get(port: int, path: str, method: str = "GET"):
@@ -71,6 +101,50 @@ def test_obs_key_starts_its_feature(tmp_path, key, value, path):
                 lines = [json.loads(x) for x in f]
             assert [(e["route"], e["status"]) for e in lines] == \
                 [("GET /ready", 503)]
+
+
+def _https_get(port, path):
+    import ssl
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    conn = http.client.HTTPSConnection("127.0.0.1", port, timeout=30,
+                                       context=ctx)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("key", ["oryx.cluster.enabled",
+                                 "oryx.serving.api.keystore-file",
+                                 "oryx.serving.api.user-name"])
+def test_lifted_key_starts_its_feature(tmp_path, key):
+    """Each key that was refused starts the layer, and its feature
+    answers: the replica's /shard/meta, HTTPS, or a DIGEST challenge on
+    every route."""
+    extra = {"oryx.cluster.enabled": {"oryx.cluster.enabled": True},
+             "oryx.serving.api.keystore-file": {
+                 key: _self_signed_pem(tmp_path)},
+             "oryx.serving.api.user-name": {
+                 key: "oryx", "oryx.serving.api.password": "pw"}}[key]
+    layer = ServingLayer(tconfig.from_dict({**BASE, **extra}), port=0,
+                         device="cpu")
+    with layer:
+        if key == "oryx.cluster.enabled":
+            status, body = _get(layer.port, "/shard/meta")
+            assert status == 200, body
+            meta = json.loads(body)
+            assert (meta["shard"], meta["of"], meta["ready"]) == \
+                (0, 1, False)
+        elif key == "oryx.serving.api.keystore-file":
+            assert layer.scheme == "https"
+            assert _https_get(layer.port, "/ready")[0] == 503
+        else:
+            assert _get(layer.port, "/ready")[0] == 401
+            assert _get(layer.port, "/metrics")[0] == 401
 
 
 def test_defaults_construct():

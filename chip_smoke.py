@@ -335,9 +335,46 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     router's ``/ready`` and to both loads, the router's and replica 0's
     p50 / p99, the scatter's counters).
 
+12. The serving cluster's fast path (``cluster_fast``), on phase 11's
+    model directory (the publisher child runs for this phase alone
+    too) sent as a MODEL-REF on a topic of this phase's own: two more
+    replicas (``0/2``, ``1/2``, started before phase 11 so that their
+    start overlaps it; its MODEL-REF goes 15 s before phase 11's, so
+    that the two pairs' route measurements do not overlap) with the
+    framed transport
+    (``oryx.cluster.transport.enabled``) and the shard cache
+    (``replica-cache``), and a router in this process on the asyncio
+    front end with the result cache and coalescing; DIGEST on every
+    door and on the frame hop's AUTH frame.  Seven checks, each a
+    failure of the run: (1) after 64 untimed requests, 256
+    ``/recommend`` on users phase 11 did not send, at 32 clients, all
+    ``X-Oryx-Cache: miss``, each equal to the single-node exact scan as
+    in phase 11, each replica's routed kernel launched and no other;
+    (2) ``transport_open_connections`` is 2, the HTTP/1.1 pool made no
+    shard query, no hedge, shard failure or partial answer; (3) the
+    same 256 again, all ``hit``, bodies byte-equal to the misses, no
+    kernel launch in either replica; then phase 11's 32
+    ``/recommendToAnonymous`` through the asyncio front end, held
+    against the float64 fold-in; (4) a wave of 32 identical concurrent
+    requests on a cold user, its leader held 0.5 s by the
+    ``router-shard-timeout`` delay: one ``miss``, 31 ``coalesced``, one
+    body; (5) a ``/pref`` through the router lands on the input topic,
+    the speed layer's UP (the float64 fold-in of the event) goes on the
+    update topic, and the user's next answer is a ``miss`` equal to the
+    exact scan of the new vector; (6) a ``/shard/recommend`` repeated on
+    the framed hop (``FrameTransport``) is a hit in replica 0's
+    ``ShardResultCache`` and launches nothing; (7) ``/recommend`` over
+    h2c with prior knowledge and over TLS with ALPN ``h2`` on replica
+    0's HttpApp (a raw-socket client on the port's HPACK codec) gives
+    the status and body of HTTP/1.1.  A ``cluster_fast_replica`` line
+    per replica and a ``cluster_fast`` line (the miss and hit passes'
+    p50 / p99, the fold-in round beside phase 11's, the wave, the loop
+    lag, the caches' and the scatter's counters).
+
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
 topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
-deploy = 9, obs = 10, cluster = 11); the default runs every phase. A
+deploy = 9, obs = 10, cluster = 11, cluster_fast = 12); the default runs
+every phase. A
 partial run still ends with the two summary lines, its ``kernels`` line
 listing only what it ran.
 
@@ -353,8 +390,9 @@ before the last is a JSON ``{"kernels": [...]}`` summary: each kernel's
 route chose it (``served_config``; the head configuration where its
 route did), and ``route_launches`` that configuration's route
 measurement (``deploy_launches`` phase 9's CLI-served process,
-``obs_launches`` phase 10's sampled round, ``cluster_launches`` each
-replica's routed round in phase 11); a kernel that served no timed
+``obs_launches`` phase 10's sampled round, ``cluster_launches`` and
+``cluster_fast_launches`` each replica's routed round in phases 11 and
+12); a kernel that served no timed
 round fails the run.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -563,11 +601,19 @@ CLUSTER_CLIENTS = 32
 CLUSTER_SERIAL = 8
 CLUSTER_USER = "oryx-smoke"
 CLUSTER_WAIT_S = 900.0
+# phase 12: the serving cluster's fast path, on phase 11's model
+FAST_WARM = 64
+FAST_BURST = 32
+# the coalescing wave's leader is held this long before its scatter
+FAST_HOLD_S = 0.5
+# phase 12's MODEL-REF goes this long before phase 11's (their loads
+# overlap; their route measurements must not)
+FAST_LEAD_S = 15.0
 KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
-          "deploy", "obs", "cluster")
+          "deploy", "obs", "cluster", "cluster_fast")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -4873,7 +4919,9 @@ def replica_state(layer) -> dict:
     kernels' launch counts."""
     mgr = layer.model_manager
     model = mgr.get_model()
-    out = {"launches": read_launches(), "loaded": False}
+    out = {"launches": read_launches(), "loaded": False,
+           "tport": layer._frame_server.port
+           if layer._frame_server is not None else None}
     if model is not None:
         route = model._route_current(len(model.Y.row_ids())) \
             if model._route is not None else None
@@ -4892,10 +4940,13 @@ def replica_state(layer) -> dict:
 
 
 def cluster_replica(conn, overlay: dict, device: str) -> None:
-    """One replica of phase 11, a ServingLayer in a process of its own:
-    it sends its port, then answers the parent's commands — ``reset``
-    sets its kernels' launch counts to 0, ``state`` sends
-    ``replica_state``, ``stop`` closes the layer."""
+    """One replica of phases 11-12, a ServingLayer in a process of its
+    own: it sends its port, then answers the parent's commands —
+    ``reset`` sets its kernels' launch counts to 0, ``state`` sends
+    ``replica_state``, ``("vector", user)`` the user's vector,
+    ``shard_cache`` the shard cache's stats, ``("tls_door", pem)`` opens
+    a second door on the layer's HttpApp with TLS and sends its port,
+    ``stop`` closes the layer."""
     import torch
     from oryx_tpu_torch.common import compile_cache
     from oryx_tpu_torch.common.config import from_dict
@@ -4905,6 +4956,7 @@ def cluster_replica(conn, overlay: dict, device: str) -> None:
     compile_cache.enable_from_config(from_dict(
         {"oryx.compile-cache-dir": str(cuda_build.BUILD_DIR.parent)}))
     layer = ServingLayer(cluster_config(overlay), port=0, device=device)
+    doors = []
     try:
         layer.start()
         conn.send(layer.port)
@@ -4917,9 +4969,27 @@ def cluster_replica(conn, overlay: dict, device: str) -> None:
             if cmd == "reset":
                 reset_launches()
                 conn.send(None)
+            elif cmd == "shard_cache":
+                conn.send(layer._shard_cache.stats())
+            elif isinstance(cmd, tuple) and cmd[0] == "vector":
+                v = layer.model_manager.get_model().get_user_vector(cmd[1])
+                conn.send(None if v is None else np.asarray(v, np.float32))
+            elif isinstance(cmd, tuple) and cmd[0] == "tls_door":
+                import ssl
+                from oryx_tpu_torch.lambda_rt.http import make_server
+                ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+                ctx.load_cert_chain(cmd[1])
+                door = make_server(layer.app, 0, ssl_context=ctx)
+                threading.Thread(target=door.serve_forever,
+                                 daemon=True).start()
+                doors.append(door)
+                conn.send(door.server_address[1])
             else:
                 conn.send(replica_state(layer))
     finally:
+        for door in doors:
+            door.shutdown()
+            door.server_close()
         layer.close()
 
 
@@ -4956,6 +5026,12 @@ class DigestClient:
     def call(self, port: int, method: str, path: str,
              body: bytes | None = None):
         """(status, body, milliseconds) of one authenticated request."""
+        return self.call_full(port, method, path, body)[:3]
+
+    def call_full(self, port: int, method: str, path: str,
+                  body: bytes | None = None):
+        """(status, body, milliseconds, lower-cased response headers) of
+        one authenticated request."""
         for _ in range(3):
             header = self._header(method, path)
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
@@ -4971,7 +5047,8 @@ class DigestClient:
             finally:
                 conn.close()
             if resp.status != 401:
-                return resp.status, out, ms
+                return resp.status, out, ms, {
+                    k.lower(): v for k, v in resp.getheaders()}
             pairs = dict((k, q or b) for k, q, b in re.findall(
                 r'(\w+)=(?:"([^"]*)"|([^, ]*))', challenge))
             check("nonce" in pairs, f"cluster: a 401 without a challenge "
@@ -4982,63 +5059,116 @@ class DigestClient:
                            f"the credentials for {path}")
 
 
-def cluster_phase(publisher, work_dir: str) -> dict:
+def start_replicas(overlays: list) -> tuple[list, list]:
+    """One ``cluster_replica`` process per overlay: (pipes, processes)."""
+    spawn = multiprocessing.get_context("spawn")
+    pipes, procs = [], []
+    for overlay in overlays:
+        parent, child = spawn.Pipe()
+        proc = spawn.Process(target=cluster_replica, daemon=True,
+                             args=(child, overlay, DEVICE))
+        proc.start()
+        pipes.append(parent)
+        procs.append(proc)
+    return pipes, procs
+
+
+def replica_ports(pipes, procs, what: str) -> list[int]:
+    ports = []
+    for shard, conn in enumerate(pipes):
+        check(conn.poll(300), f"{what}: replica {shard} did not start")
+        try:
+            ports.append(conn.recv())
+        except EOFError:
+            raise RuntimeError(f"check failed: {what}: replica {shard} "
+                               f"exited {procs[shard].exitcode} at "
+                               f"start") from None
+    return ports
+
+
+def stop_replicas(pipes, procs) -> None:
+    for conn in pipes:
+        try:
+            conn.send("stop")
+        except OSError:
+            pass
+    for proc in procs:
+        proc.join(60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(30)
+
+
+def replica_state_of(conn, cmd="state"):
+    conn.send(cmd)
+    return conn.recv()
+
+
+def cluster_oracle() -> tuple:
+    """(model, X, known, Gramian) of the whole catalog in this process,
+    as the replicas hold it (the slices' 8-decimal rounding)."""
+    Y, X, known = cluster_data(CLUSTER_SEED)
+    Y = np.round(Y.astype(np.float64), 8).astype(np.float32)
+    X = np.round(X.astype(np.float64), 8).astype(np.float32)
+    full = build_model(CLUSTER_FEATURES, Y, X, known, "float32")
+    del Y
+    return full, X, known, gramian64(full)
+
+
+def send_model_ref(cfg, model_dir: str, manifest) -> None:
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+    producer = InProcTopicProducer(
+        cfg.get_string("oryx.update-topic.broker"),
+        cfg.get_string("oryx.update-topic.message.topic"))
+    producer.send("MODEL-REF", slices.model_ref_message(
+        os.path.join(model_dir, "model.pmml.xml"), model_dir, manifest))
+    producer.close()
+
+
+def check_replica_launches(st: dict, shard: int, what: str) -> str:
+    """The wrapper of the replica's routed kind, which must have
+    launched, and no other."""
+    expected = next(k for k, v in KERNELS.items() if v[2] == st["kind"])
+    launches = st["launches"]
+    check(launches[expected] > 0,
+          f"{what}: replica {shard}'s {expected} launched no time: "
+          f"{launches}")
+    check(all(v == 0 for k, v in launches.items() if k != expected),
+          f"{what}: replica {shard} launched another kernel than "
+          f"{expected}: {launches}")
+    return expected
+
+
+def cluster_phase(publisher, work_dir: str, fast: dict | None = None
+                  ) -> dict:
     """Phase 11: two serving-cluster replicas (shards 0/2 and 1/2, each
     a ServingLayer in a process of its own on the one card) load their
     halves of a 2,097,152 x 50 float32 model off a ``file://`` update
     topic; the router (this process) merges them behind DIGEST auth on
     every door.  Its answers against the single-node exact scan and a
     float64 fold-in, the replicas' routed kernels, /metrics and the
-    write path."""
+    write path.  With ``fast`` (phase 12's replicas, started beside
+    these), the same MODEL-REF goes to phase 12's topic too."""
     import secrets
-    import torch
-    from oryx_tpu_torch.app.als import slices
     from oryx_tpu_torch.cluster.router import RouterLayer
-    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer, \
-        resolve_broker
+    from oryx_tpu_torch.kafka.inproc import resolve_broker
 
     t_phase = time.perf_counter()
     password = secrets.token_hex(12)
-    spawn = multiprocessing.get_context("spawn")
-    pipes, procs = [], []
+    pipes, procs = start_replicas(
+        [cluster_overlay(work_dir, password, shard) for shard in (0, 1)])
     router = None
     try:
-        for shard in (0, 1):
-            parent, child = spawn.Pipe()
-            proc = spawn.Process(
-                target=cluster_replica, daemon=True,
-                args=(child, cluster_overlay(work_dir, password, shard),
-                      DEVICE))
-            proc.start()
-            pipes.append(parent)
-            procs.append(proc)
         router_cfg = cluster_config(cluster_overlay(work_dir, password,
                                                     None))
         router = RouterLayer(router_cfg, port=0, device=DEVICE)
         router.start()
         client = DigestClient(CLUSTER_USER, password)
-        ports = []
-        for shard, conn in enumerate(pipes):
-            check(conn.poll(300), f"cluster: replica {shard} did not start")
-            try:
-                ports.append(conn.recv())
-            except EOFError:
-                raise RuntimeError(f"check failed: cluster: replica {shard} "
-                                   f"exited {procs[shard].exitcode} at "
-                                   f"start") from None
-
-        def state(conn) -> dict:
-            conn.send("state")
-            return conn.recv()
-
-        # the oracle: the whole catalog in this process, as the
-        # replicas hold it (the slices' 8-decimal rounding)
-        Y, X, known = cluster_data(CLUSTER_SEED)
-        Y = np.round(Y.astype(np.float64), 8).astype(np.float32)
-        X = np.round(X.astype(np.float64), 8).astype(np.float32)
-        full = build_model(CLUSTER_FEATURES, Y, X, known, "float32")
-        del Y
-        gram = gramian64(full)
+        ports = replica_ports(pipes, procs, "cluster")
+        state = replica_state_of
+        oracle = cluster_oracle()
+        full, X, known, gram = oracle
         t_wait = time.perf_counter()
         publisher.join(CLUSTER_WAIT_S)
         check(publisher.exitcode == 0,
@@ -5048,14 +5178,14 @@ def cluster_phase(publisher, work_dir: str) -> dict:
                   encoding="utf-8") as f:
             published = json.load(f)
         waited_s = time.perf_counter() - t_wait
-        producer = InProcTopicProducer(
-            router_cfg.get_string("oryx.update-topic.broker"),
-            router_cfg.get_string("oryx.update-topic.message.topic"))
+        if fast is not None:
+            # phase 12's replicas load first, FAST_LEAD_S ahead, so that
+            # their route measurements never overlap these replicas'
+            send_model_ref(fast["config"], model_dir, published["manifest"])
+            fast["sent_at"] = time.perf_counter()
+            time.sleep(FAST_LEAD_S)
         t0 = time.perf_counter()
-        producer.send("MODEL-REF", slices.model_ref_message(
-            os.path.join(model_dir, "model.pmml.xml"), model_dir,
-            published["manifest"]))
-        producer.close()
+        send_model_ref(router_cfg, model_dir, published["manifest"])
         wait_for(lambda: client.call(router.port, "GET", "/ready")[0]
                  in (200, 204), "cluster: the router's /ready",
                  CLUSTER_WAIT_S)
@@ -5063,6 +5193,13 @@ def cluster_phase(publisher, work_dir: str) -> dict:
         wait_for(lambda: all(state(c)["loaded"] for c in pipes),
                  "cluster: the replicas' loads and routes", CLUSTER_WAIT_S)
         loaded_s = time.perf_counter() - t0
+        if fast is not None:
+            # phase 12's replicas load beside these; their route
+            # measurement must not overlap this phase's timed rounds
+            fast_ports(fast)
+            wait_for(lambda: all(state(c)["loaded"] for c in fast["pipes"]),
+                     "cluster: phase 12's replicas' loads and routes",
+                     CLUSTER_WAIT_S)
         states = [state(c) for c in pipes]
         for shard, st in enumerate(states):
             check(st["kind"] in KERNEL_KINDS and not st["route_errors"],
@@ -5104,18 +5241,11 @@ def cluster_phase(publisher, work_dir: str) -> dict:
         states = [state(c) for c in pipes]
         replicas = []
         for shard, st in enumerate(states):
-            expected = next(k for k, v in KERNELS.items()
-                            if v[2] == st["kind"])
-            launches = st["launches"]
-            check(launches[expected] > 0,
-                  f"cluster: replica {shard}'s {expected} launched no "
-                  f"time: {launches}")
-            check(all(v == 0 for k, v in launches.items() if k != expected),
-                  f"cluster: replica {shard} launched another kernel than "
-                  f"{expected}: {launches}")
+            expected = check_replica_launches(st, shard, "cluster")
             replicas.append({"shard": f"{shard}/2", "kind": st["kind"],
                              "route": st["route"], "kernel": expected,
-                             "launches": launches, "items": st["items"],
+                             "launches": st["launches"],
+                             "items": st["items"],
                              "model_load_s": st["model_load_s"],
                              "twophase_fallbacks":
                                  st["twophase_fallbacks"]})
@@ -5182,16 +5312,7 @@ def cluster_phase(publisher, work_dir: str) -> dict:
     finally:
         if router is not None:
             router.close()
-        for conn in pipes:
-            try:
-                conn.send("stop")
-            except OSError:
-                pass
-        for proc in procs:
-            proc.join(60)
-            if proc.is_alive():
-                proc.terminate()
-                proc.join(30)
+        stop_replicas(pipes, procs)
     check(all(p.exitcode == 0 for p in procs),
           f"cluster: a replica exited {[p.exitcode for p in procs]}")
     line = {"phase": "cluster", "items": CLUSTER_ITEMS,
@@ -5209,6 +5330,445 @@ def cluster_phase(publisher, work_dir: str) -> dict:
             "replica0_own": {"requests": len(own),
                              **percentiles(r[2] for r in own)},
             "scatter": cl["scatter"],
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    # phase 12 reuses the oracle (not printed)
+    return {**line, "oracle": oracle}
+
+
+# -- phase 12: the serving cluster's fast path on one card ---------------------
+
+def fast_overlay(work_dir: str, password: str, shard: int | None) -> dict:
+    """Phase 11's keys over a broker of phase 12's own, with the framed
+    transport on both ends, the shard cache on each replica, and the
+    asyncio front end, result cache and coalescing on the router."""
+    overlay = cluster_overlay(work_dir, password, shard)
+    broker = "file://" + os.path.join(work_dir, "cluster_fast", "broker")
+    overlay.update({"oryx.update-topic.broker": broker,
+                    "oryx.input-topic.broker": broker,
+                    "oryx.cluster.transport.enabled": True})
+    if shard is None:
+        overlay.update({"oryx.cluster.async.enabled": True,
+                        "oryx.cluster.cache.enabled": True,
+                        "oryx.cluster.coalesce.enabled": True})
+    else:
+        overlay["oryx.cluster.replica-cache.enabled"] = True
+    return overlay
+
+
+def start_fast_replicas(work_dir: str) -> dict:
+    """Phase 12's two replicas, started before phase 11 so that their
+    start and load overlap its work; phase 11 sends them the MODEL-REF,
+    ``FAST_LEAD_S`` ahead of its own."""
+    import secrets
+    password = secrets.token_hex(12)
+    pipes, procs = start_replicas(
+        [fast_overlay(work_dir, password, shard) for shard in (0, 1)])
+    return {"pipes": pipes, "procs": procs, "password": password,
+            "config": cluster_config(fast_overlay(work_dir, password,
+                                                  None)),
+            "ports": None, "sent_at": None}
+
+
+def fast_ports(fast: dict) -> list[int]:
+    """Phase 12's replica ports, read off their pipes once."""
+    if fast["ports"] is None:
+        fast["ports"] = replica_ports(fast["pipes"], fast["procs"],
+                                      "cluster_fast")
+    return fast["ports"]
+
+
+def self_signed_pem(directory: str) -> str:
+    """A throwaway certificate and key for a TLS door on 127.0.0.1."""
+    pem = os.path.join(directory, "door.pem")
+    try:
+        import datetime
+        from cryptography import x509
+        from cryptography.hazmat.primitives import hashes, serialization
+        from cryptography.hazmat.primitives.asymmetric import rsa
+        from cryptography.x509.oid import NameOID
+    except ImportError:
+        key, cert = pem + ".key", pem + ".crt"
+        subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048",
+                        "-nodes", "-keyout", key, "-out", cert, "-days",
+                        "1", "-subj", "/CN=localhost"], check=True,
+                       capture_output=True, timeout=60)
+        with open(pem, "wb") as out:
+            for part in (key, cert):
+                with open(part, "rb") as f:
+                    out.write(f.read())
+        return pem
+    key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "localhost")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (x509.CertificateBuilder().subject_name(name).issuer_name(name)
+            .public_key(key.public_key())
+            .serial_number(x509.random_serial_number())
+            .not_valid_before(now - datetime.timedelta(minutes=1))
+            .not_valid_after(now + datetime.timedelta(days=1))
+            .sign(key, hashes.SHA256()))
+    with open(pem, "wb") as f:
+        f.write(key.private_bytes(
+            serialization.Encoding.PEM,
+            serialization.PrivateFormat.TraditionalOpenSSL,
+            serialization.NoEncryption())
+            + cert.public_bytes(serialization.Encoding.PEM))
+    return pem
+
+
+def h2_get(port: int, paths: list, digest: "DigestClient",
+           tls: bool) -> list:
+    """GET each path on one HTTP/2 connection (h2c with prior
+    knowledge, or TLS with ALPN ``h2``), one stream each, all sent
+    before any answer is read, with DIGEST headers from ``digest``'s
+    nonce: [(status, body)] in path order.  A raw-socket client on the
+    port's own HPACK codec."""
+    import ssl
+    from oryx_tpu_torch.lambda_rt.hpack import HpackDecoder, HpackEncoder
+    from oryx_tpu_torch.lambda_rt.http2 import PREFACE
+    sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+    if tls:
+        ctx = ssl.create_default_context()
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+        ctx.set_alpn_protocols(["h2"])
+        sock = ctx.wrap_socket(sock)
+        check(sock.selected_alpn_protocol() == "h2",
+              f"cluster_fast: ALPN chose {sock.selected_alpn_protocol()}")
+
+    def frame(ftype: int, flags: int, sid: int, payload: bytes) -> bytes:
+        return (len(payload).to_bytes(3, "big") + bytes([ftype, flags])
+                + sid.to_bytes(4, "big") + payload)
+
+    enc, dec = HpackEncoder(), HpackDecoder()
+    out = {}
+    try:
+        sock.sendall(PREFACE + frame(4, 0, 0, b""))
+        for n, path in enumerate(paths):
+            headers = [(":method", "GET"), (":path", path),
+                       (":scheme", "https" if tls else "http"),
+                       (":authority", f"127.0.0.1:{port}"),
+                       ("accept", "application/json")]
+            auth = digest._header("GET", path)
+            if auth:
+                headers.append(("authorization", auth))
+            sock.sendall(frame(1, 0x5, 2 * n + 1, enc.encode(headers)))
+        r = sock.makefile("rb")
+        while len([v for v in out.values() if v.get("done")]) < len(paths):
+            head = r.read(9)
+            check(len(head) == 9, "cluster_fast: the h2 connection closed")
+            length = int.from_bytes(head[:3], "big")
+            ftype, flags = head[3], head[4]
+            sid = int.from_bytes(head[5:9], "big") & 0x7FFFFFFF
+            payload = r.read(length)
+            if ftype == 1:  # HEADERS
+                st = out.setdefault(sid, {"body": b""})
+                st["status"] = int(dict(dec.decode(payload))[":status"])
+                st["done"] = bool(flags & 0x1)
+            elif ftype == 0:  # DATA
+                st = out[sid]
+                st["body"] += payload
+                st["done"] = bool(flags & 0x1)
+                if payload:
+                    sock.sendall(frame(8, 0, 0, len(payload).to_bytes(
+                        4, "big")))
+            elif ftype == 4 and not flags & 0x1:  # SETTINGS: ack it
+                sock.sendall(frame(4, 0x1, 0, b""))
+            elif ftype == 7:  # GOAWAY
+                raise RuntimeError(f"check failed: cluster_fast: GOAWAY "
+                                   f"{payload!r}")
+    finally:
+        sock.close()
+    return [(out[2 * n + 1]["status"], out[2 * n + 1]["body"])
+            for n in range(len(paths))]
+
+
+def cluster_fast_phase(publisher, work_dir: str, fast: dict,
+                       phase11: dict | None) -> dict:
+    """Phase 12: phase 11's model behind the cluster's fast path — two
+    replicas with the framed transport and the shard cache, and the
+    router (this process) on the asyncio front end with the result cache
+    and coalescing, DIGEST on every door and on the AUTH frame.  Seven
+    checks: exact answers through the fast path, every scatter by frame,
+    byte-equal hits that touch no device, coalescing, invalidation
+    after /pref, the replica cache, and HTTP/2."""
+    from collections import Counter
+    from oryx_tpu_torch.cluster.membership import Heartbeat
+    from oryx_tpu_torch.cluster.router import RouterLayer
+    from oryx_tpu_torch.cluster.transport import FrameTransport
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer, \
+        resolve_broker
+    from oryx_tpu_torch.resilience import faults
+
+    t_phase = time.perf_counter()
+    pipes, procs, password = fast["pipes"], fast["procs"], fast["password"]
+    router = None
+    try:
+        router_cfg = fast["config"]
+        router = RouterLayer(router_cfg, port=0, device=DEVICE)
+        router.start()
+        client = DigestClient(CLUSTER_USER, password)
+        ports = fast_ports(fast)
+        state = replica_state_of
+        oracle = phase11["oracle"] if phase11 is not None \
+            else cluster_oracle()
+        full, X, known, gram = oracle
+        t0 = time.perf_counter()
+        if fast["sent_at"] is None:
+            # phase 11 did not run: this phase waits for the publisher
+            publisher.join(CLUSTER_WAIT_S)
+            check(publisher.exitcode == 0, f"cluster_fast: publishing the "
+                  f"model failed ({publisher.exitcode})")
+            model_dir = os.path.join(work_dir, "cluster_model")
+            with open(os.path.join(model_dir, "published.json"),
+                      encoding="utf-8") as f:
+                manifest = json.load(f)["manifest"]
+            t0 = time.perf_counter()
+            send_model_ref(router_cfg, model_dir, manifest)
+            fast["sent_at"] = t0
+        wait_for(lambda: client.call(router.port, "GET", "/ready")[0]
+                 in (200, 204), "cluster_fast: the router's /ready",
+                 CLUSTER_WAIT_S)
+        wait_for(lambda: all(state(c)["loaded"] for c in pipes),
+                 "cluster_fast: the replicas' loads and routes",
+                 CLUSTER_WAIT_S)
+        waited_s = time.perf_counter() - t0
+        states = [state(c) for c in pipes]
+        for shard, st in enumerate(states):
+            check(st["kind"] in KERNEL_KINDS and not st["route_errors"]
+                  and st["tport"],
+                  f"cluster_fast: replica {shard} routes {st['kind']!r} "
+                  f"({st['route_errors']}), transport port {st['tport']}")
+            check(st["slice_loads"] == CLUSTER_RING // 2
+                  and st["slice_load_fallbacks"] == 0
+                  and st["users"] == CLUSTER_USERS,
+                  f"cluster_fast: replica {shard} loaded {st}")
+
+        # users phase 11 did not send (its draw, replayed), and its
+        # /recommendToAnonymous contexts
+        rng = np.random.default_rng(CLUSTER_SEED + 1)
+        sent11 = rng.choice(CLUSTER_USERS, CLUSTER_REQUESTS, replace=False)
+        ctxs = contexts(rng, CLUSTER_ITEMS, CLUSTER_ANONYMOUS)
+        picks = np.random.default_rng(CLUSTER_SEED + 2).choice(
+            np.setdiff1d(np.arange(CLUSTER_USERS), sent11),
+            FAST_WARM + CLUSTER_REQUESTS + 1, replace=False)
+        warm = [f"/recommend/u{u}?howMany=10" for u in picks[:FAST_WARM]]
+        users = [f"u{u}" for u in picks[FAST_WARM:-1]]
+        cold = f"/recommend/u{picks[-1]}?howMany=10"
+        paths = [f"/recommend/{u}?howMany=10" for u in users]
+
+        def burst(todo: list, clients: int = CLUSTER_CLIENTS) -> list:
+            with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+                out = list(pool.map(
+                    lambda p: client.call_full(router.port, "GET", p),
+                    todo))
+            for path, (status, body, _, _) in zip(todo, out):
+                check(status == 200,
+                      f"cluster_fast: {path} gave {status}: {body[:300]}")
+            return out
+
+        def verdicts(rounds: list) -> dict:
+            return dict(Counter(r[3].get("x-oryx-cache") for r in rounds))
+
+        burst(warm)  # untimed: the batchers learn
+        for conn in pipes:
+            state(conn, "reset")
+        # 1. exact answers through the fast path, every one a miss
+        t_miss = time.perf_counter()
+        miss = burst(paths)
+        miss_s = time.perf_counter() - t_miss
+        check(verdicts(miss) == {"miss": len(paths)},
+              f"cluster_fast: the first pass's verdicts {verdicts(miss)}")
+        states = [state(c) for c in pipes]
+        replicas = []
+        for shard, st in enumerate(states):
+            expected = check_replica_launches(st, shard, "cluster_fast")
+            replicas.append({"shard": f"{shard}/2", "kind": st["kind"],
+                             "kernel": expected, "launches": st["launches"],
+                             "model_load_s": st["model_load_s"]})
+            log({"phase": "cluster_fast_replica", **replicas[-1]})
+        Q = np.stack([X[int(u[1:])] for u in users])
+        want = exact_top_n(full, 10, Q, [set(known[u]) for u in users])
+        for path, (_, body, _, _), w in zip(paths, miss, want):
+            got = [(d["id"], d["value"]) for d in json.loads(body)]
+            check(len(got) == 10, f"cluster_fast: {path} gave {got}")
+            same_answers(got, w, RTOL["float32"], f"cluster_fast {path}")
+        # 2. every scatter went by frame
+        metrics = json.loads(client.call(router.port, "GET",
+                                         "/metrics")[1])
+        sc = metrics["cluster"]["scatter"]
+        gauges = metrics.get("freshness", {})
+        check(gauges.get("transport_open_connections") == 2
+              and sc["transport"]["open_connections"] == 2,
+              f"cluster_fast: transport connections {gauges} "
+              f"{sc.get('transport')}")
+        check(sc["pool"]["attempts"] == 0 and sc["pool"]["sockets"] == 0,
+              f"cluster_fast: the HTTP/1.1 pool carried a shard query: "
+              f"{sc['pool']}")
+        check(sc["hedges"] == 0 and sc["shard_failures"] == 0
+              and sc["partial_answers"] == 0
+              and metrics["counters"].get("partial_answers", 0) == 0,
+              f"cluster_fast: hedges, shard failures or partial answers: "
+              f"{sc}")
+        # 3. the same paths again: hits, byte-equal, no device work
+        before = [state(c)["launches"] for c in pipes]
+        t_hit = time.perf_counter()
+        hit = burst(paths)
+        hit_s = time.perf_counter() - t_hit
+        check(verdicts(hit) == {"hit": len(paths)},
+              f"cluster_fast: the second pass's verdicts {verdicts(hit)}")
+        check(all(h[1] == m[1] for h, m in zip(hit, miss)),
+              "cluster_fast: a hit's body differs from its miss's")
+        after = [state(c)["launches"] for c in pipes]
+        check(after == before,
+              f"cluster_fast: hits launched kernels: {before} -> {after}")
+        # the fold-in round of phase 11 through the asyncio front end
+        anon_paths = round_paths(ctxs, [None] * len(ctxs))
+        anonymous = burst(anon_paths)
+        Qa = []
+        for ctx in ctxs:
+            x = fold_in_f64(gram, full, ctx, None)
+            check(x is not None, f"cluster_fast: {ctx} folded into nothing")
+            Qa.append(x.astype(np.float32))
+        want = exact_top_n(full, 10, np.stack(Qa),
+                           [{i for i, _ in c} for c in ctxs])
+        for path, (_, body, _, _), w in zip(anon_paths, anonymous, want):
+            got = [(d["id"], d["value"]) for d in json.loads(body)]
+            check([i for i, _ in got] == [i for i, _ in w],
+                  f"cluster_fast {path}: ids {got} != {w}")
+            np.testing.assert_allclose(
+                [v for _, v in got], [v for _, v in w], rtol=FOLD_RTOL,
+                atol=FOLD_ATOL, err_msg=f"cluster_fast {path}")
+        # 4. a wave of identical requests on a cold user: one scatter,
+        # its leader held FAST_HOLD_S so that every follower arrives
+        # while it is in flight
+        faults.inject("router-shard-timeout", mode="delay", times=2,
+                      delay_sec=FAST_HOLD_S)
+        gate = threading.Barrier(FAST_BURST)
+
+        def one(_):
+            gate.wait()
+            return client.call_full(router.port, "GET", cold)
+
+        try:
+            with concurrent.futures.ThreadPoolExecutor(FAST_BURST) as pool:
+                wave = list(pool.map(one, range(FAST_BURST)))
+            held = faults.fired("router-shard-timeout")
+        finally:
+            faults.clear("router-shard-timeout")
+        check(all(r[0] == 200 for r in wave)
+              and verdicts(wave) == {"miss": 1, "coalesced": FAST_BURST - 1}
+              and len({r[1] for r in wave}) == 1 and held == 2,
+              f"cluster_fast: the wave's verdicts {verdicts(wave)}, "
+              f"{len({r[1] for r in wave})} bodies, {held} held scatters")
+        # 5. /pref invalidates the user's entry: the speed layer's UP
+        # (a float64 fold-in of the event) goes on the update topic
+        u = users[0]
+        xu = X[int(u[1:])]
+        item = next(f"i{j}" for j in np.random.default_rng(
+            CLUSTER_SEED + 3).integers(0, CLUSTER_ITEMS, 64)
+            if f"i{j}" not in known[u])
+        in_topic = router_cfg.get_string("oryx.input-topic.message.topic")
+        broker = resolve_broker(router_cfg.get_string(
+            "oryx.input-topic.broker"))
+        n_in = sum(broker.latest_offsets(in_topic))
+        status = client.call(router.port, "POST", f"/pref/{u}/{item}",
+                             b"2.5")[0]
+        check(status in (200, 204), f"cluster_fast: /pref gave {status}")
+        check(sum(broker.latest_offsets(in_topic)) == n_in + 1,
+              "cluster_fast: /pref appended no record to the input topic")
+        x_new = fold_in_f64(gram, full, [(item, 2.5)], xu).astype(
+            np.float32)
+        evicted = router.result_cache.stats()["invalidations"]
+        producer = InProcTopicProducer(
+            router_cfg.get_string("oryx.update-topic.broker"),
+            router_cfg.get_string("oryx.update-topic.message.topic"))
+        producer.send("UP", json.dumps(
+            ["X", u, [float(v) for v in x_new], [item]]))
+        producer.close()
+        wait_for(lambda: router.result_cache.stats()["invalidations"]
+                 > evicted, "cluster_fast: the router's eviction", 60)
+        wait_for(lambda: all(np.array_equal(state(c, ("vector", u)), x_new)
+                             for c in pipes),
+                 "cluster_fast: the replicas' UP", 60)
+        status, body, _, headers = client.call_full(router.port, "GET",
+                                                    paths[0])
+        check(status == 200 and headers.get("x-oryx-cache") == "miss",
+              f"cluster_fast: after /pref {paths[0]} gave {status} "
+              f"{headers.get('x-oryx-cache')} (a stale hit)")
+        got = [(d["id"], d["value"]) for d in json.loads(body)]
+        w = exact_top_n(full, 10, x_new[None], [set(known[u]) | {item}])[0]
+        same_answers(got, w, RTOL["float32"], f"cluster_fast {paths[0]} "
+                     f"after /pref")
+        # 6. the replica cache: a shard query repeated on the framed hop
+        # under the same epoch is a hit and launches nothing
+        hb = Heartbeat(replica="replica-0", shard=0, of=2,
+                       url=f"http://127.0.0.1:{ports[0]}", generation=1,
+                       ready=True, tport=states[0]["tport"])
+        shard_path = f"/shard/recommend/{users[1]}?howMany=10"
+        frames = FrameTransport(router_cfg)
+        # past the quarantine that follows the last applied record (the
+        # UP of check 5), so that the first answer may be stored
+        time.sleep(2 * router_cfg.get_int(
+            "oryx.cluster.replica-cache.quarantine-ms") / 1000.0)
+        try:
+            first = frames.request(hb, "GET", shard_path, None, {}, 120.0)
+            state(pipes[0], "reset")
+            c0 = state(pipes[0], "shard_cache")
+            second = frames.request(hb, "GET", shard_path, None, {}, 120.0)
+            c1 = state(pipes[0], "shard_cache")
+            relaunched = state(pipes[0])["launches"]
+        finally:
+            frames.close()
+        check(first[0] == 200 and second[:2] == first[:2],
+              f"cluster_fast: the framed shard query gave {first[0]}, "
+              f"then {second[0]}")
+        check(c1["hits"] == c0["hits"] + 1 and c1["epoch"] == c0["epoch"]
+              and not any(relaunched.values()),
+              f"cluster_fast: shard cache {c0} -> {c1}, launches "
+              f"{relaunched}")
+        # 7. HTTP/2 on replica 0's door, cleartext and over TLS
+        tls_port = state(pipes[0], ("tls_door",
+                                    self_signed_pem(work_dir)))
+        door = DigestClient(CLUSTER_USER, password)
+        h2_paths = paths[2:4]
+        h1 = [door.call(ports[0], "GET", p)[:2] for p in h2_paths]
+        check(all(st == 200 for st, _ in h1),
+              f"cluster_fast: replica 0 gave {[st for st, _ in h1]}")
+        h2c = h2_get(ports[0], h2_paths, door, tls=False)
+        h2s = h2_get(tls_port, h2_paths, door, tls=True)
+        check(h2c == h1 and h2s == h1,
+              f"cluster_fast: h2 answers differ from HTTP/1.1: "
+              f"{[(a[0], len(a[1])) for a in h2c + h2s]} vs "
+              f"{[(a[0], len(a[1])) for a in h1]}")
+        metrics = json.loads(client.call(router.port, "GET",
+                                         "/metrics")[1])
+        cache = metrics["cluster"]["cache"]
+        loop_lag = metrics.get("freshness", {}).get("async_loop_lag_ms")
+    finally:
+        if router is not None:
+            router.close()
+        stop_replicas(pipes, procs)
+    check(all(p.exitcode == 0 for p in procs),
+          f"cluster_fast: a replica exited {[p.exitcode for p in procs]}")
+    line = {"phase": "cluster_fast", "items": CLUSTER_ITEMS,
+            "features": CLUSTER_FEATURES, "replicas": replicas,
+            "concurrency": CLUSTER_CLIENTS,
+            "load_waited_s": waited_s,
+            "router_miss": {"requests": len(miss), "seconds": miss_s,
+                            **percentiles(r[2] for r in miss)},
+            "router_hit": {"requests": len(hit), "seconds": hit_s,
+                           **percentiles(r[2] for r in hit)},
+            "router_anonymous_async": {
+                "requests": len(anonymous),
+                **percentiles(r[2] for r in anonymous)},
+            "router_anonymous_threaded": None if phase11 is None
+            else phase11["router_anonymous"],
+            "coalesce_wave": {"requests": len(wave), **verdicts(wave),
+                              **percentiles(r[2] for r in wave)},
+            "async_loop_lag_ms": loop_lag,
+            "replica0_shard_cache": c1,
+            "cache": cache, "scatter": sc,
             "seconds": time.perf_counter() - t_phase}
     log(line)
     return line
@@ -5281,7 +5841,7 @@ def main(argv=None) -> int:
     if "lambda" in phases:
         children["preparer"] = spawn.Process(
             target=lambda_data, args=(work_dir,), daemon=True)
-    if "cluster" in phases:
+    if phases & {"cluster", "cluster_fast"}:
         os.makedirs(os.path.join(work_dir, "cluster_model"))
         children["cluster_publisher"] = spawn.Process(
             target=publish_cluster_model,
@@ -5355,11 +5915,24 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         obs = obs_phase(children["publisher"], work_dir,
                         serves.get("1M_50f_f32_lsh0.3_topic"))
         free()
-    cluster = None
-    if "cluster" in phases:
-        # phase 11: two replicas and the router on one card
-        cluster = cluster_phase(children["cluster_publisher"], work_dir)
-        free()
+    cluster = fast = None
+    if "cluster_fast" in phases:
+        # phase 12's replicas start now: their start overlaps phase 11
+        fast = start_fast_replicas(work_dir)
+    try:
+        if "cluster" in phases:
+            # phase 11: two replicas and the router on one card
+            cluster = cluster_phase(children["cluster_publisher"],
+                                    work_dir, fast)
+            free()
+        if fast is not None:
+            # phase 12: the fast path on phase 11's model
+            fast = cluster_fast_phase(children["cluster_publisher"],
+                                      work_dir, fast, cluster)
+            free()
+    finally:
+        if isinstance(fast, dict) and "pipes" in fast:
+            stop_replicas(fast["pipes"], fast["procs"])
     if "serving" in phases:
         entries = product_entries(cases, serves) + entries
     if deploy is not None:
@@ -5372,13 +5945,16 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         for entry in entries:
             if entry["name"] in obs["launches"]:
                 entry["obs_launches"] = obs["launches"][entry["name"]]
-    if cluster is not None:
+    for key, run in (("cluster_launches", cluster),
+                     ("cluster_fast_launches", fast)):
+        if run is None:
+            continue
         # each replica's launches of its routed kernel in the routed round
         for entry in entries:
-            per = [r["launches"][entry["name"]] for r in cluster["replicas"]
+            per = [r["launches"][entry["name"]] for r in run["replicas"]
                    if entry["name"] in r["launches"]]
             if any(per):
-                entry["cluster_launches"] = per
+                entry[key] = per
     check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start,
          "phases": sorted(phases, key=PHASES.index)})

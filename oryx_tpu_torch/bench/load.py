@@ -142,6 +142,12 @@ class _Client:
     def get_traced(self, path: str) -> tuple[bool, str | None]:
         """GET ``path``, read the whole response; whether it was a 200,
         and the ``X-Oryx-Trace`` id a sampled response carries."""
+        return self.get_stamped(path)[:2]
+
+    def get_stamped(self, path: str
+                    ) -> tuple[bool, str | None, str | None]:
+        """As ``get_traced``, plus the ``X-Oryx-Cache`` verdict a
+        cache-armed router stamps (None without one)."""
         self.connect()
         self.conn.sendall(f"GET {path} HTTP/1.1\r\nHost: a\r\n\r\n"
                           .encode("latin-1"))
@@ -150,7 +156,7 @@ class _Client:
             raise ConnectionError("closed")
         status = int(status_line.split(b" ", 2)[1])
         clen = 0
-        trace = None
+        trace = verdict = None
         while True:
             h = self.rfile.readline(65537)
             if h in (b"\r\n", b"\n", b""):
@@ -159,13 +165,15 @@ class _Client:
                 clen = int(h[15:])
             elif h[:13].lower() == b"x-oryx-trace:":
                 trace = h[13:].strip().decode("latin-1")
+            elif h[:13].lower() == b"x-oryx-cache:":
+                verdict = h[13:].strip().decode("latin-1")
         remaining = clen
         while remaining:
             got = self.rfile.read(remaining)
             if not got:
                 raise ConnectionError("short body")
             remaining -= len(got)
-        return status == 200, trace
+        return status == 200, trace, verdict
 
     def close(self) -> None:
         if self.conn is not None:
@@ -247,7 +255,9 @@ def zipf_picks(rng, n_users: int, n: int, a: float) -> np.ndarray:
 def run_recommend_open_loop(base_url: str, user_ids: list[str],
                             rate_qps: float, duration_sec: float = 6.0,
                             workers: int = 512, how_many: int = 10,
-                            timeout_sec: float = 30.0) -> dict:
+                            timeout_sec: float = 30.0,
+                            zipf_a: float | None = None,
+                            cache_bust: bool = False) -> dict:
     """OPEN-LOOP /recommend driver: requests arrive on an exponential
     inter-arrival schedule at ``rate_qps`` regardless of responses, and
     latency is measured from the SCHEDULED arrival time — so queueing
@@ -257,15 +267,19 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
     transport; this measures the server.  Saturation shows as achieved
     qps below offered and a growing scheduled-to-completion tail.
 
-    Users are drawn uniformly.  Sampled responses' ``X-Oryx-Trace`` ids
-    are tallied: ``worst_sampled`` names the recorded trace (on
-    ``/admin/traces``) behind each of the five slowest.  The reference's
-    Zipf draw, cache-bust argument and X-Oryx-Cache tally serve its
-    serving cluster's result cache, which the port does not have yet."""
+    Users are drawn uniformly, or hot-user Zipf with ``zipf_a``.
+    Sampled responses' ``X-Oryx-Trace`` ids are tallied:
+    ``worst_sampled`` names the recorded trace (on ``/admin/traces``)
+    behind each of the five slowest.  Per-response ``X-Oryx-Cache``
+    verdicts are tallied (with a hit-only latency split) whenever the
+    router stamps them.  ``cache_bust`` appends a unique query argument
+    per request so every request is a distinct cache key — the honest
+    way to measure the miss path against a cache-armed router."""
     rng = RandomManager.random()
     n = max(1, int(rate_qps * duration_sec))
     arrivals = np.cumsum(rng.exponential(1.0 / rate_qps, n))
-    picks = rng.integers(0, len(user_ids), n)
+    picks = zipf_picks(rng, len(user_ids), n, zipf_a) \
+        if zipf_a else rng.integers(0, len(user_ids), n)
     parsed = urllib.parse.urlparse(base_url)
     path_prefix = parsed.path.rstrip("/")
     latencies: list[float] = []
@@ -273,6 +287,10 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
     done_ts: list[float] = []
     # (latency_ms, X-Oryx-Trace id) of the sampled responses
     traced: list[tuple[float, str]] = []
+    # X-Oryx-Cache verdict tallies and hit-only latencies (the cached-hit
+    # p50); empty when the router does not stamp the header
+    cache_counts: dict[str, int] = {}
+    hit_lat: list[float] = []
     errors = [0]
     lock = threading.Lock()
     next_index = [0]
@@ -294,9 +312,15 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
                 late = max(0.0, time.perf_counter() - scheduled)
                 path = (f"{path_prefix}/recommend/{user_ids[picks[i]]}"
                         f"?howMany={how_many}")
-                trace = None
+                if cache_bust:
+                    path += f"&cb={i}"
+                trace = verdict = sent = None
                 try:
-                    ok, trace = client.get_traced(path)
+                    client.connect()
+                    # stamped after the (re)connect: a hit's latency
+                    # names the server's cost, not a TCP handshake
+                    sent = time.perf_counter()
+                    ok, trace, verdict = client.get_stamped(path)
                 except Exception:  # noqa: BLE001 — counted as error
                     ok = False
                     client.close()
@@ -309,6 +333,13 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
                         done_ts.append(done - t0)
                         if trace:
                             traced.append((ms, trace))
+                        if verdict:
+                            cache_counts[verdict] = \
+                                cache_counts.get(verdict, 0) + 1
+                            if verdict == "hit" and sent is not None:
+                                # send-to-response, not schedule slip:
+                                # the hit p50 names the server's cost
+                                hit_lat.append((done - sent) * 1000.0)
                     else:
                         errors[0] += 1
         finally:
@@ -365,11 +396,21 @@ def run_recommend_open_loop(base_url: str, user_ids: list[str],
     # and device execute
     worst = [{"ms": round(ms, 1), "trace": t}
              for ms, t in sorted(traced, reverse=True)[:5]]
+    stamped = sum(cache_counts.values())
+    cache = None
+    if stamped:
+        cache = dict(cache_counts)
+        cache["hit_rate"] = round(cache_counts.get("hit", 0) / stamped, 4)
+        if hit_lat:
+            hl = np.asarray(hit_lat)
+            cache["hit_p50_ms"] = round(float(np.percentile(hl, 50)), 3)
+            cache["hit_p99_ms"] = round(float(np.percentile(hl, 99)), 3)
     return {
         "offered_qps": round(rate_qps, 1),
         "achieved_qps": round(achieved, 1),
         "errors": errors[0],
         "worst_sampled": worst,
+        "cache": cache,
         "p50_ms": round(float(np.percentile(lat, 50)), 1) if len(lat) else None,
         "p95_ms": round(float(np.percentile(lat, 95)), 1) if len(lat) else None,
         "p99_ms": round(float(np.percentile(lat, 99)), 1) if len(lat) else None,

@@ -2,7 +2,8 @@
 the item catalog (and the whole user store), and the router merges the
 replicas' exact local top-k into the exact global top-N.
 
-Counterpart of ``oryx_tpu/cluster/`` on its default path:
+Counterpart of ``oryx_tpu/cluster/`` without the region mirror and the
+autoscaler:
 
 - :mod:`.sharding` — the stable item-id -> shard hash (the Kafka
   partitioner contract, kafka/partitioner.py).
@@ -11,9 +12,13 @@ Counterpart of ``oryx_tpu/cluster/`` on its default path:
 - :mod:`.shard_resources` — the replica-internal ``/shard/*`` routes.
 - :mod:`.merge` — the exact merge and the canonical tie-break.
 - :mod:`.scatter` — deadline-propagating, hedging, circuit-broken
-  fan-out over an HTTP/1.1 socket pool (TLS and DIGEST included).
+  fan-out over the framed transport or an HTTP/1.1 socket pool (TLS and
+  DIGEST included).
+- :mod:`.transport` — the multiplexed framed router-to-replica hop.
 - :mod:`.admission` — measured-queue-wait admission control.
-- :mod:`.result_cache` — the caches' ``from_config`` paths (off).
+- :mod:`.result_cache` — the router's exact result cache with
+  single-flight coalescing, and the replica's shard cache.
+- :mod:`.async_http` — the router's asyncio front end.
 - :mod:`.router` — the gateway layer.
 
 Run a two-shard cluster on one host (each node with its own port)::

@@ -1,15 +1,17 @@
 """The scatter-gather gateway: the public serving front end, answered
 by a horizontally-sharded replica fleet.
 
-Counterpart of ``oryx_tpu/cluster/router.py`` on its default path: the
-threaded HTTP/1.1 front end (TLS and DIGEST auth included), the scatter
-over the replicas' HTTP/1.1 socket pool, and no result cache.  The
-reference's asyncio front end (``oryx.cluster.async.enabled``), its
-exact result cache and coalescing (``oryx.cluster.cache.enabled``,
-``oryx.cluster.coalesce.enabled``) and the region mirror's keys
-(``oryx.cluster.region.mirror.*``) are not part of this package yet:
-each raises a ``ValueError`` naming its key.  The router's fold-in
-solves on ``device`` (None means ``cuda``), as a replica's does.
+Counterpart of ``oryx_tpu/cluster/router.py``: the threaded front end
+(HTTP/1.1 and HTTP/2, TLS and DIGEST auth included) or, with
+``oryx.cluster.async.enabled``, the asyncio front end
+(cluster/async_http.py); the scatter over the replicas' framed
+transport or HTTP/1.1 socket pool; and the exact result cache with
+single-flight coalescing (``oryx.cluster.cache.enabled``,
+``oryx.cluster.coalesce.enabled``), fed by the membership consumer's
+tap.  The region mirror's keys (``oryx.cluster.region.mirror.*``) are
+not part of this package yet: each raises a ``ValueError`` naming its
+key.  The router's fold-in solves on ``device`` (None means ``cuda``),
+as a replica's does.
 
 ``python -m oryx_tpu_torch router`` speaks the SAME public HTTP surface
 as a single serving layer — endpoints, JSON/CSV negotiation, gzip, DIGEST
@@ -47,9 +49,11 @@ from typing import Sequence
 import numpy as np
 
 from ..api.serving import OryxServingException
+from ..common import clock as clockmod
 from ..common.config import Config, refuse_configured
 from ..common.device import resolve_device
 from ..kafka import utils as kafka_utils
+from ..kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
 from ..lambda_rt.http import HttpApp, Request, Route, TextResponse, \
     make_server
@@ -88,10 +92,8 @@ _log = logging.getLogger(__name__)
 __all__ = ["RouterLayer", "ROUTES", "UNPORTED_ROUTER_KEYS"]
 
 # keys of the reference's router whose features this package does not
-# have yet: each raises by name rather than being quietly ignored (the
-# result cache's two are refused by ResultCache)
-UNPORTED_ROUTER_KEYS = ("oryx.cluster.async.enabled",
-                        "oryx.cluster.region.mirror.source-broker",
+# have yet: each raises by name rather than being quietly ignored
+UNPORTED_ROUTER_KEYS = ("oryx.cluster.region.mirror.source-broker",
                         "oryx.cluster.region.mirror.source-topic",
                         "oryx.cluster.region.mirror.checkpoint-dir")
 
@@ -752,23 +754,29 @@ ROUTES = [
     # admission=True marks the scatter data plane: when the admission
     # controller measures overload these shed as fast 503 + Retry-After
     # (cluster/admission.py); health/admin/write endpoints stay open.
-    Route("GET", "/recommend/{userID}", _recommend, admission=True),
+    # cache=True marks the exact-result-cache surface (routes whose
+    # answers have a precise per-user/per-item invalidation key —
+    # cluster/result_cache.py); a hit bypasses the admission gate.
+    Route("GET", "/recommend/{userID}", _recommend, admission=True,
+          cache=True),
     Route("GET", "/recommendToMany/{userIDs:+}", _recommend_to_many,
-          admission=True),
+          admission=True, cache=True),
     Route("GET", "/recommendToAnonymous/{itemIDs:+}",
-          _recommend_to_anonymous, admission=True),
+          _recommend_to_anonymous, admission=True, cache=True),
     Route("GET", "/recommendWithContext/{userID}/{itemIDs:+}",
-          _recommend_with_context, admission=True),
-    Route("GET", "/similarity/{itemIDs:+}", _similarity, admission=True),
+          _recommend_with_context, admission=True, cache=True),
+    Route("GET", "/similarity/{itemIDs:+}", _similarity, admission=True,
+          cache=True),
     Route("GET", "/similarityToItem/{toItemID}/{itemIDs:+}",
-          _similarity_to_item, admission=True),
+          _similarity_to_item, admission=True, cache=True),
     Route("GET", "/estimate/{userID}/{itemIDs:+}", _estimate,
-          admission=True),
+          admission=True, cache=True),
     Route("GET", "/estimateForAnonymous/{toItemID}/{itemIDs:+}",
-          _estimate_for_anonymous, admission=True),
-    Route("GET", "/because/{userID}/{itemID}", _because, admission=True),
+          _estimate_for_anonymous, admission=True, cache=True),
+    Route("GET", "/because/{userID}/{itemID}", _because, admission=True,
+          cache=True),
     Route("GET", "/mostSurprising/{userID}", _most_surprising,
-          admission=True),
+          admission=True, cache=True),
     Route("GET", "/mostActiveUsers", _most_counts, admission=True),
     Route("GET", "/mostPopularItems", _most_counts, admission=True),
     Route("GET", "/popularRepresentativeItems",
@@ -777,7 +785,8 @@ ROUTES = [
     Route("GET", "/allUserIDs", _proxy_any, admission=True),
     Route("GET", "/item/allIDs", _all_item_ids, admission=True),
     Route("GET", "/allItemIDs", _all_item_ids, admission=True),
-    Route("GET", "/knownItems/{userID}", _proxy_any, admission=True),
+    Route("GET", "/knownItems/{userID}", _proxy_any, admission=True,
+          cache=True),
     Route("POST", "/pref/{userID}/{itemID}", _pref_post, mutates=True),
     Route("DELETE", "/pref/{userID}/{itemID}", _pref_delete, mutates=True),
     Route("POST", "/ingest", _ingest, mutates=True),
@@ -834,8 +843,8 @@ class RouterLayer:
                  device=None):
         self.config = config
         refuse_configured(config, UNPORTED_ROUTER_KEYS,
-                          "the router's asyncio front end and the region "
-                          "mirror are not part of this package yet")
+                          "the region mirror is not part of this package "
+                          "yet")
         # without a card, fail at boot, not at the first fold-in
         self.device = resolve_device(device)
         api = "oryx.serving.api"
@@ -885,8 +894,10 @@ class RouterLayer:
         # uses
         self.metrics.gauge_fn("cluster_queue_wait_ms",
                               self.scatter.cluster_queue_wait_ms)
-        # exact result cache + single-flight coalescing: None, with
-        # both gates off (cluster/result_cache.py refuses them on)
+        # exact result cache + single-flight coalescing on the scatter
+        # hot path (cluster/result_cache.py; None = both gates off),
+        # invalidated precisely from the same update-topic tap the
+        # membership consumer runs — no extra consumer, no TTLs
         self.result_cache = ResultCache.from_config(
             config, self.metrics, self.membership)
         # SLO burn-rate engine over the router's own exactly-mergeable
@@ -957,6 +968,12 @@ class RouterLayer:
         self._consume_thread: threading.Thread | None = None
         self._server = None
         self._server_thread: threading.Thread | None = None
+        # the asyncio front end (cluster/async_http.py): cache hits and
+        # coalesced followers never leave the loop, misses bridge to a
+        # fixed worker pool, and concurrency is bounded by file
+        # descriptors instead of thread stacks
+        self.async_enabled = config.get_bool("oryx.cluster.async.enabled")
+        self._frontend = None
         self.app = HttpApp(
             ROUTES,
             context={
@@ -1007,20 +1024,46 @@ class RouterLayer:
 
     def _consume_membership(self) -> None:
         broker = resolve_broker(self.update_broker)
+        rc = self.result_cache
+        cutovers_seen = self.membership.topology_cutovers
+        tailed_before = [False]
 
         def tail():
+            nonlocal cutovers_seen
             # from the current end: membership is periodic state, not
             # history — replicas re-announce every interval, so the
-            # registry is complete one heartbeat period after start
+            # registry is complete one heartbeat period after start.
+            # The cache's invalidations are one-shot, though: a
+            # resubscribe skips whatever UP records went by during the
+            # gap, so the restarted tail flushes the epoch
+            if tailed_before[0] and rc is not None:
+                rc.flush("tap-resubscribe")
+            tailed_before[0] = True
             for km in broker.consume(self.update_topic,
                                      from_beginning=False,
                                      stop=self._stop):
-                if km.key == KEY_HEARTBEAT \
-                        and not self.membership.note_message(km.message):
-                    # dropped: a retired fleet still announcing, or a
-                    # misconfigured i/N replica whose ring does not
-                    # exist here — countable evidence, never merged
-                    self.metrics.inc("stale_topology_heartbeats")
+                if km.key == KEY_HEARTBEAT:
+                    if not self.membership.note_message(km.message):
+                        # dropped: a retired fleet still announcing, or
+                        # a misconfigured i/N replica whose ring does
+                        # not exist here — countable, never merged
+                        self.metrics.inc("stale_topology_heartbeats")
+                    if rc is not None:
+                        # a topology cutover retires a whole ring: its
+                        # entries can never be served (the topology is
+                        # in every key) — reclaim their bytes now
+                        cut = self.membership.topology_cutovers
+                        if cut != cutovers_seen:
+                            cutovers_seen = cut
+                            rc.flush("topology-cutover")
+                elif rc is not None:
+                    # the cache's invalidation feed rides the same tap:
+                    # an UP evicts exactly the touched user's or item's
+                    # keys, a model publish flushes the epoch
+                    if km.key == KEY_UP:
+                        rc.note_up(km.message)
+                    elif km.key in (KEY_MODEL, KEY_MODEL_REF):
+                        rc.note_generation_publish()
 
         run_with_resubscribe(tail, stop=self._stop,
                              what="router membership consumer", log=_log)
@@ -1040,21 +1083,47 @@ class RouterLayer:
         if self.config.get_optional_string("oryx.obs.profile-dir"):
             # /admin/profile captures on a handler's thread
             profile_mod.prime()
-        self._server = make_server(self.app, self.port,
-                                   ssl_context=ssl_context)
-        self.port = self._server.server_address[1]
-        self._server_thread = threading.Thread(
-            target=self._server.serve_forever, daemon=True,
-            name="RouterHTTP")
-        self._server_thread.start()
-        _log.info("Router listening on port %d", self.port)
+        if self.async_enabled:
+            from .async_http import AsyncFrontEnd
+            self._frontend = AsyncFrontEnd(self.app, self.port,
+                                           self.config,
+                                           ssl_context=ssl_context)
+            self._frontend.start()
+            self.port = self._frontend.port
+            fe = self._frontend
+            self.metrics.gauge_fn("async_open_connections",
+                                  lambda: float(fe.open_connections))
+            self.metrics.gauge_fn("async_loop_lag_ms",
+                                  lambda: float(fe.loop_lag_ms))
+            _log.info("Router (async front end) listening on port %d",
+                      self.port)
+        else:
+            self._server = make_server(self.app, self.port,
+                                       ssl_context=ssl_context)
+            self.port = self._server.server_address[1]
+            self._server_thread = threading.Thread(
+                target=self._server.serve_forever, daemon=True,
+                name="RouterHTTP")
+            self._server_thread.start()
+            _log.info("Router listening on port %d", self.port)
+        if self.scatter.transport is not None:
+            sg = self.scatter
+            self.metrics.gauge_fn(
+                "transport_open_connections",
+                lambda: float(sg.transport.open_connections()))
 
     def await_(self) -> None:
+        if self._frontend is not None:
+            while self._frontend.is_alive():
+                clockmod.sleep(1.0)
+            return
         while self._server_thread and self._server_thread.is_alive():
             self._server_thread.join(1.0)
 
     def close(self) -> None:
         self._stop.set()
+        if self._frontend is not None:
+            self._frontend.shutdown()
         if self._server:
             self._server.shutdown()
             self._server.server_close()

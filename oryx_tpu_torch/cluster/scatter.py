@@ -1,10 +1,11 @@
 """Deadline-propagating, hedging, circuit-broken fan-out to shard
 replicas.
 
-Counterpart of ``oryx_tpu/cluster/scatter.py`` over its HTTP/1.1 socket
-pool.  The reference's multiplexed framed transport
-(``cluster/transport.py``, ``oryx.cluster.transport.enabled``) is not
-part of this package yet: the key raises a ``ValueError`` naming it.
+Counterpart of ``oryx_tpu/cluster/scatter.py``, whole: an attempt
+against a replica whose heartbeat advertises a transport port rides the
+multiplexed framed transport (``cluster/transport.py``, with
+``oryx.cluster.transport.enabled``); every other attempt rides the
+HTTP/1.1 socket pool.
 
 One :class:`ScatterGather` lives on the router.  Per public request it
 queries every catalog shard (``scatter``) or any one replica
@@ -59,18 +60,12 @@ from ..common import clock as clockmod
 from ..api.serving import OryxServingException
 from ..resilience import faults
 from ..resilience.policy import CircuitBreaker, CircuitOpenError, Deadline
-from ..common.config import refuse_configured
 from .membership import Heartbeat, MembershipRegistry
+from .transport import FrameTransport, StreamAbandoned
 
 _log = logging.getLogger(__name__)
 
 __all__ = ["ScatterGather", "ShardUnavailable", "ShardResponse"]
-
-
-class StreamAbandoned(Exception):
-    """This attempt was cancelled locally (a hedge sibling won, or the
-    deadline expired) — not a replica failure and never breaker
-    evidence."""
 
 
 class ShardUnavailable(OryxServingException):
@@ -284,11 +279,11 @@ def _request(conn, rfile, method: str, path: str, body: bytes | None,
 
 class _CancelToken:
     """One hedged shard query's cancellation latch.  Each in-flight
-    attempt registers a closer (close the HTTP socket); when a sibling
-    wins — or the query gives up — the token fires every registered
-    closer, so the losers are torn down NOW instead of finishing reads
-    nobody will consume and returning possibly-stalled sockets to the
-    keep-alive pool."""
+    attempt registers a closer (close the HTTP socket / CANCEL the
+    frame stream); when a sibling wins — or the query gives up — the
+    token fires every registered closer, so the losers are torn down
+    NOW instead of finishing reads nobody will consume and returning
+    possibly-stalled sockets to the keep-alive pool."""
 
     __slots__ = ("_lock", "_closers", "_next", "fired")
 
@@ -408,9 +403,12 @@ class ScatterGather:
             config.get_int(f"{c}.shard-timeout-ms") / 1000.0
         self.max_attempts = config.get_int(f"{c}.max-attempts-per-shard")
         self._config = config
-        refuse_configured(config, (f"{c}.transport.enabled",),
-                          "the framed internal transport is not part of "
-                          "this package yet")
+        # the multiplexed framed transport (cluster/transport.py): when
+        # enabled, attempts against replicas that advertise a transport
+        # port ride one persistent framed connection per replica; the
+        # HTTP/1.1 pool serves replicas that don't (mixed-fleet rollout)
+        self.transport = FrameTransport(config) \
+            if config.get_bool(f"{c}.transport.enabled") else None
         self._pool = _Pool(
             idle_ttl_sec=config.get_int(
                 f"{c}.pool.idle-ttl-ms") / 1000.0,
@@ -431,6 +429,10 @@ class ScatterGather:
         # hedged losers torn down mid-flight instead of finishing
         # reads nobody consumes (and poisoning the keep-alive pool)
         self.hedge_abandoned = 0
+        # attempts that rode the HTTP/1.1 socket pool (stats()["pool"]
+        # ["attempts"]): a fleet whose every heartbeat advertises a
+        # transport port keeps it at 0 with the framed transport on
+        self.http_attempts = 0
         # replica url -> (reported scoring queue-wait ms, seen
         # monotonic): piggybacked on every shard envelope, the live
         # overload signal the router's admission control reads
@@ -486,6 +488,8 @@ class ScatterGather:
     def close(self) -> None:
         self._exec.shutdown(wait=False)
         self._pool.close()
+        if self.transport is not None:
+            self.transport.close()
 
     def _breaker(self, url: str) -> CircuitBreaker:
         with self._lock:
@@ -514,6 +518,19 @@ class ScatterGather:
             # router would no longer wait for
             headers["X-Deadline-Ms"] = str(max(1, int(remaining * 1000)))
 
+        if self.transport is not None and getattr(hb, "tport", None):
+            # the multiplexed framed hop: one persistent connection
+            # per replica, this attempt is one more interleaved stream
+            # on it (auth is the connection-level AUTH frame)
+            out = self._breaker(hb.url).call(
+                self._framed_call, hb, shard, method, path, body,
+                headers, timeout, traceparent, cancel)
+            if out is _ABANDONED:
+                raise StreamAbandoned(f"hedge abandoned for {hb.url}")
+            return out
+
+        with self._lock:
+            self.http_attempts += 1
         if self._auth is not None:
             h = self._auth.header(hb.url, method, path)
             if h:
@@ -624,11 +641,38 @@ class ScatterGather:
             self.hedge_abandoned += 1
         return _ABANDONED
 
+    def _framed_call(self, hb, shard, method, path, body, headers,
+                     timeout, traceparent, cancel):
+        t0 = clockmod.monotonic()
+        try:
+            status, raw, _ = self.transport.request(
+                hb, method, path, body, headers, timeout, cancel=cancel)
+        except StreamAbandoned:
+            return self._abandon()
+        self._record_frame_span(traceparent, t0, clockmod.monotonic(),
+                                hb, shard, status)
+        return self._finish_attempt(hb, shard, status, raw)
+
+    def _record_frame_span(self, tp, t0, t1, hb, shard, status) -> None:
+        """Retroactive ``transport.frame_call`` span under the sampled
+        request's shard_call — the framed hop's wire time, named so a
+        slow frame is attributable separately from replica compute."""
+        if self.tracer is None or not tp:
+            return
+        from ..obs.trace import parse_traceparent
+        ctx = parse_traceparent(tp)
+        if not ctx or not ctx[2]:
+            return
+        self.tracer.record_span(
+            "transport.frame_call", (ctx[0], ctx[1]), t0, t1,
+            attrs={"replica": hb.url, "shard": shard,
+                   "http.status": status})
+
     def _finish_attempt(self, hb, shard: int, status: int,
                         raw: bytes) -> ShardResponse:
-        """The attempt epilogue: parse the JSON envelope, harvest the
-        queue-wait piggyback, and fail over on 5xx exactly like a
-        transport fault."""
+        """The attempt epilogue shared by both transports: parse the JSON
+        envelope, harvest the queue-wait piggyback, and fail over on 5xx
+        exactly like a transport fault."""
         payload = None
         if raw:
             try:
@@ -727,7 +771,8 @@ class ScatterGather:
         in_flight = 0
         # hedge cancellation: the moment one attempt wins (or the
         # query gives up), every other in-flight attempt is torn down
-        # by a socket close — so a stalled replica can't poison the
+        # — a socket close on the HTTP hop, a CANCEL frame on the
+        # framed hop — so a stalled replica can't poison the
         # keep-alive pool with a mid-response socket and never
         # computes an answer nobody is waiting for
         cancel = _CancelToken()
@@ -939,6 +984,14 @@ class ScatterGather:
                    "cluster_queue_wait_ms":
                        None if qw is None else round(qw, 2),
                    "pool": {"sockets": self._pool.pooled(),
+                            "attempts": self.http_attempts,
                             "idle_evictions": self._pool.idle_evictions,
                             "cap_evictions": self._pool.cap_evictions}}
+        if self.transport is not None:
+            out["transport"] = {
+                "open_connections": self.transport.open_connections(),
+                "per_replica": self.transport.connection_snapshot(),
+                "cancels_sent": self.transport.cancels_sent,
+                "reconnects": self.transport.reconnects,
+            }
         return out

@@ -11,8 +11,9 @@ configuration, ``serving --shard i/N`` starts a serving-cluster replica
 of catalog shard ``i`` of ``N``, and ``router`` the cluster's
 scatter-gather gateway (cluster/router.py).  ``speed --shard`` passes
 the reference's overlay to the speed layer, which refuses it by key
-until the sharded speed layer is part of this package, and the router
-refuses ``--async`` (``oryx.cluster.async.enabled``) by key.
+until the sharded speed layer is part of this package, and ``router
+--async`` serves the router's public door on the asyncio front end
+(``oryx.cluster.async.enabled``, cluster/async_http.py).
 
 One flag the reference does not have: ``--device`` on ``batch``,
 ``speed``, ``serving``, ``router`` and ``warmup``.  Its default is the
@@ -129,8 +130,8 @@ def _cmd_serving(args) -> int:
 def _cmd_router(args) -> int:
     """The scatter-gather gateway: the public REST front end over a
     fleet of shard replicas (cluster/router.py).  ``--async`` sets
-    ``oryx.cluster.async.enabled``, which the router refuses by name
-    until its asyncio front end is part of this package."""
+    ``oryx.cluster.async.enabled``: the public door runs on the asyncio
+    front end (cluster/async_http.py)."""
     from ..cluster.router import RouterLayer
     config = _load_config(args.conf)
     if args.async_mode is not None:
@@ -295,8 +296,7 @@ def main(argv: list[str] | None = None) -> int:
                            action=argparse.BooleanOptionalAction,
                            default=None,
                            help="serve the public door on the asyncio "
-                                "front end (oryx.cluster.async.enabled; "
-                                "not part of this package yet)")
+                                "front end (oryx.cluster.async.enabled)")
         if name == "speed":
             p.add_argument("--shard", default=None, metavar="i/N",
                            help="fold in only item slice i of N "

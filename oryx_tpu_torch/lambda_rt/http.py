@@ -3,18 +3,19 @@
 Counterpart of ``oryx_tpu/lambda_rt/http.py`` (reference: the serving
 runtime hosts JAX-RS resources in embedded Tomcat with Jersey —
 ServingLayer.java:58-339, OryxApplication.java:41-98,
-CSVMessageBodyWriter.java:39, ErrorResource.java:36), cut down to
-HTTP/1.1: route patterns with path variables (including multi-segment
-tails), JSON/CSV content negotiation, gzip, plain-text and HTML error
+CSVMessageBodyWriter.java:39, ErrorResource.java:36), whole: route
+patterns with path variables (including multi-segment tails), JSON/CSV
+content negotiation, gzip, plain-text and HTML error
 pages, per-request deadlines, read-only gating, DIGEST auth (MD5,
 ``qop="auth"``, a bounded nonce set), TLS through ``make_server``'s
 ``ssl_context``, the serving cluster's admission gate, and the
 observability hooks of the dispatcher (the metrics registry's per-route
 record with a trace exemplar, the request span and its ``X-Oryx-Trace``
-echo, the wide-event line and the flight recorder's ring append).
-HTTP/2 (the reference's ALPN ``h2`` offer and its cleartext prior
-knowledge) and the router's result-cache hooks come with a later slice:
-TLS offers ``http/1.1`` only.
+echo, the wide-event line and the flight recorder's ring append), the
+router's result-cache hot path (hits and coalesced followers served
+before the admission gate, ``X-Oryx-Cache`` on every verdict), and
+HTTP/2 (``lambda_rt/http2.py``: ALPN offers ``h2`` beside ``http/1.1``,
+and a cleartext connection may open with the prior-knowledge preface).
 """
 
 from __future__ import annotations
@@ -100,6 +101,11 @@ class Route(NamedTuple):
     # in the app context): overload sheds it as a fast 503 +
     # Retry-After; control and health routes stay open
     admission: bool = False
+    # exact-result-cache eligible (when a result cache is in the app
+    # context — the cluster router's hot path): complete 200s are
+    # served from preserialized bytes and concurrent identical misses
+    # coalesce onto one in-flight computation (cluster/result_cache.py)
+    cache: bool = False
 
 
 class Request(NamedTuple):
@@ -144,7 +150,8 @@ def _compile(pattern: str) -> re.Pattern:
 
 
 def wants_csv(accept: str) -> bool:
-    """The CSV-vs-JSON negotiation predicate."""
+    """The CSV-vs-JSON negotiation predicate, shared with the result
+    cache so cached variants are keyed exactly as cold renders are."""
     return "text/csv" in accept or (
         "text/plain" in accept and "json" not in accept)
 
@@ -205,6 +212,14 @@ def _split_result(result) -> tuple[int, Any, dict]:
 
 
 
+def _render_kind(value: Any, kind: str) -> tuple[bytes, str]:
+    """The result cache's canonical serializer: one fixed Accept per
+    variant kind, through the same json_or_csv a cold response renders
+    with — cached bytes are cold bytes by construction."""
+    return json_or_csv(value,
+                       "text/csv" if kind == "csv" else "application/json")
+
+
 class HttpApp:
     """Routes + app context, servable by ``make_server``."""
 
@@ -229,6 +244,10 @@ class HttpApp:
         # the admission controller (cluster/admission.py): gates routes
         # marked admission=True; absent = no per-request cost
         self.admission = context.get("admission")
+        # the exact result cache and single-flight coalescer
+        # (cluster/result_cache.py): serves routes marked cache=True
+        # from preserialized bytes; absent = no per-request cost
+        self.result_cache = context.get("result_cache")
         self.read_only = read_only
         self.user_name = user_name
         self.password = password
@@ -262,6 +281,11 @@ class HttpApp:
 
     def _auth_ok(self, handler) -> bool:
         if self.user_name is None:
+            return True
+        if getattr(handler, "_oryx_preauth", False):
+            # the framed-transport dispatcher authenticated its whole
+            # connection up front (an AUTH frame carrying the DIGEST
+            # HA1, cluster/transport.py)
             return True
         auth = handler.headers.get("Authorization", "")
         if not auth.startswith("Digest "):
@@ -312,6 +336,8 @@ class HttpApp:
         parsed as the next request line.  Reads and discards a bounded
         body; past the bound (or with chunked framing, which this server
         never negotiates) the connection is marked for close instead."""
+        if not hasattr(handler, "_close"):
+            return  # h2 adapter: body already fully buffered per stream
         try:
             length = int(handler.headers.get("Content-Length") or 0)
         except ValueError:
@@ -407,9 +433,54 @@ class HttpApp:
                 self._send_error(handler, 403, "endpoint is read-only")
                 self._drain_body(handler)
                 return
+            probe = flight = deadline = None
+            rc = self.result_cache
+            if route.cache and rc is not None:
+                # the cache hot path: a hit serves preserialized bytes
+                # before the admission gate (it costs no device or queue
+                # time — under overload the cluster degrades to "cached
+                # answers + fast 503s" instead of just 503s)
+                probe = rc.probe(route.pattern, path, query,
+                                 m.groupdict())
+            if probe is not None:
+                if self.tracer is not None:
+                    with self.tracer.span("router.cache_lookup") as sp:
+                        entry = rc.lookup(probe)
+                        sp.set_attr("cache", "hit" if entry is not None
+                                    else "miss")
+                else:
+                    entry = rc.lookup(probe)
+                if entry is not None:
+                    self._send_entry(handler, entry, "hit",
+                                     method == "HEAD")
+                    self._drain_body(handler)
+                    return
+                # the single-flight join is before the admission gate
+                # too: a coalesced follower does no scatter work and
+                # must not park on the leader holding an inflight slot
+                deadline = self._deadline(handler)
+                try:
+                    kind, got = rc.begin_flight(probe, deadline)
+                except Exception as e:  # noqa: BLE001 — chaos seam
+                    self._send_error(handler, 500,
+                                     f"{type(e).__name__}: {e}")
+                    self._drain_body(handler)
+                    return
+                if kind == "coalesced":
+                    self._send_entry(handler, got, "coalesced",
+                                     method == "HEAD")
+                    self._drain_body(handler)
+                    return
+                if kind == "lead":
+                    flight = got
+            admitted = False
             if route.admission and self.admission is not None:
                 ok, retry_after = self.admission.try_acquire()
                 if not ok:
+                    if flight is not None:
+                        # a shed leader wakes its followers to their own
+                        # (equally shed, equally fast) verdicts
+                        rc.finish_flight(flight, None)
                     # measured overload: a fast 503 the client can back
                     # off on, instead of queueing into the collapse
                     self._send_error(
@@ -417,13 +488,13 @@ class HttpApp:
                         headers={"Retry-After": str(retry_after)})
                     self._drain_body(handler)
                     return
-                try:
-                    self._dispatch_route(handler, route, path, m, query,
-                                         method)
-                finally:
+                admitted = True
+            try:
+                self._dispatch_route(handler, route, path, m, query,
+                                     method, probe, flight, deadline)
+            finally:
+                if admitted:
                     self.admission.release()
-                return
-            self._dispatch_route(handler, route, path, m, query, method)
             return
         if matched_path:
             self._send_error(handler, 405, "method not allowed")
@@ -431,45 +502,121 @@ class HttpApp:
             self._send_error(handler, 404, f"no resource at {path}")
         self._drain_body(handler)
 
-    def _dispatch_route(self, handler, route, path, m, query,
-                        method) -> None:
+    def _dispatch_route(self, handler, route, path, m, query, method,
+                        probe=None, flight=None, deadline=None) -> None:
+        published = None  # the entry handed to coalesced followers
         try:
-            length = int(handler.headers.get("Content-Length") or 0)
-        except ValueError:
-            handler._close = True  # framing unknown: don't reuse
-            self._send_error(handler, 400, "bad Content-Length")
-            return
-        body = handler.rfile.read(length) if length > 0 else b""
-        if handler.headers.get("Content-Encoding", "") == "gzip" and body:
             try:
-                body = gzip.decompress(body)
-            except (gzip.BadGzipFile, OSError, EOFError):
-                self._send_error(handler, 400,
-                                 "Content-Encoding gzip but body is not")
+                length = int(handler.headers.get("Content-Length") or 0)
+            except ValueError:
+                if hasattr(handler, "_close"):
+                    handler._close = True  # framing unknown: don't reuse
+                self._send_error(handler, 400, "bad Content-Length")
                 return
-        req = Request(method, path, m.groupdict(), query, body,
-                      dict(handler.headers), self.context,
-                      deadline=self._deadline(handler))
-        try:
-            result = route.handler(req)
-        except OryxServingException as e:
-            # e.headers (e.g. Retry-After) ride out with the error page
-            self._send_error(handler, e.status, str(e), headers=e.headers)
+            body = handler.rfile.read(length) if length > 0 else b""
+            if handler.headers.get("Content-Encoding", "") == "gzip" \
+                    and body:
+                try:
+                    body = gzip.decompress(body)
+                except (gzip.BadGzipFile, OSError, EOFError):
+                    self._send_error(
+                        handler, 400,
+                        "Content-Encoding gzip but body is not")
+                    return
+            req = Request(method, path, m.groupdict(), query, body,
+                          dict(handler.headers), self.context,
+                          deadline=deadline if probe is not None
+                          else self._deadline(handler))
+            try:
+                result = route.handler(req)
+            except OryxServingException as e:
+                if probe is not None and e.status == 404:
+                    # hot-404 negative caching: the unknown-user/item
+                    # answer joins the cache under the same epoch and
+                    # precise UP eviction; followers coalesced on the
+                    # missing key reuse it too
+                    published = self.result_cache.store_negative(
+                        probe, e.status, str(e))
+                    if flight is not None:
+                        self.result_cache.finish_flight(flight,
+                                                        published)
+                    self._send_error(handler, e.status, str(e),
+                                     headers={"X-Oryx-Cache": "miss"})
+                    return
+                # e.headers (e.g. Retry-After) ride out with the page
+                self._send_error(handler, e.status, str(e),
+                                 headers=e.headers)
+                return
+            except DeadlineExceeded as e:
+                # the request's time budget ran out while queued or in
+                # flight: shed it rather than report a server fault
+                self._send_error(handler, 503, str(e))
+                return
+            except (ValueError, KeyError) as e:
+                self._send_error(handler, 400, f"bad request: {e}")
+                return
+            except Exception as e:  # noqa: BLE001 — uniform 500 page
+                self._send_error(handler, 500, f"{type(e).__name__}: {e}")
+                return
+            if probe is not None:
+                status, value, extra = _split_result(result)
+                if not isinstance(value, (HtmlResponse, TextResponse)):
+                    published = self.result_cache.store(
+                        probe, status, value, extra, _render_kind)
+                if flight is not None:
+                    # wake the followers before writing our own
+                    # response: a slow-reading leader client must not
+                    # hold the herd hostage on its socket
+                    self.result_cache.finish_flight(flight, published)
+                if published is not None and not extra:
+                    # serve through the entry: a future hit is
+                    # byte-identical to this miss by construction
+                    self._send_entry(handler, published, "miss",
+                                     method == "HEAD")
+                    return
+                # an uncacheable result (error, partial, rescorer):
+                # still stamp the verdict so clients can tell
+                result = (status, value,
+                          {**extra, "X-Oryx-Cache": "miss"})
+            self._send(handler, result, method == "HEAD",
+                       handler.headers.get("Accept", ""),
+                       "gzip" in handler.headers.get("Accept-Encoding",
+                                                     ""))
+        finally:
+            # the flight was opened in _handle (before the admission
+            # gate): every exit, framing errors included, must wake the
+            # followers, or they park out their whole wait
+            if flight is not None:
+                self.result_cache.finish_flight(flight, published)
+
+    def _send_entry(self, handler, entry, verdict: str,
+                    head_only: bool) -> None:
+        """Serve a cached or coalesced entry: preserialized bytes, no
+        json_or_csv, no gzip recompression (the stored gzip variant is
+        reused as is), stamped ``X-Oryx-Cache``."""
+        if entry.status != 200:
+            # a negative entry (hot 404): re-render the same error page
+            # a cold miss renders, Accept negotiation included
+            self._send_error(handler, entry.status, entry.value,
+                             headers={"X-Oryx-Cache": verdict})
             return
-        except DeadlineExceeded as e:
-            # the request's time budget ran out while queued or in
-            # flight: shed it rather than report a server fault
-            self._send_error(handler, 503, str(e))
-            return
-        except (ValueError, KeyError) as e:
-            self._send_error(handler, 400, f"bad request: {e}")
-            return
-        except Exception as e:  # noqa: BLE001 — uniform 500 page
-            self._send_error(handler, 500, f"{type(e).__name__}: {e}")
-            return
-        self._send(handler, result, method == "HEAD",
-                   handler.headers.get("Accept", ""),
-                   "gzip" in handler.headers.get("Accept-Encoding", ""))
+        accept = handler.headers.get("Accept", "")
+        gzip_ok = "gzip" in handler.headers.get("Accept-Encoding", "")
+        payload, ctype, gzipped = self.result_cache.render(
+            entry, wants_csv(accept), gzip_ok, _render_kind)
+        handler._oryx_status = 200
+        handler.send_response(200)
+        trace_id = getattr(handler, "_oryx_trace", None)
+        if trace_id:
+            handler.send_header("X-Oryx-Trace", trace_id)
+        handler.send_header("X-Oryx-Cache", verdict)
+        handler.send_header("Content-Type", ctype)
+        if gzipped:
+            handler.send_header("Content-Encoding", "gzip")
+        handler.send_header("Content-Length", str(len(payload)))
+        handler.end_headers()
+        if not head_only:
+            handler.wfile.write(payload)
 
     def _send(self, handler, result, head_only: bool, accept: str,
               gzip_ok: bool) -> None:
@@ -543,16 +690,17 @@ _KNOWN_METHODS = frozenset({"GET", "HEAD", "POST", "DELETE"})
 
 def make_server(app: HttpApp, port: int,
                 ssl_context=None) -> ThreadingHTTPServer:
-    """HTTP/1.1 (or, with ``ssl_context``, HTTPS) server with keep-alive
-    hosting the app; port 0 picks a free one.
+    """HTTP/1.1 and HTTP/2 (or, with ``ssl_context``, HTTPS) server with
+    keep-alive hosting the app; port 0 picks a free one.
 
     TLS termination is stdlib ``ssl`` wrapping the listening socket, as
     in the reference (whose connector is HTTP or HTTPS by keystore,
     ServingLayer.java:202-255).  The handshake is deferred to the
     per-connection handler thread (``do_handshake_on_connect=False``),
     so a client that connects and never speaks stalls one worker
-    thread, not the accept loop.  ALPN offers ``http/1.1`` only: the
-    reference's ``h2`` offer comes with HTTP/2.
+    thread, not the accept loop.  ALPN offers ``h2`` and ``http/1.1``;
+    a cleartext connection that opens with the HTTP/2 preface speaks h2
+    with prior knowledge (``lambda_rt/http2.py``).
 
     The per-request parser is hand-rolled rather than
     ``BaseHTTPRequestHandler``, as in the reference: the stdlib handler
@@ -567,6 +715,7 @@ def make_server(app: HttpApp, port: int,
         wbufsize = -1  # buffered response writes, one flush per request
 
         def setup(self):
+            self._alpn = None
             if ssl_context is not None:
                 # handshake here, in this connection's worker thread,
                 # with a bound so a silent client can't hold the thread
@@ -574,10 +723,21 @@ def make_server(app: HttpApp, port: int,
                 self.request.settimeout(30)
                 self.request.do_handshake()
                 self.request.settimeout(None)
+                self._alpn = self.request.selected_alpn_protocol()
             super().setup()
 
         def handle(self):
             try:
+                if self._alpn == "h2":
+                    # TLS ALPN chose HTTP/2 (reference connector:
+                    # ServingLayer.java:202-255 adds Http2Protocol)
+                    from . import http2
+                    try:
+                        http2.serve_connection(app, self.rfile,
+                                               self.wfile)
+                    except http2.H2Error:
+                        pass  # bad preface or protocol abuse: close
+                    return
                 while self._handle_one():
                     pass
             except (ConnectionError, TimeoutError, OSError):
@@ -589,6 +749,15 @@ def make_server(app: HttpApp, port: int,
                 line = self.rfile.readline(65537)
             if not line:
                 return False  # clean keep-alive close
+            if line == b"PRI * HTTP/2.0\r\n":
+                # cleartext h2 with prior knowledge (curl
+                # --http2-prior-knowledge, gRPC-style clients)
+                if self.rfile.read(8) != b"\r\nSM\r\n\r\n":
+                    return False
+                from . import http2
+                http2.serve_connection(app, self.rfile, self.wfile,
+                                       preface_consumed=True)
+                return False
             parts = line.split()
             if len(parts) != 3 or not parts[2].startswith(b"HTTP/"):
                 self.wfile.write(b"HTTP/1.1 400 Bad Request\r\n"
@@ -651,7 +820,8 @@ def make_server(app: HttpApp, port: int,
     server = _Server(("0.0.0.0", port), _Handler)
     if ssl_context is not None:
         try:
-            ssl_context.set_alpn_protocols(["http/1.1"])
+            # negotiate h2 when the client offers it; http/1.1 otherwise
+            ssl_context.set_alpn_protocols(["h2", "http/1.1"])
         except NotImplementedError:  # pragma: no cover - exotic builds
             pass
         server.socket = ssl_context.wrap_socket(

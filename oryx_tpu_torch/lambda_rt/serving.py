@@ -27,10 +27,13 @@ cluster (reference :248-359): its manager loads catalog shard
 ``cluster/shard_resources.py`` ride beside the public ones, a heartbeat
 publisher announces the replica on the update topic once the port is
 bound, the update replay skips heartbeats, and the chaos point
-``reshard-warm-stall`` sits on the replay.  The reference's framed
-transport and replica result cache are not part of this package yet:
-``oryx.cluster.transport.enabled`` and
-``oryx.cluster.replica-cache.enabled`` raise by name.
+``reshard-warm-stall`` sits on the replay.  With
+``oryx.cluster.transport.enabled`` a ``FrameServer``
+(cluster/transport.py) answers the router's framed hop on the layer's
+own ``HttpApp`` beside the HTTP door, and its port rides the heartbeat
+(``tport``); with ``oryx.cluster.replica-cache.enabled`` the frame
+dispatcher consults a ``ShardResultCache`` whose epoch the update
+replay moves per applied record.
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ from ..cluster.membership import HeartbeatPublisher, without_heartbeats
 from ..cluster.result_cache import ShardResultCache
 from ..cluster.sharding import parse_shard_spec
 from ..common import compile_cache
-from ..common.config import refuse_configured
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
@@ -61,12 +63,7 @@ from .metrics import MetricsRegistry
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["ServingLayer", "UNPORTED_CLUSTER_KEYS"]
-
-# keys of the reference's replica whose features this package does not
-# have yet: each raises by name rather than being quietly ignored (the
-# replica result cache's key is refused by ShardResultCache)
-UNPORTED_CLUSTER_KEYS = ("oryx.cluster.transport.enabled",)
+__all__ = ["ServingLayer"]
 
 
 class ServingLayer:
@@ -83,11 +80,12 @@ class ServingLayer:
         # update topic so the router routes here
         self.cluster_enabled = config.get_bool("oryx.cluster.enabled")
         self.heartbeat: HeartbeatPublisher | None = None
-        if self.cluster_enabled:
-            refuse_configured(config, UNPORTED_CLUSTER_KEYS,
-                              "the framed internal transport is not part "
-                              "of this package yet")
-            ShardResultCache.from_config(config)
+        # the framed internal transport (cluster/transport.py): a frame
+        # listener beside the HTTP door, its port advertised in the
+        # heartbeat; and the replica-side result cache the frame
+        # dispatcher consults before touching the device
+        self._frame_server = None
+        self._shard_cache = None
         # TLS: a PEM certificate chain and key (keystore-password
         # decrypts the key; the reference's key-alias does not apply to
         # PEM) serve HTTPS on secure-port (reference :46-64)
@@ -160,6 +158,13 @@ class ServingLayer:
             pipeline=config.get_int(f"{api}.scoring-pipeline-depth"),
             idle_wait_s=None if idle_ms < 0 else idle_ms / 1000.0,
             tracer=self.tracer, accountant=self.device_time)
+        if self.cluster_enabled:
+            # the replica-side exact result cache for /shard/* answers
+            # (None unless oryx.cluster.replica-cache.enabled): a shard
+            # query repeated under an unchanged model epoch skips the
+            # device; the update replay's tap moves the epoch
+            self._shard_cache = ShardResultCache.from_config(
+                config, self.metrics)
         self._register_gauges()
         # SLO burn-rate engine (obs/slo.py; None = disabled): evaluated
         # lazily whenever the gauges are read, alert state at /admin/slo
@@ -310,6 +315,18 @@ class ServingLayer:
             # announce the replica once the port is bound: the heartbeat
             # carries the live URL
             c = "oryx.cluster"
+            tport = None
+            if self.config.get_bool(f"{c}.transport.enabled"):
+                # the framed scatter listener rides beside the HTTP
+                # door; its port travels in the heartbeat so the router
+                # multiplexes one connection here instead of a pool
+                from ..cluster.transport import FrameServer
+                self._frame_server = FrameServer(
+                    self.app, self.config, metrics=self.metrics,
+                    shard_cache=self._shard_cache)
+                self._frame_server.start()
+                tport = self._frame_server.port
+                _log.info("Frame transport listening on port %d", tport)
             shard, of = parse_shard_spec(
                 self.config.get_optional_string(f"{c}.shard") or "0/1")
             host = self.config.get_string(f"{c}.advertise-host")
@@ -324,7 +341,8 @@ class ServingLayer:
                 replica_id=self.config.get_optional_string(
                     f"{c}.replica-id"),
                 region=self.config.get_optional_string(
-                    f"{c}.region.name"))
+                    f"{c}.region.name"),
+                tport=tport)
             self.heartbeat.start()
 
     @staticmethod
@@ -345,11 +363,19 @@ class ServingLayer:
         # model state, filtered before the manager.  The freshness tap
         # counts the raw records (heartbeats included), to compare with
         # the topic head's offsets
+        def stream():
+            s = without_heartbeats(self._replay_stall_seam(
+                self._update_tap.wrap(broker.consume(
+                    self.update_topic, from_beginning=True,
+                    stop=self._stop))))
+            if self._shard_cache is not None:
+                # the replica cache's epoch feed: every model-state
+                # record moves the epoch before the manager applies it
+                s = self._shard_cache.tap(s)
+            return s
+
         run_with_resubscribe(
-            lambda: self.model_manager.consume(without_heartbeats(
-                self._replay_stall_seam(self._update_tap.wrap(
-                    broker.consume(self.update_topic, from_beginning=True,
-                                   stop=self._stop))))),
+            lambda: self.model_manager.consume(stream()),
             stop=self._stop, what="serving update consumer", log=_log)
 
     @property
@@ -366,6 +392,8 @@ class ServingLayer:
         self._stop.set()
         if self.heartbeat is not None:
             self.heartbeat.close()
+        if self._frame_server is not None:
+            self._frame_server.close()
         if self._server:
             self._server.shutdown()
             self._server.server_close()

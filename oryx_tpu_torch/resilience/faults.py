@@ -31,8 +31,12 @@ one.  Point names are the reference's, verbatim, including the serving
 cluster's: ``router-shard-timeout`` (the scatter, once per shard query:
 a stalled or failing shard), ``replica-heartbeat-drop`` and
 ``replica-group-flap`` (a replica's heartbeat publisher: a silent or
-straggling replica), and ``reshard-warm-stall`` (a replica's update
-replay, per record).  ``configure_from_config`` arms any name, so a
+straggling replica), ``reshard-warm-stall`` (a replica's update
+replay, per record), ``transport-frame-stall`` (a replica's frame
+dispatcher, per stream), ``async-loop-block`` (the router's asyncio
+front end, per request, on the loop), ``router-cache-stale-feed`` (the
+result cache's invalidation tap) and ``router-coalesce-leader-death``
+(a coalescing leader at its flight's start).  ``configure_from_config`` arms any name, so a
 chaos config written for the reference may arm a point of a module this
 package does not have yet, which then never fires.
 """

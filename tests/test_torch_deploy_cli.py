@@ -148,10 +148,15 @@ def test_help_lists_the_reference_subcommands(capsys):
 
 
 @pytest.mark.parametrize("argv, extra, key", [
-    (["serving", "--shard", "0/2"], {"cluster.transport.enabled": True},
-     "oryx.cluster.transport.enabled"),
+    (["serving", "--shard", "0/2"], {
+        "serving.api.item-shards": 2,
+        "serving.model-manager-class":
+            "oryx_tpu_torch.app.als.serving_manager.ALSServingModelManager"},
+     "oryx.serving.api.item-shards"),
     (["speed", "--shard", "1/2"], {}, "oryx.speed.shard"),
-    (["router", "--async"], {}, "oryx.cluster.async.enabled"),
+    (["router", "--async"],
+     {"cluster.region.mirror.source-broker": "memory://far"},
+     "oryx.cluster.region.mirror.source-broker"),
 ])
 def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key):
     """--shard (and the router's --async) pass the reference's overlay;

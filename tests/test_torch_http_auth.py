@@ -205,7 +205,8 @@ def test_https_secure_port_default(tmp_path):
         assert layer.scheme == "https" and layer.port > 1
         ctx = _unverified()
         with _TlsClient(layer.port, ctx) as s:
-            assert s.selected_alpn_protocol() == "http/1.1"
+            # h2 first, as the reference's connector offers it
+            assert s.selected_alpn_protocol() == "h2"
 
 
 class _TlsClient:

@@ -2,7 +2,9 @@
 speed micro-batch, trains and evaluates k-means, builds an IVF index
 and measures its recall, trains a decision forest and serves /predict
 from it, answers /recommend through two cluster replicas and the
-router, and probes a model's device programs with JAX, ml_dtypes and
+router with the fast path on (the asyncio front end, the framed
+transport, the result cache, coalescing and the shard cache), and
+probes a model's device programs with JAX, ml_dtypes and
 the reference package blocked, its operator CLI starts under the same
 block, and its entry points and benches refuse to fall back to the CPU
 silently."""
@@ -65,7 +67,9 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
                 "deploy.warmup", "common.compile_cache", "ops.launches",
                 "cluster.merge", "cluster.membership", "cluster.admission",
                 "cluster.result_cache", "cluster.scatter",
-                "cluster.shard_resources", "cluster.router"):
+                "cluster.shard_resources", "cluster.router",
+                "cluster.transport", "cluster.async_http",
+                "lambda_rt.hpack", "lambda_rt.http2", "bench.gateway"):
         assert "oryx_tpu_torch." + mod in names, mod
     from oryx_tpu_torch.bench.kernel_probe import probe_model
     rec = probe_model(model, batch=8, m=1)
@@ -181,7 +185,8 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
         layer.close()
 
     # the serving cluster: two replicas of the forest-free ALS model
-    # behind the router, one /recommend through the scatter
+    # behind the router, one /recommend through the scatter, with every
+    # gate of the fast path on
     from oryx_tpu_torch.cluster.router import RouterLayer
     ccfg = {"oryx.update-topic.broker": "memory://iso",
             "oryx.input-topic.broker": None,
@@ -190,11 +195,18 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
                 "ALSServingModelManager",
             "oryx.serving.application-resources":
                 "oryx_tpu_torch.serving.als",
-            "oryx.cluster.heartbeat-interval-ms": 50}
+            "oryx.cluster.heartbeat-interval-ms": 50,
+            "oryx.cluster.transport.enabled": True}
     nodes = [ServingLayer(from_dict({**ccfg, "oryx.cluster.enabled": True,
+                                     "oryx.cluster.replica-cache.enabled":
+                                         True,
                                      "oryx.cluster.shard": f"{s}/2"}),
                           port=0, device="cpu") for s in range(2)]
-    router = RouterLayer(from_dict(ccfg), port=0, device="cpu")
+    router = RouterLayer(from_dict({**ccfg,
+                                    "oryx.cluster.async.enabled": True,
+                                    "oryx.cluster.cache.enabled": True,
+                                    "oryx.cluster.coalesce.enabled": True}),
+                         port=0, device="cpu")
     for node in nodes + [router]:
         node.start()
     try:
@@ -209,6 +221,8 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
             except urllib.error.HTTPError:
                 time.sleep(0.05)
         assert rows and all("id" in r for r in rows), rows
+        assert router.scatter.stats()["pool"]["attempts"] == 0
+        assert router.result_cache.stats()["misses"] >= 1
     finally:
         for node in nodes + [router]:
             node.close()
@@ -315,7 +329,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_benches_raise_without_cuda(monkeypatch):
     """A bench called without device="cpu" measures the card or raises;
     it never carries on on the host."""
-    from oryx_tpu_torch.bench import fold_in, grid, kernel_probe, load
+    from oryx_tpu_torch.bench import (fold_in, gateway, grid, kernel_probe,
+                                      load)
     from oryx_tpu_torch.bench.diag import lsh_mask_probe, smallf_probe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -326,6 +341,8 @@ def test_benches_raise_without_cuda(monkeypatch):
                  lambda: load.build_load_test_model(2, 4, 2),
                  lambda: lsh_mask_probe.make_inputs(0.004096, 8),
                  lambda: smallf_probe.run(0.008192, (50,), 8),
-                 lambda: fold_in.run_fold_in_bench(features=4, events=8)):
+                 lambda: fold_in.run_fold_in_bench(features=4, events=8),
+                 lambda: gateway.run_cell(1, 4096, 8, 10, [10.0], 1.0, 1,
+                                          "/nonexistent")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

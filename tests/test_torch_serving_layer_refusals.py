@@ -1,12 +1,13 @@
 """The port's ServingLayer and RouterLayer refuse, by name, each
-reference key whose feature the port does not have yet (the serving
-cluster's framed transport, result caches, asyncio front end and region
-mirror), instead of constructing and quietly ignoring it; and each key
-that used to be refused now starts its layer and its feature answers:
-the observability keys (tracing, the SLO engine, the event log and the
-flight recorder), the serving cluster's replica mode
-(``oryx.cluster.enabled``), TLS (``keystore-file``) and DIGEST auth
-(``user-name`` and ``password``)."""
+reference key whose feature the port does not have yet (item sharding
+over several cards, the region mirror), instead of constructing and
+quietly ignoring it; and each key that used to be refused now starts
+its layer and its feature answers: the observability keys (tracing, the
+SLO engine, the event log and the flight recorder), the serving
+cluster's replica mode (``oryx.cluster.enabled``), TLS
+(``keystore-file``), DIGEST auth (``user-name`` and ``password``), the
+replica's framed transport and shard cache, and the router's result
+cache, coalescing, asyncio front end and framed transport."""
 
 import http.client
 import json
@@ -27,12 +28,11 @@ BASE = {
 
 
 @pytest.mark.parametrize("key,value", [
-    ("oryx.cluster.transport.enabled", True),
-    ("oryx.cluster.replica-cache.enabled", True),
+    ("oryx.serving.api.item-shards", 2),
 ])
 def test_unported_key_is_refused_by_name(tmp_path, key, value):
-    """A replica (``oryx.cluster.enabled``) refuses the framed transport
-    and its result cache."""
+    """A replica (``oryx.cluster.enabled``) refuses item sharding over
+    several cards."""
     cfg = tconfig.from_dict({**BASE, "oryx.cluster.enabled": True,
                              key: value})
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
@@ -44,10 +44,6 @@ ROUTER_BASE = {"oryx.update-topic.broker": "memory://refusals",
 
 
 @pytest.mark.parametrize("key,value", [
-    ("oryx.cluster.cache.enabled", True),
-    ("oryx.cluster.coalesce.enabled", True),
-    ("oryx.cluster.async.enabled", True),
-    ("oryx.cluster.transport.enabled", True),
     ("oryx.cluster.region.mirror.source-broker", "memory://far"),
     ("oryx.cluster.region.mirror.source-topic", "FarUpdate"),
     ("oryx.cluster.region.mirror.checkpoint-dir", "/tmp/mirror"),
@@ -59,6 +55,36 @@ def test_router_refuses_unported_key_by_name(key, value):
     # at the defaults the router constructs
     RouterLayer(tconfig.from_dict(ROUTER_BASE), port=0,
                 device="cpu").scatter.close()
+
+
+@pytest.mark.parametrize("key", ["oryx.cluster.cache.enabled",
+                                 "oryx.cluster.coalesce.enabled",
+                                 "oryx.cluster.async.enabled",
+                                 "oryx.cluster.transport.enabled"])
+def test_lifted_router_key_starts_its_feature(key):
+    """Each router key that was refused starts the router, and its
+    feature answers: the cache's /admin/cache block (404 without a
+    cache), the asyncio front end on the public door, or the scatter's
+    framed transport."""
+    router = RouterLayer(tconfig.from_dict({**ROUTER_BASE, key: True}),
+                         port=0, device="cpu")
+    with router:
+        if key in ("oryx.cluster.cache.enabled",
+                   "oryx.cluster.coalesce.enabled"):
+            status, body = _get(router.port, "/admin/cache")
+            assert status == 200, body
+            stats = json.loads(body)
+            assert stats["enabled"] == (key == "oryx.cluster.cache.enabled")
+            assert stats["coalesce"] == \
+                (key == "oryx.cluster.coalesce.enabled")
+        elif key == "oryx.cluster.async.enabled":
+            assert router._frontend is not None and router._server is None
+            assert _get(router.port, "/ready")[0] == 503
+        else:
+            assert router.scatter.transport is not None
+            assert router.scatter.stats()["transport"][
+                "open_connections"] == 0
+        assert _get(router.port, "/ready")[0] == 503
 
 
 def _get(port: int, path: str, method: str = "GET"):
@@ -120,12 +146,22 @@ def _https_get(port, path):
 
 @pytest.mark.parametrize("key", ["oryx.cluster.enabled",
                                  "oryx.serving.api.keystore-file",
-                                 "oryx.serving.api.user-name"])
+                                 "oryx.serving.api.user-name",
+                                 "oryx.cluster.transport.enabled",
+                                 "oryx.cluster.replica-cache.enabled"])
 def test_lifted_key_starts_its_feature(tmp_path, key):
     """Each key that was refused starts the layer, and its feature
-    answers: the replica's /shard/meta, HTTPS, or a DIGEST challenge on
-    every route."""
+    answers: the replica's /shard/meta (over HTTP, or over the framed
+    transport), HTTPS, a DIGEST challenge on every route, or the
+    replica's shard cache."""
     extra = {"oryx.cluster.enabled": {"oryx.cluster.enabled": True},
+             # the frame listener starts beside the heartbeat, which
+             # needs an update topic
+             "oryx.cluster.transport.enabled": {
+                 "oryx.cluster.enabled": True, key: True,
+                 "oryx.update-topic.broker": "memory://lifted-transport"},
+             "oryx.cluster.replica-cache.enabled": {
+                 "oryx.cluster.enabled": True, key: True},
              "oryx.serving.api.keystore-file": {
                  key: _self_signed_pem(tmp_path)},
              "oryx.serving.api.user-name": {
@@ -139,6 +175,24 @@ def test_lifted_key_starts_its_feature(tmp_path, key):
             meta = json.loads(body)
             assert (meta["shard"], meta["of"], meta["ready"]) == \
                 (0, 1, False)
+        elif key == "oryx.cluster.transport.enabled":
+            from oryx_tpu_torch.cluster.transport import FrameTransport
+
+            class _Hb:
+                url = f"http://127.0.0.1:{layer.port}"
+                tport = layer._frame_server.port
+
+            ft = FrameTransport(tconfig.from_dict(BASE))
+            try:
+                status, body, _ = ft.request(_Hb, "GET", "/shard/meta",
+                                             None, {}, 30.0)
+            finally:
+                ft.close()
+            assert status == 200, body
+            assert json.loads(body)["of"] == 1
+        elif key == "oryx.cluster.replica-cache.enabled":
+            assert layer._shard_cache is not None
+            assert layer._shard_cache.stats()["enabled"] is True
         elif key == "oryx.serving.api.keystore-file":
             assert layer.scheme == "https"
             assert _https_get(layer.port, "/ready")[0] == 503

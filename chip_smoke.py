@@ -123,9 +123,9 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       the AUC.
    b. The lambda loop through the port's layers, from
       ``oryx_tpu_torch/conf/als-example.conf`` on a temporary ``file://``
-      broker at rank 100, 3 sweeps and 8 slices: 500,000 drawn
-      interactions over 69,247 users (half MovieLens-20M's, at its
-      density) and its 26,744 items on the input topic;
+      broker at rank 100, 3 sweeps and 8 slices: 250,000 drawn
+      interactions over 34,624 users (a quarter of MovieLens-20M's, at
+      its density) and its 26,744 items on the input topic;
       one ``BatchLayer`` generation, which must commit its offsets,
       publish a MODEL-REF whose manifest names 8 slices and write a PMML
       with the features, lambda and implicit flag; a ``ServingLayer``
@@ -371,10 +371,58 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     p50 / p99, the fold-in round beside phase 11's, the wave, the loop
     lag, the caches' and the scatter's counters).
 
+13. Two regions, the mirror and the autoscaler (``regions``).  Region A
+    is phase 11's update topic (its 2,097,152 x 50 float32 model; with
+    ``--phases regions`` alone this phase starts the publisher child and
+    sends the MODEL-REF itself).  Region B, on a ``file://`` broker of
+    its own, is two replicas (``0/2``, ``1/2``, processes of their own
+    on the card), a ``python -m oryx_tpu_torch router`` and a
+    ``python -m oryx_tpu_torch autoscale`` against that router, all
+    started before phase 11; a ``python -m oryx_tpu_torch mirror``
+    process replays A's topic into B's from the moment phase 11's
+    MODEL-REF is on it, so that B's loads overlap phases 11-12.  Once
+    B's router is ready, still during phases 11-12, 48 clients of
+    ``/recommendToAnonymous`` hold its p99 above the autoscaler's 500 ms
+    bound until the autoscaler spawns a member (``serving --shard 0/2``,
+    the thinnest group, on the card), whose load then overlaps the rest;
+    a trickle of one ``/recommend`` at a time (each answer held against
+    the exact scan) keeps the p99 between the two bounds, neither
+    pressure nor calm, until the member has been checked.  The checks,
+    each a failure of the run, as is any process that dies unexpectedly:
+    (a) B's replicas loaded their halves through the mirror and routed a
+    kernel kind; 64 ``/recommend`` through B's router equal the
+    single-node exact scan (ids in order, rtol 1e-5), and each replica's
+    routed kernel launched in that round and no other; (b) 32 ``UP``
+    records for known users appended to A: B answers each user with the
+    exact top-10 of the new vector (milliseconds from the append); (c)
+    the A -> B mirror is stopped (a partition), 2,000 ``UP`` records
+    accumulate on A, then the mirror restarts with
+    ``mirror-crash-mid-replay`` armed as ``crash`` once (its first batch
+    is sent, the crash ends the process), again with it armed as
+    ``hold`` (the second batch is sent and the process is killed at the
+    point, before its checkpoint), and a third time clean: its dedup
+    skips equal the killed batch, every (``origin-region``,
+    ``origin-partition``, ``origin-offset``) triple in B's topic is
+    unique, and the backlog is there exactly once; (e) the member is
+    live and ready in the router's membership, ``/admin/topology``
+    counts 3 replicas of 2 shards, 64 ``/recommend`` still equal the
+    exact scan, 64 more on the member's own door (its shard alone)
+    answer, its route is a kernel kind; then the trickle stops, calm
+    retires the member (2 replicas again) and it logs its launches,
+    which must include its routed kernel's; (d) a B -> A mirror runs beside from (c) on; after B's
+    fleet stops, 8 records born in B reach A and come back to no one:
+    both topics' ends stay put over 3 polls and both mirrors counted
+    loop drops.  A ``regions_replica`` line per process of B (routed
+    kind, launches) and a ``regions`` line (B's seconds to ``/ready``,
+    its ``/recommend`` p50 / p99, the UP propagation, the lag and
+    steady staleness, catch-up records/s over the healed partition,
+    dedup skips, loop and heartbeat drops, the autoscaler's signal,
+    spawn to member ready and retirement seconds).
+
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
 topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
-deploy = 9, obs = 10, cluster = 11, cluster_fast = 12); the default runs
-every phase. A
+deploy = 9, obs = 10, cluster = 11, cluster_fast = 12, regions = 13);
+the default runs every phase. A
 partial run still ends with the two summary lines, its ``kernels`` line
 listing only what it ran.
 
@@ -392,7 +440,9 @@ route did), and ``route_launches`` that configuration's route
 measurement (``deploy_launches`` phase 9's CLI-served process,
 ``obs_launches`` phase 10's sampled round, ``cluster_launches`` and
 ``cluster_fast_launches`` each replica's routed round in phases 11 and
-12); a kernel that served no timed
+12, ``regions_launches`` each region-B process's in phase 13: the
+replicas' timed round and the autoscaled member's requests); a kernel
+that served no timed
 round fails the run.  The
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -487,11 +537,12 @@ AUC_LEARNED = 0.6
 ROW_CHECKS = 512
 ROW_RTOL = 1e-3
 # phase 5b: the lambda loop through the port's three layers on a file://
-# broker, from oryx_tpu_torch/conf/als-example.conf; half MovieLens-20M's
-# users at its density (cut from 1,000,000 interactions over all of them
-# so that the default run, phase 11 included, stays near 1,000 s)
-LOOP_USERS = 69_247
-LOOP_RATINGS = 500_000
+# broker, from oryx_tpu_torch/conf/als-example.conf; a quarter of
+# MovieLens-20M's users at its density (cut from 1,000,000 interactions
+# over all of them, then from 500,000 over half, so that the default
+# run, phases 11-13 included, stays under 1,100 s)
+LOOP_USERS = 34_624
+LOOP_RATINGS = 250_000
 LOOP_SEED = TRAIN_SEED + 1
 LOOP_T0 = 1_700_000_000_000
 LOOP_SLICES = 8
@@ -609,11 +660,30 @@ FAST_HOLD_S = 0.5
 # phase 12's MODEL-REF goes this long before phase 11's (their loads
 # overlap; their route measurements must not)
 FAST_LEAD_S = 15.0
+# phase 13: region B on phase 11's model through the mirror
+REGION_USERS = 64
+REGION_UPS = 32
+REGION_BACKLOG = 2_000
+REGION_BORN_B = 8
+REGION_POLL_MS = 100
+REGION_WAIT_S = 600.0
+REGION_PROPAGATION_S = 60.0
+# the autoscaler: p99 above the high bound is pressure, and no traffic
+# at all is calm; the trickle's one-at-a-time /recommend sits between
+AUTOSCALE_POLL_MS = 1_000
+AUTOSCALE_P99_HIGH_MS = 500
+AUTOSCALE_P99_LOW_MS = 1
+AUTOSCALE_COOLDOWN_MS = 10_000
+AUTOSCALE_CLIENTS = 48
+AUTOSCALE_PRESSURE_S = 120.0
+TRICKLE_GAP_S = 0.02
+# the thinnest group is shard 0 (both hold one replica; lowest id first)
+MEMBER_ID = "asg-0of2-1"
 KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
-          "deploy", "obs", "cluster", "cluster_fast")
+          "deploy", "obs", "cluster", "cluster_fast", "regions")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -2246,7 +2316,7 @@ def loop_config(work_dir: str):
 def lambda_data(work_dir: str) -> None:
     """Phase 5's data, made in a child process while the card works on
     phases 2-4; touches no card.  The MovieLens-20M-shaped interactions
-    5a trains on go to ``ml20m.npz``; 500,000 more drawn interactions
+    5a trains on go to ``ml20m.npz``; 250,000 more drawn interactions
     over half its users and all its items go onto 5b's input topic as
     ``u,i,strength,ts`` lines, timestamps in random order (so the
     generation's time split holds out a random tenth)."""
@@ -2637,8 +2707,13 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
             check(status == 200, f"lambda: /recommend/{user}: {status}")
             answer = [(r["id"], r["value"]) for r in json.loads(body)]
             eligible = active.copy()
+            # known items come from every event of the generation, the
+            # factors from its training split: an item seen only in
+            # the held-out events is known and has no row (as in the
+            # reference's ALSUpdate)
             for iid in model.get_known_items(user):
-                eligible[row_of[iid]] = False
+                if iid in row_of:
+                    eligible[row_of[iid]] = False
             scores = host.astype(np.float64) @ last_x[user].astype(
                 np.float64)
             held_top_n(answer, scores, eligible, row_of.get, 10,
@@ -5140,8 +5215,8 @@ def check_replica_launches(st: dict, shard: int, what: str) -> str:
     return expected
 
 
-def cluster_phase(publisher, work_dir: str, fast: dict | None = None
-                  ) -> dict:
+def cluster_phase(publisher, work_dir: str, fast: dict | None = None,
+                  region: dict | None = None) -> dict:
     """Phase 11: two serving-cluster replicas (shards 0/2 and 1/2, each
     a ServingLayer in a process of its own on the one card) load their
     halves of a 2,097,152 x 50 float32 model off a ``file://`` update
@@ -5149,7 +5224,9 @@ def cluster_phase(publisher, work_dir: str, fast: dict | None = None
     every door.  Its answers against the single-node exact scan and a
     float64 fold-in, the replicas' routed kernels, /metrics and the
     write path.  With ``fast`` (phase 12's replicas, started beside
-    these), the same MODEL-REF goes to phase 12's topic too."""
+    these), the same MODEL-REF goes to phase 12's topic too; with
+    ``region`` (phase 13's region B), the A -> B mirror starts when it
+    is on this phase's topic."""
     import secrets
     from oryx_tpu_torch.cluster.router import RouterLayer
     from oryx_tpu_torch.kafka.inproc import resolve_broker
@@ -5186,6 +5263,8 @@ def cluster_phase(publisher, work_dir: str, fast: dict | None = None
             time.sleep(FAST_LEAD_S)
         t0 = time.perf_counter()
         send_model_ref(router_cfg, model_dir, published["manifest"])
+        if region is not None:
+            region_start(region, oracle)
         wait_for(lambda: client.call(router.port, "GET", "/ready")[0]
                  in (200, 204), "cluster: the router's /ready",
                  CLUSTER_WAIT_S)
@@ -5774,6 +5853,630 @@ def cluster_fast_phase(publisher, work_dir: str, fast: dict,
     return line
 
 
+# -- phase 13: two regions, the mirror and the autoscaler -----------------------
+
+def region_overlay(work_dir: str, shard: int | None) -> dict:
+    """Region B's keys over the port's example config: a ``file://``
+    broker of its own, the region's name, and for a replica its shard of
+    two.  No DIGEST: region B's doors are open.  A replica (the
+    autoscaled member too) reads as ready only with its whole shard
+    loaded, so that every routed answer is the exact scan's; its
+    commands keep their kernel libraries where phase 1 built them."""
+    from oryx_tpu_torch.ops import cuda_build
+    broker = "file://" + os.path.join(work_dir, "regions", "broker_b")
+    overlay = {"oryx.update-topic.broker": broker,
+               "oryx.input-topic.broker": broker,
+               "oryx.cluster.region.name": "b",
+               "oryx.cluster.heartbeat-interval-ms": 200,
+               "oryx.serving.min-model-load-fraction": 1.0,
+               "oryx.compile-cache-dir": str(cuda_build.BUILD_DIR.parent)}
+    if shard is not None:
+        overlay.update({"oryx.cluster.enabled": True,
+                        "oryx.cluster.shard": f"{shard}/2",
+                        "oryx.cluster.replica-id": f"b-replica-{shard}"})
+    return overlay
+
+
+def write_conf(path: str, overlay: dict) -> str:
+    """``als-example.conf`` with ``overlay``'s keys appended (HOCON
+    last-wins): the conf file of a command this phase starts."""
+    with open(os.path.join(REPO, "oryx_tpu_torch", "conf",
+                           "als-example.conf"), encoding="utf-8") as f:
+        text = f.read()
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text + "\n" + "\n".join(
+            f"{k} = {json.dumps(v)}" for k, v in overlay.items()) + "\n")
+    return path
+
+
+def start_command(args: list[str], log_path: str) -> subprocess.Popen:
+    """``python -m oryx_tpu_torch <args>`` from the checkout, its output
+    appended to ``log_path``."""
+    with open(log_path, "ab") as log_f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "oryx_tpu_torch", *args], cwd=REPO,
+            env=cli_env(), stdout=log_f, stderr=subprocess.STDOUT)
+
+
+def stop_command(proc: subprocess.Popen, what: str,
+                 expect_exit: bool = True) -> None:
+    """SIGINT, then wait: a clean stop exits 0."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        rc = None
+    if expect_exit:
+        check(rc == 0, f"regions: {what} exited {rc} on SIGINT")
+
+
+def mirror_conf(region: dict, name: str, source: str, dest: str,
+                source_region: str, dest_region: str,
+                fault: str | None = None) -> str:
+    """A mirror's conf: ``source`` -> ``dest`` (file:// brokers of the
+    same topic name), its checkpoint under the phase's directory, its
+    side door on a port of its own; ``fault`` arms
+    ``mirror-crash-mid-replay`` once in that mode (a crashing mirror
+    runs unsupervised, so that its process ends at the crash)."""
+    overlay = {
+        "oryx.update-topic.broker": dest,
+        "oryx.input-topic.broker": dest,
+        "oryx.cluster.region.name": dest_region,
+        "oryx.cluster.region.mirror.source-broker": source,
+        "oryx.cluster.region.mirror.source-region": source_region,
+        "oryx.cluster.region.mirror.checkpoint-dir":
+            os.path.join(region["dir"], f"ckpt_{name}"),
+        "oryx.cluster.region.mirror.poll-interval-ms": REGION_POLL_MS,
+        "oryx.obs.metrics-port": region["ports"][name]}
+    if fault is not None:
+        overlay.update({
+            "oryx.resilience.faults.mirror-crash-mid-replay.mode": fault,
+            "oryx.resilience.faults.mirror-crash-mid-replay.times": 1,
+            "oryx.resilience.supervisor.enabled": fault != "crash"})
+    return write_conf(os.path.join(
+        region["dir"], f"mirror_{name}_{fault or 'run'}.conf"), overlay)
+
+
+def mirror_metrics(region: dict, name: str) -> dict:
+    """A mirror's side-door ``/metrics`` ({} while its process starts)."""
+    try:
+        status, body, _ = http_call(region["ports"][name], "GET",
+                                    "/metrics")
+    except OSError:
+        return {"counters": {}, "freshness": {}}
+    check(status == 200, f"regions: mirror {name}'s /metrics gave {status}")
+    return json.loads(body)
+
+
+def start_mirror(region: dict, name: str, fault: str | None = None):
+    """Start mirror ``name`` (``ab``: region A's topic into B's; ``ba``:
+    back) with its conf, and keep its process."""
+    a = region["a_broker"]
+    b = "file://" + os.path.join(region["dir"], "broker_b")
+    src, dst, sr, dr = (a, b, "a", "b") if name == "ab" else \
+        (b, a, "b", "a")
+    conf = mirror_conf(region, name, src, dst, sr, dr, fault)
+    proc = start_command(["mirror", "--conf", conf],
+                         os.path.join(region["dir"], f"mirror_{name}.log"))
+    region["mirrors"][name] = proc
+    return proc
+
+
+def start_region_b(work_dir: str) -> dict:
+    """Region B's fleet, started before phase 11 so that its start
+    overlaps that phase: two replicas (processes of their own, on the
+    card), the router and the autoscaler (``python -m oryx_tpu_torch``
+    commands).  They get their model when the A -> B mirror replays
+    phase 11's MODEL-REF."""
+    rdir = os.path.join(work_dir, "regions")
+    os.makedirs(rdir, exist_ok=True)
+    a_cfg = cluster_config(cluster_overlay(work_dir, "", None))
+    region = {"dir": rdir, "mirrors": {}, "sent_at": None,
+              "a_broker": a_cfg.get_string("oryx.update-topic.broker"),
+              "topic": a_cfg.get_string("oryx.update-topic.message.topic"),
+              "ports": {"ab": free_port(), "ba": free_port(),
+                        "router": free_port()},
+              "errors": [], "spawned": threading.Event(),
+              "stop_trickle": threading.Event(), "trickle": []}
+    region["pipes"], region["procs"] = start_replicas(
+        [region_overlay(work_dir, shard) for shard in (0, 1)])
+    router_conf = write_conf(os.path.join(rdir, "router.conf"), {
+        **region_overlay(work_dir, None),
+        "oryx.serving.api.port": region["ports"]["router"]})
+    region["router"] = start_command(
+        ["router", "--conf", router_conf, *device_args()],
+        os.path.join(rdir, "router.log"))
+    # the members' conf is the autoscaler's: region B's replica keys
+    # (the launcher appends the shard, the id and port 0)
+    asg = os.path.join(rdir, "asg")
+    autoscale_conf = write_conf(os.path.join(rdir, "autoscale.conf"), {
+        **region_overlay(work_dir, None),
+        "oryx.cluster.autoscale.poll-interval-ms": AUTOSCALE_POLL_MS,
+        "oryx.cluster.autoscale.p99-high-ms": AUTOSCALE_P99_HIGH_MS,
+        "oryx.cluster.autoscale.p99-low-ms": AUTOSCALE_P99_LOW_MS,
+        "oryx.cluster.autoscale.queue-wait-high-ms": 0,
+        "oryx.cluster.autoscale.update-lag-high-records": 0,
+        "oryx.cluster.autoscale.scale-up-after": 2,
+        "oryx.cluster.autoscale.scale-down-after": 3,
+        "oryx.cluster.autoscale.cooldown-ms": AUTOSCALE_COOLDOWN_MS,
+        "oryx.cluster.autoscale.min-replicas-per-shard": 1,
+        "oryx.cluster.autoscale.max-replicas-per-shard": 2,
+        "oryx.cluster.autoscale.work-dir": asg})
+    region["asg"] = asg
+    region["autoscaler"] = start_command(
+        ["autoscale", "--conf", autoscale_conf, "--router-url",
+         f"http://127.0.0.1:{region['ports']['router']}", *device_args()],
+        os.path.join(rdir, "autoscale.log"))
+    return region
+
+
+def stop_region_b(region: dict) -> None:
+    """Stop whatever of region B still runs (a failed run's clean-up)."""
+    region["stop_trickle"].set()
+    thread = region.get("thread")
+    if thread is not None:
+        thread.join(120)
+    for name in ("autoscaler", "router"):
+        proc = region.get(name)
+        if proc is not None and proc.poll() is None:
+            stop_command(proc, name, expect_exit=False)
+    for proc in region["mirrors"].values():
+        if proc.poll() is None:
+            stop_command(proc, "mirror", expect_exit=False)
+    if region.get("pipes"):
+        stop_replicas(region["pipes"], region["procs"])
+        region["pipes"] = None
+
+
+def region_alive(region: dict, what: str) -> None:
+    """Every process of region B that should run still runs."""
+    for shard, proc in enumerate(region["procs"]):
+        check(proc.is_alive(), f"regions: {what}: replica {shard} exited "
+              f"{proc.exitcode}")
+    for name in ("router", "autoscaler"):
+        rc = region[name].poll()
+        check(rc is None, f"regions: {what}: the {name} exited {rc}")
+    rc = region["mirrors"]["ab"].poll()
+    check(rc is None, f"regions: {what}: the A -> B mirror exited {rc}")
+
+
+def region_start(region: dict, oracle: tuple) -> None:
+    """Phase 11's MODEL-REF is on region A's topic: start the A -> B
+    mirror and the background step (``region_background``).  The
+    exact answers of its users come from ``oracle``, the whole
+    catalog in this process."""
+    region["sent_at"] = time.perf_counter()
+    full, X, known, _ = oracle
+    rng = np.random.default_rng(CLUSTER_SEED + 4)
+    users = [f"u{u}" for u in rng.choice(CLUSTER_USERS,
+                                         REGION_USERS + REGION_UPS,
+                                         replace=False)]
+    region["a_users"], region["up_users"] = \
+        users[:REGION_USERS], users[REGION_USERS:]
+    Q = np.stack([X[int(u[1:])] for u in region["a_users"]])
+    region["want"] = dict(zip(region["a_users"], exact_top_n(
+        full, 10, Q, [set(known[u]) for u in region["a_users"]])))
+    start_mirror(region, "ab")
+    region["thread"] = threading.Thread(target=region_background,
+                                        args=(region,), daemon=True,
+                                        name="RegionB")
+    region["thread"].start()
+
+
+def held_round(port: int, users: list, want: dict, what: str) -> list:
+    """/recommend for ``users`` at 8 clients through region B's router,
+    each answer the exact scan's (ids in order, rtol 1e-5)."""
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        out = list(pool.map(lambda u: http_call(
+            port, "GET", f"/recommend/{u}?howMany=10"), users))
+    for u, (status, body, _) in zip(users, out):
+        check(status == 200, f"regions: {what} /recommend/{u} gave {status}")
+        same_answers([(d["id"], d["value"]) for d in json.loads(body)],
+                     want[u], RTOL["float32"], f"regions {what} /recommend/{u}")
+    return out
+
+
+def member_ready(port: int, member_id: str) -> dict | None:
+    """The autoscaled member's entry in region B's membership, once it is
+    live and ready."""
+    status, body, _ = http_call(port, "GET", "/metrics")
+    reps = json.loads(body)["cluster"]["membership"]["replicas"] \
+        if status == 200 else {}
+    r = reps.get(member_id)
+    return r if r and r["live"] and r["ready"] else None
+
+
+def region_background(region: dict) -> None:
+    """Region B's side of phases 11-13, beside them: its router's /ready
+    and its replicas' loads and routes; check (a)'s round (before any
+    member exists, so each replica serves its whole shard); then
+    /recommendToAnonymous at ``AUTOSCALE_CLIENTS`` clients (p99 far
+    above ``AUTOSCALE_P99_HIGH_MS``) until the autoscaler spawns a
+    member; then the trickle — one /recommend at a time, each answer held
+    against the exact scan — whose p99 sits between the autoscaler's two
+    bounds, so that it neither spawns again nor retires the member while
+    it loads and is checked; the trickle notes when the member is ready.
+    Any failure is kept for phase 13."""
+    try:
+        port = region["ports"]["router"]
+        pipes, state = region["pipes"], replica_state_of
+        wait_for(lambda: region["router"].poll() is None
+                 and router_ready(port), "regions: region B's /ready",
+                 REGION_WAIT_S)
+        region["ready_s"] = time.perf_counter() - region["sent_at"]
+        replica_ports(pipes, region["procs"], "regions")
+        wait_for(lambda: all(state(c)["loaded"] for c in pipes),
+                 "regions: region B's loads and routes", REGION_WAIT_S)
+        region["loaded"] = [state(c) for c in pipes]
+        # a. the model through the mirror: B's /recommend is the exact
+        # scan, and each replica's routed kernel launched
+        for conn in pipes:
+            conn.send("reset")
+            conn.recv()
+        region["round_a"] = held_round(port, region["a_users"],
+                                       region["want"], "(a)")
+        region["states_a"] = [state(c) for c in pipes]
+        rng = np.random.default_rng(CLUSTER_SEED + 3)
+        paths = round_paths(contexts(rng, CLUSTER_ITEMS, AUTOSCALE_CLIENTS),
+                            [None] * AUTOSCALE_CLIENTS)
+        t0 = time.perf_counter()
+        bursts = 0
+        while not os.path.isdir(region["asg"]) or not any(
+                f.endswith(".log") for f in os.listdir(region["asg"])):
+            check(time.perf_counter() - t0 < AUTOSCALE_PRESSURE_S,
+                  "regions: no member spawned under pressure")
+            with concurrent.futures.ThreadPoolExecutor(
+                    AUTOSCALE_CLIENTS) as pool:
+                out = list(pool.map(lambda p: http_call(port, "GET", p),
+                                    paths))
+            check(all(r[0] == 200 for r in out),
+                  f"regions: pressure gave {[r[0] for r in out]}")
+            bursts += 1
+        region["spawned_at"] = time.perf_counter()
+        region["pressure"] = {"bursts": bursts, "clients":
+                              AUTOSCALE_CLIENTS,
+                              "seconds": region["spawned_at"] - t0}
+        region["spawned"].set()
+        # the trickle: its users' answers never change in this phase
+        n = 0
+        while not region["stop_trickle"].is_set():
+            for user in region["a_users"]:
+                if region["stop_trickle"].is_set():
+                    break
+                status, body, ms = http_call(
+                    port, "GET", f"/recommend/{user}?howMany=10")
+                check(status == 200, f"regions: trickle /recommend/{user} "
+                      f"gave {status}")
+                same_answers(
+                    [(d["id"], d["value"]) for d in json.loads(body)],
+                    region["want"][user], RTOL["float32"],
+                    f"regions trickle /recommend/{user}")
+                region["trickle"].append(ms)
+                n += 1
+                if "member_ready_at" not in region and n % 8 == 0 \
+                        and member_ready(port, MEMBER_ID) is not None:
+                    region["member_ready_at"] = time.perf_counter()
+                time.sleep(TRICKLE_GAP_S)
+    except BaseException as e:  # noqa: BLE001 — failed in phase 13
+        region["errors"].append(repr(e)[:2000])
+        region["spawned"].set()
+
+
+def router_ready(port: int) -> bool:
+    try:
+        return http_call(port, "GET", "/ready")[0] in (200, 204)
+    except OSError:
+        return False
+
+
+def topic_records(broker_uri: str, topic: str) -> list:
+    from oryx_tpu_torch.kafka.inproc import resolve_broker
+    broker = resolve_broker(broker_uri)
+    ends = broker.latest_offsets(topic)
+    return list(broker.read_ranges(topic, [0] * len(ends), ends))
+
+
+def topic_end(broker_uri: str, topic: str) -> int:
+    from oryx_tpu_torch.kafka.inproc import resolve_broker
+    return sum(resolve_broker(broker_uri).latest_offsets(topic))
+
+
+def append_ups(broker_uri: str, topic: str, rows: list) -> None:
+    """UP records ``["X", user, vector, []]`` with a ``ts`` header."""
+    from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
+    producer = InProcTopicProducer(broker_uri, topic)
+    ts = str(int(time.time() * 1000))
+    producer.send_many([("UP", json.dumps(["X", u, [float(x) for x in v],
+                                           []]), {"ts": ts})
+                        for u, v in rows])
+    producer.close()
+
+
+def member_launches(log_path: str) -> tuple:
+    """(routed kind, its launches after the route) of an autoscaled
+    member, from the route and exit lines of its log."""
+    routes = log_match(log_path, r"chosen=(\w+) use_lsh=(\w+) .*"
+                       r"launches=(\{[^}]*\})")
+    exits = log_match(log_path, r"serving: kernel launches=(\{[^}]*\})")
+    check(len(routes) >= 1 and len(exits) == 1,
+          f"regions: the member's log has {len(routes)} route and "
+          f"{len(exits)} exit lines")
+    kind, _, at_route = routes[-1]
+    at_route, at_exit = json.loads(at_route), json.loads(exits[0])
+    return kind, {k: v - at_route.get(k, 0) for k, v in at_exit.items()}
+
+
+def regions_phase(publisher, work_dir: str, region: dict,
+                  phase11: dict | None) -> dict:
+    """Phase 13: region B (two replicas, a router and an autoscaler)
+    fed by a mirror from region A (phase 11's update topic): the model
+    through the mirror, UP propagation, the exactly-once fence across a
+    crash and a kill, no ping-pong with a B -> A mirror beside it, and
+    a member autoscaled in and out on the card."""
+    t_phase = time.perf_counter()
+    a_uri, topic = region["a_broker"], region["topic"]
+    b_uri = "file://" + os.path.join(region["dir"], "broker_b")
+    port = region["ports"]["router"]
+    if region["sent_at"] is None:
+        # phase 11 did not run: this phase sends its MODEL-REF to A
+        publisher.join(CLUSTER_WAIT_S)
+        check(publisher.exitcode == 0, f"regions: publishing the model "
+              f"failed ({publisher.exitcode})")
+        model_dir = os.path.join(work_dir, "cluster_model")
+        with open(os.path.join(model_dir, "published.json"),
+                  encoding="utf-8") as f:
+            manifest = json.load(f)["manifest"]
+        oracle = cluster_oracle()
+        send_model_ref(cluster_config(cluster_overlay(work_dir, "", None)),
+                       model_dir, manifest)
+        region_start(region, oracle)
+    else:
+        oracle = phase11["oracle"]
+    full, X, known, _ = oracle
+    rng = np.random.default_rng(CLUSTER_SEED + 5)
+    a_users, up_users = region["a_users"], region["up_users"]
+    want = region["want"]
+    pipes = region["pipes"]
+    # region_background ran check (a) and the pressure beside phases
+    # 11-12; its trickle runs on
+    check(region["spawned"].wait(REGION_WAIT_S),
+          "regions: region B never spawned a member")
+    check(not region["errors"], f"regions: {region['errors']}")
+    region_alive(region, "loaded")
+    for shard, st in enumerate(region["loaded"]):
+        check(st["kind"] in KERNEL_KINDS and not st["route_errors"]
+              and st["slice_load_fallbacks"] == 0
+              and st["users"] == CLUSTER_USERS,
+              f"regions: replica {shard} loaded {st}")
+    check(sum(st["items"] for st in region["loaded"]) == CLUSTER_ITEMS,
+          f"regions: B's shards hold "
+          f"{[st['items'] for st in region['loaded']]}")
+    routed = region["round_a"]
+    replicas = []
+    for shard, st in enumerate(region["states_a"]):
+        expected = check_replica_launches(st, shard, "regions")
+        replicas.append({"process": f"b-replica-{shard}",
+                         "shard": f"{shard}/2", "kind": st["kind"],
+                         "kernel": expected, "launches": st["launches"],
+                         "model_load_s": st["model_load_s"]})
+        log({"phase": "regions_replica", **replicas[-1]})
+
+    # b. UP propagation: 32 new user vectors appended to A, answered by B
+    new = rng.standard_normal((REGION_UPS, CLUSTER_FEATURES),
+                              dtype=np.float32)
+    want_up = dict(zip(up_users, exact_top_n(
+        full, 10, new, [set(known[u]) for u in up_users])))
+    t0 = time.perf_counter()
+    append_ups(a_uri, topic, list(zip(up_users, new)))
+    seen = {}
+    while len(seen) < len(up_users):
+        check(time.perf_counter() - t0 < REGION_PROPAGATION_S,
+              f"regions: {len(up_users) - len(seen)} UP records never "
+              f"reached region B's answers")
+        for u in up_users:
+            if u in seen:
+                continue
+            status, body, _ = http_call(port, "GET",
+                                        f"/recommend/{u}?howMany=10")
+            got = [(d["id"], d["value"]) for d in json.loads(body)] \
+                if status == 200 else []
+            if [i for i, _ in got] == [i for i, _ in want_up[u]]:
+                same_answers(got, want_up[u], RTOL["float32"],
+                             f"regions UP /recommend/{u}")
+                seen[u] = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.02)
+    propagation = sorted(seen.values())
+    ab = mirror_metrics(region, "ab")
+    steady = []
+    for _ in range(5):
+        g = mirror_metrics(region, "ab")["freshness"]
+        if g.get("mirror_lag_records") == 0:
+            steady.append(g["cross_region_staleness_ms"])
+        time.sleep(0.05)
+    check(steady, "regions: the A -> B mirror never read as drained")
+
+    # c. the exactly-once fence: a partition, a crash between the replay
+    # and the checkpoint, a kill inside the same window, then the heal
+    region["mirrors"]["ba"] = start_mirror(region, "ba")
+    stop_command(region["mirrors"]["ab"], "the A -> B mirror")
+    backlog = [(f"bk{j}", np.full(CLUSTER_FEATURES, 1e-3 * (j % 97),
+                                  np.float32))
+               for j in range(REGION_BACKLOG)]
+    append_ups(a_uri, topic, backlog)
+    t_heal = time.perf_counter()
+    crashed = start_mirror(region, "ab", fault="crash")
+    try:
+        rc = crashed.wait(120)
+    except subprocess.TimeoutExpired:
+        crashed.kill()
+        rc = None
+    crash_log = os.path.join(region["dir"], "mirror_ab.log")
+    check(rc is not None and bool(log_match(
+        crash_log, r"Fault fired: mirror-crash-mid-replay mode=crash"))
+        and bool(log_match(crash_log, r"InjectedCrash")),
+        f"regions: the crash-armed mirror exited {rc} without its crash")
+    held = start_mirror(region, "ab", fault="hold")
+    wait_for(lambda: held.poll() is None and mirror_metrics(
+        region, "ab")["counters"].get("mirror_records_replayed", 0) > 0
+        and bool(log_match(crash_log, r"Fault fired: "
+                           r"mirror-crash-mid-replay mode=hold")),
+        "regions: the held mirror's replay", 120)
+    held_replayed = mirror_metrics(region, "ab")["counters"][
+        "mirror_records_replayed"]
+    held.kill()  # a kill inside the window: no checkpoint is written
+    held.wait(30)
+    healed = start_mirror(region, "ab")
+    wait_for(lambda: healed.poll() is None and mirror_metrics(
+        region, "ab")["freshness"].get("mirror_lag_records") == 0,
+        "regions: the healed mirror's drain", 120)
+    catch_up_s = time.perf_counter() - t_heal
+    ab = mirror_metrics(region, "ab")
+    dedup = ab["counters"].get("mirror_dedup_skips", 0)
+    check(dedup == held_replayed,
+          f"regions: {dedup} dedup skips after the kill, "
+          f"{held_replayed} records sent before it")
+    b_records = topic_records(b_uri, topic)
+    triples = [(km.headers["origin-region"], km.headers["origin-partition"],
+                km.headers["origin-offset"]) for km in b_records
+               if km.headers and "origin-region" in km.headers]
+    check(len(triples) == len(set(triples)),
+          f"regions: {len(triples) - len(set(triples))} duplicated origin "
+          f"triples in region B's topic")
+    bk = [json.loads(km.message)[1] for km in b_records
+          if km.key == "UP" and json.loads(km.message)[1].startswith("bk")]
+    check(len(bk) == REGION_BACKLOG and len(set(bk)) == REGION_BACKLOG,
+          f"regions: the backlog of {REGION_BACKLOG} landed {len(bk)} "
+          f"times ({len(set(bk))} distinct)")
+
+    # e. the autoscaled member: live on /topology, exact answers
+    member_log = os.path.join(region["asg"], f"{MEMBER_ID}.log")
+    wait_for(lambda: "member_ready_at" in region or region["errors"],
+             "regions: the autoscaled member's load", REGION_WAIT_S)
+    check(not region["errors"], f"regions: {region['errors']}")
+    region_alive(region, "member ready")
+    topology = json.loads(http_call(port, "GET", "/admin/topology")[1])
+    check(topology["topologies"]["2"]["replicas"] == 3,
+          f"regions: /admin/topology lists {topology}")
+    mport = int(member_ready(port, MEMBER_ID)["url"].rsplit(":", 1)[1])
+    held_round(port, a_users, want, "(3 replicas)")
+    # the member's own door (its shard alone), so that it serves on the
+    # card whatever the router's rotation gave it
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        own = list(pool.map(lambda u: http_call(
+            mport, "GET", f"/recommend/{u}?howMany=10"), a_users))
+    check(all(r[0] == 200 and len(json.loads(r[1])) == 10 for r in own),
+          f"regions: the member's own /recommend gave "
+          f"{sorted({r[0] for r in own})}")
+    def route_of_member() -> dict:
+        status, body, _ = http_call(mport, "GET", "/metrics")
+        if status != 200:
+            return {}
+        metrics = json.loads(body).get("model_metrics") or {}
+        return metrics.get("kernel_route") or {}
+
+    # ready is the load; the route is measured right after it
+    wait_for(lambda: route_of_member().get("chosen") is not None,
+             "regions: the member's route", REGION_WAIT_S)
+    member_route = route_of_member()
+    # calm: the trickle stops, no traffic reads as calm, the member goes
+    region["stop_trickle"].set()
+    region["thread"].join(60)
+    check(not region["errors"], f"regions: {region['errors']}")
+    t_calm = time.perf_counter()
+    autoscale_log = os.path.join(region["dir"], "autoscale.log")
+    wait_for(lambda: json.loads(http_call(
+        port, "GET", "/admin/topology")[1])["topologies"]["2"][
+            "replicas"] == 2 and bool(log_match(
+                member_log, r"serving: kernel launches="))
+        and bool(log_match(autoscale_log, r"autoscale action: .*retire")),
+        "regions: the member's retirement", REGION_WAIT_S)
+    retire_s = time.perf_counter() - t_calm
+    with open(member_log, encoding="utf-8", errors="replace") as f:
+        print(f"--- regions: the member's log\n{f.read()[-6000:]}",
+              file=sys.stderr)
+    kind, served = member_launches(member_log)
+    check(kind == member_route.get("chosen") and kind in KERNEL_KINDS,
+          f"regions: the member routed {kind} ({member_route})")
+    expected = next(k for k, v in KERNELS.items() if v[2] == kind)
+    check(served[expected] > 0, f"regions: the member's {expected} "
+          f"launched no time: {served}")
+    actions = log_match(autoscale_log, r"autoscale action: (\{[^}]*\})")
+    kinds = [re.search(r"'kind': '(\w+)'", a).group(1) for a in actions]
+    check(kinds == ["spawn", "retire"],
+          f"regions: autoscale actions {actions}")
+    member = {"process": MEMBER_ID, "shard": "0/2", "kind": kind,
+              "kernel": expected, "launches": served,
+              "own_door": {"requests": len(own),
+                           **percentiles(r[2] for r in own)}}
+    log({"phase": "regions_replica", **member})
+
+    # d. no ping-pong: region B's fleet stops, records born in B go to A
+    # through the B -> A mirror and come back to no one
+    stop_command(region["autoscaler"], "the autoscaler")
+    stop_command(region["router"], "region B's router")
+    stop_replicas(pipes, region["procs"])
+    region["pipes"] = None
+    check(all(p.exitcode == 0 for p in region["procs"]),
+          f"regions: a replica exited {[p.exitcode for p in region['procs']]}")
+    a_end, b_end = topic_end(a_uri, topic), topic_end(b_uri, topic)
+    append_ups(b_uri, topic, [(f"bb{j}", np.ones(CLUSTER_FEATURES,
+                                                 np.float32))
+                              for j in range(REGION_BORN_B)])
+    wait_for(lambda: topic_end(a_uri, topic) == a_end + REGION_BORN_B
+             and mirror_metrics(region, "ab")["counters"].get(
+                 "mirror_loop_drops", 0) >= REGION_BORN_B,
+             "regions: records born in B through both mirrors", 120)
+    ends = []
+    for _ in range(3):
+        time.sleep(3 * REGION_POLL_MS / 1000)
+        ends.append((topic_end(a_uri, topic), topic_end(b_uri, topic)))
+    check(ends == [(a_end + REGION_BORN_B, b_end + REGION_BORN_B)] * 3,
+          f"regions: the topics moved after convergence: {ends}")
+    ab, ba = mirror_metrics(region, "ab"), mirror_metrics(region, "ba")
+    loop_drops = {"ab": ab["counters"].get("mirror_loop_drops", 0),
+                  "ba": ba["counters"].get("mirror_loop_drops", 0)}
+    check(loop_drops["ab"] > 0 and loop_drops["ba"] > 0,
+          f"regions: loop drops {loop_drops}")
+    for name in ("ab", "ba"):
+        stop_command(region["mirrors"][name], f"mirror {name}")
+    lat = sorted(r[2] for r in routed)
+    line = {"phase": "regions", "items": CLUSTER_ITEMS,
+            "features": CLUSTER_FEATURES,
+            "replicas": replicas + [member],
+            "b_ready_s": region["ready_s"],
+            "b_recommend": {"requests": len(routed),
+                            **percentiles(lat)},
+            "up_records": REGION_UPS,
+            "up_to_answer_ms": {"p50": propagation[len(propagation) // 2],
+                                "max": propagation[-1]},
+            "mirror_lag_records": ab["freshness"].get("mirror_lag_records"),
+            "steady_staleness_ms": statistics.median(steady),
+            "backlog": REGION_BACKLOG, "catch_up_s": catch_up_s,
+            "catch_up_records_per_s": REGION_BACKLOG / catch_up_s,
+            "mirror_dedup_skips": dedup,
+            "mirror_loop_drops": loop_drops,
+            "mirror_heartbeat_drops": {
+                "ab": ab["counters"].get("mirror_heartbeat_drops", 0),
+                "ba": ba["counters"].get("mirror_heartbeat_drops", 0)},
+            "autoscale": {
+                "signal": f"p99 > {AUTOSCALE_P99_HIGH_MS} ms "
+                          f"(/recommendToAnonymous at "
+                          f"{AUTOSCALE_CLIENTS} clients)",
+                **region["pressure"],
+                "spawn_to_member_ready_s":
+                    region["member_ready_at"] - region["spawned_at"],
+                "retire_s": retire_s,
+                "trickle": {"requests": len(region["trickle"]),
+                            **percentiles(region["trickle"] or [0.0])},
+                "actions": len(actions)},
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    return line
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -5841,7 +6544,7 @@ def main(argv=None) -> int:
     if "lambda" in phases:
         children["preparer"] = spawn.Process(
             target=lambda_data, args=(work_dir,), daemon=True)
-    if phases & {"cluster", "cluster_fast"}:
+    if phases & {"cluster", "cluster_fast", "regions"}:
         os.makedirs(os.path.join(work_dir, "cluster_model"))
         children["cluster_publisher"] = spawn.Process(
             target=publish_cluster_model,
@@ -5915,24 +6618,34 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         obs = obs_phase(children["publisher"], work_dir,
                         serves.get("1M_50f_f32_lsh0.3_topic"))
         free()
-    cluster = fast = None
+    cluster = fast = region = regions = None
     if "cluster_fast" in phases:
         # phase 12's replicas start now: their start overlaps phase 11
         fast = start_fast_replicas(work_dir)
+    if "regions" in phases:
+        # phase 13's region B too: it loads while phases 11-12 run
+        region = start_region_b(work_dir)
     try:
         if "cluster" in phases:
             # phase 11: two replicas and the router on one card
             cluster = cluster_phase(children["cluster_publisher"],
-                                    work_dir, fast)
+                                    work_dir, fast, region)
             free()
         if fast is not None:
             # phase 12: the fast path on phase 11's model
             fast = cluster_fast_phase(children["cluster_publisher"],
                                       work_dir, fast, cluster)
             free()
+        if region is not None:
+            # phase 13: region B through the mirror, and the autoscaler
+            regions = regions_phase(children["cluster_publisher"],
+                                    work_dir, region, cluster)
+            free()
     finally:
         if isinstance(fast, dict) and "pipes" in fast:
             stop_replicas(fast["pipes"], fast["procs"])
+        if region is not None:
+            stop_region_b(region)
     if "serving" in phases:
         entries = product_entries(cases, serves) + entries
     if deploy is not None:
@@ -5955,6 +6668,15 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
                    if entry["name"] in r["launches"]]
             if any(per):
                 entry[key] = per
+    if regions is not None:
+        # each region-B process's launches of its routed kernel: the
+        # replicas' timed round, the autoscaled member's served requests
+        for entry in entries:
+            per = {r["process"]: r["launches"][entry["name"]]
+                   for r in regions["replicas"]
+                   if entry["name"] in r["launches"]}
+            if any(per.values()):
+                entry["regions_launches"] = per
     check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start,
          "phases": sorted(phases, key=PHASES.index)})

@@ -39,13 +39,25 @@ ladder on the cache-hit workload; cells with replica groups (R>1) also
 run a hedge-frame probe (hedges cost a frame, not a connection), and
 ``--replica-cache`` arms the replicas' shard caches.
 
-Three options of the reference wait for a later part of this package,
-and each exits 2 naming its flag: ``--regions`` above 1 (the two-region
-mirror probe), ``--write-heavy`` (the durable-ack ingest rung) and
-``--ann`` (the IVF-ANN rung).
+``--regions 2`` runs the two-region mirror probe before the cells: a
+real ``python -m oryx_tpu_torch mirror`` process replays region A's
+update topic into region B's over ``file://`` brokers, measuring
+steady-state staleness and the catch-up of a healed partition's
+``--mirror-records`` backlog.  ``--ann`` runs the IVF-ANN rung: one
+large-catalog generation (``--ann-items``) published with its per-slice
+index artifacts (centroids and cells, the ``oryx.als.ann.publish-index``
+layout), an ANN-enabled serving door laddered against an exact door on
+the same generation, and a small-catalog control door.  Its headline is
+withheld (None) unless the ANN door's measured route chose ``ivf``; the
+routed kind and the route's cost table ride beside it.  One option of
+the reference waits for a later part of this package and exits 2
+naming its flag: ``--write-heavy`` (the durable-ack ingest rung).
 
 Writes ``--out`` (default ``BENCH_TORCH_GATEWAY.json``) with the
-reference's artifact keys, plus the card's name and power limit.
+reference's artifact keys, plus the card's name and power limit;
+``bench/check_regression.py --kind gateway`` gates successive rounds,
+with the ``mirror`` and ``ann`` probes as pseudo-cells of the first
+row.
 """
 
 from __future__ import annotations
@@ -64,7 +76,7 @@ import urllib.request
 import numpy as np
 
 from ..common import pmml as pmml_io
-from ..common.device import resolve_device
+from ..common.device import card_line, resolve_device
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
 from ..kafka.inproc import resolve_broker
 from .load import run_recommend_open_loop
@@ -73,10 +85,8 @@ __all__ = ["run_cell", "main", "DEFERRED_FLAGS"]
 
 # the reference's options that wait for a later part of this package
 DEFERRED_FLAGS = {
-    "--regions": "the two-region mirror probe (cluster/mirror.py)",
     "--write-heavy": "the durable-ack ingest rung (the Kafka wire broker "
                      "and the sharded speed layer)",
-    "--ann": "the IVF-ANN rung of the gateway bench",
 }
 
 
@@ -95,7 +105,8 @@ def _free_port() -> int:
 
 def _publish_model(broker_dir: str, users: int, items: int,
                    features: int, seed: int = 5,
-                   sharded: int = 0) -> list[str]:
+                   sharded: int = 0, ann_cfg=None,
+                   clustered: int = 0, device=None) -> list[str]:
     """MODEL + UP replay onto the file broker — the same stream a
     batch generation publishes, so replicas load through the real
     consume path.  Writes the single-partition topic log directly in
@@ -108,7 +119,17 @@ def _publish_model(broker_dir: str, users: int, items: int,
     ``sharded`` > 0 publishes the sharded form instead: a
     manifest-carrying MODEL-REF whose per-murmur2-slice artifacts live
     next to the PMML, and no per-row UP flood — each replica bulk-loads
-    only its slices (O(catalog/N) load)."""
+    only its slices (O(catalog/N) load).
+
+    ``ann_cfg`` (an ``ivf.AnnConfig``, sharded form only) also trains
+    the generation's coarse quantizer on ``device`` (None means the
+    card) and ships the IVF index artifacts (centroids and per-slice
+    cells) with the manifest, so the doors skip the local k-means.
+
+    ``clustered`` > 0 draws the item factors from a gaussian mixture of
+    that many components instead of one isotropic cloud: trained ALS
+    item factors are clustered, and iid rows are the IVF quantizer's
+    worst case, which no trained catalog resembles."""
     rng = np.random.default_rng(seed)
     os.makedirs(broker_dir, exist_ok=True)
     user_ids = [f"u{j}" for j in range(users)]
@@ -118,8 +139,15 @@ def _publish_model(broker_dir: str, users: int, items: int,
     pmml_io.add_extension(doc, "implicit", True)
     pmml_io.add_extension_content(doc, "XIDs", user_ids)
     pmml_io.add_extension_content(doc, "YIDs", item_ids)
-    y = np.round(rng.standard_normal((items, features)), 4
-                 ).astype(np.float32)
+    if clustered > 0:
+        comp = rng.standard_normal((clustered, features))
+        pick = rng.integers(0, clustered, size=items)
+        y = np.round(comp[pick]
+                     + 0.25 * rng.standard_normal((items, features)),
+                     4).astype(np.float32)
+    else:
+        y = np.round(rng.standard_normal((items, features)), 4
+                     ).astype(np.float32)
     x = np.round(rng.standard_normal((users, features)), 4
                  ).astype(np.float32)
     if sharded > 0:
@@ -135,8 +163,16 @@ def _publish_model(broker_dir: str, users: int, items: int,
         # reads them, and a bench of that path must not dead-end
         save_features(os.path.join(model_dir, "Y"), item_ids, y)
         save_features(os.path.join(model_dir, "X"), user_ids, x)
+        ann = None
+        if ann_cfg is not None:
+            from ..app.als import ivf
+            from ..ops import ann as ops_ann
+            centroids = ivf.train_generation_centroids(y, ann_cfg,
+                                                       device=device)
+            ann = (centroids, ops_ann.assign_cells(y, centroids,
+                                                   device=device))
         slim = model_slices.publish_sliced(
-            model_dir, item_ids, y, user_ids, x, None, sharded)
+            model_dir, item_ids, y, user_ids, x, None, sharded, ann=ann)
         envelope = model_slices.model_ref_message(pmml_path, model_dir,
                                                   slim)
         with open(os.path.join(broker_dir, "GwUp.topic.jsonl"), "a",
@@ -1105,18 +1141,316 @@ def run_load_compare(work_dir: str, items: int, features: int,
 
 
 
-def _card() -> str | None:
-    """The card's name and power limit as nvidia-smi prints them (None
-    without one)."""
+def run_mirror_probe(work_dir: str, records: int = 2000,
+                     features: int = 8,
+                     poll_interval_ms: int = 100) -> dict:
+    """The two-region cell (``--regions 2``): one real ``python -m
+    oryx_tpu_torch mirror`` process replaying region A's update topic
+    into region B's over durable ``file://`` brokers, measuring
+
+    - **steady-state** ``cross_region_staleness_ms`` while the link is
+      healthy and drained (the mirror's own gauge, sampled);
+    - **healed-partition catch-up**: the link goes down (mirror
+      killed), ``records`` ts-stamped UP records accumulate on the
+      source, the link heals (a fresh mirror on the same durable
+      checkpoint — the crash-resume path), and the probe clocks
+      source-head to drained.  Catch-up speed (records/s) is the gated
+      headline.  The mirror never touches the card.
+    """
+    a_dir = os.path.join(work_dir, "mirror-region-a")
+    b_dir = os.path.join(work_dir, "mirror-region-b")
+    ckpt = os.path.join(work_dir, "mirror-ckpt")
+    os.makedirs(a_dir, exist_ok=True)
+    os.makedirs(b_dir, exist_ok=True)
+
+    def _append_ups(n: int, start: int) -> None:
+        now_ms = int(time.time() * 1000)
+        vec = [round(0.01 * j, 4) for j in range(features)]
+        with open(os.path.join(a_dir, "GwUp.topic.jsonl"), "a",
+                  encoding="utf-8") as f:
+            for j in range(start, start + n):
+                f.write(json.dumps(
+                    ["UP", json.dumps(["X", f"mu{j}", vec, []]),
+                     {"ts": str(now_ms)}]) + "\n")
+
+    obs_port = _free_port()
+    conf = os.path.join(work_dir, "mirror.conf")
+    _write_conf(conf, b_dir, _free_port(), {
+        "oryx.cluster.region.name": "bench-b",
+        "oryx.cluster.region.mirror.source-broker": f"file://{a_dir}",
+        "oryx.cluster.region.mirror.source-region": "bench-a",
+        "oryx.cluster.region.mirror.checkpoint-dir": ckpt,
+        "oryx.cluster.region.mirror.poll-interval-ms": poll_interval_ms,
+        "oryx.obs.metrics-port": obs_port,
+    })
+    log_path = os.path.join(work_dir, "mirror-probe.log")
+
+    def _gauges() -> dict:
+        return _get_json(obs_port, "/metrics").get("freshness", {})
+
+    _append_ups(records // 4, 0)  # a warm link carries live traffic
+    proc = _spawn(["mirror"], conf, None, log_path)
     try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
-        else None
+        _await(lambda: _gauges().get("mirror_lag_records") == 0,
+               "mirror steady drain", timeout=240.0)
+        time.sleep(3 * poll_interval_ms / 1000.0)
+        steady = [_gauges().get("cross_region_staleness_ms")
+                  for _ in range(5)]
+        steady = [v for v in steady if v is not None]
+    finally:
+        proc.kill()  # the partition: the link is gone, not drained
+        proc.wait(timeout=15)
+    _append_ups(records, records // 4)  # backlog behind the partition
+    t0 = time.time()
+    proc = _spawn(["mirror"], conf, None, log_path)
+    try:
+        _await(lambda: _gauges().get("mirror_lag_records") == 0,
+               "mirror catch-up", timeout=600.0)
+        catch_up_s = time.time() - t0
+        counters = _get_json(obs_port, "/metrics")["counters"]
+    finally:
+        proc.kill()
+        proc.wait(timeout=15)
+    return {
+        "records": records,
+        "steady_staleness_ms": (round(float(np.median(steady)), 1)
+                                if steady else None),
+        "catch_up_s": round(catch_up_s, 2),
+        # includes the fresh process's start: that is the
+        # heal-to-drained wall clock a failover runbook sees
+        "catch_up_records_per_s": round(records / catch_up_s, 1),
+        "replayed": counters.get("mirror_records_replayed"),
+        "dedup_skips": counters.get("mirror_dedup_skips", 0),
+    }
+
+
+# the ANN rung's ladder: rates from 1 qps by 1.6x up to this top, each
+# rung at least this many seconds (the reference's protocol)
+ANN_LADDER_TOP_QPS = 640.0
+ANN_RUNG_MIN_S = 6.0
+
+
+def run_ann_probe(work_dir: str, items: int, features: int,
+                  users: int, duration_sec: float,
+                  device_ms_per_mrow: float = 0.0,
+                  cells: int = 1024, nprobe: int = 32,
+                  sharded: int = 24,
+                  small: "tuple[str, int, list[str]] | None" = None,
+                  device: str | None = None) -> dict:
+    """The ``--ann`` rung: the IVF-ANN path measured door to door
+    against the exact kernels on the same synthetic generation — one
+    sharded publish carrying the per-slice index artifacts, two real
+    serving doors over it on ``device`` (None means the card), one with
+    ``oryx.als.ann.enabled`` and one without.
+
+    The item factors are a gaussian mixture of ``cells/4`` components
+    (see ``_publish_model(clustered=...)``).  On the card both doors
+    serve real scans; on the host ``--device-ms-per-mrow`` emulation
+    scales the ANN door's dispatch delay by the probed fraction
+    (``nprobe / cells``) and the exact door pays the full catalog's.
+    The gated headline is withheld (None) unless the ANN door's
+    measured route chose ``ivf``: an ANN door serving an exact kind
+    would gate the exact kernels' number under the ANN name.  The
+    routed kind and the route's cost table ride beside it.
+
+    ANN answers may differ from the exact door's within the recall
+    budget, so the probe records the sampled users' top-10 overlap.
+    ``small`` = (broker_dir, items, user_ids) of the cells' already
+    published catalog: a third door with ANN enabled shows where the
+    measured route serves there."""
+    from ..app.als.ivf import AnnConfig
+    cfg = AnnConfig(enabled=True, cells=cells, nprobe=nprobe,
+                    min_recall=0.95, recall_at=50, recall_queries=64,
+                    train_sample=min(items, 131072),
+                    train_iterations=8)
+    broker_dir = os.path.join(work_dir, "ann-broker")
+    t0 = time.time()
+    # components at cells/4: coarser than the partition, so k-means
+    # over-segments every component instead of merging some
+    user_ids = _publish_model(broker_dir, users, items, features,
+                              sharded=sharded, ann_cfg=cfg,
+                              clustered=max(2, cells // 4),
+                              device=device)
+    publish_s = round(time.time() - t0, 1)
+    print(f"== ann probe: published {items} items (+index) in "
+          f"{publish_s}s ==", file=sys.stderr)
+
+    def _emulation(extra: dict, rows_streamed: float) -> None:
+        # as run_cell: a finite window and a fixed pipeline depth make
+        # the emulated ceiling deterministic
+        if device_ms_per_mrow <= 0:
+            return
+        extra.update({
+            "oryx.serving.api.max-batch": 8,
+            "oryx.serving.api.scoring-pipeline-depth": 2,
+            "oryx.resilience.faults.serving-scan-dispatch"
+            ".mode": "delay",
+            "oryx.resilience.faults.serving-scan-dispatch"
+            ".times": -1,
+            "oryx.resilience.faults.serving-scan-dispatch"
+            ".delay-ms": round(
+                device_ms_per_mrow * rows_streamed / 1e6, 3),
+        })
+
+    ann_port, exact_port = _free_port(), _free_port()
+    log_path = os.path.join(work_dir, "ann-probe.log")
+    ann_keys = {
+        "oryx.als.ann.enabled": True,
+        "oryx.als.ann.cells": cells,
+        "oryx.als.ann.nprobe": nprobe,
+    }
+    exact_extra: dict = {}
+    _emulation(exact_extra, items)
+    ann_extra = dict(ann_keys)
+    _emulation(ann_extra, items * nprobe / cells)
+    exact_conf = os.path.join(work_dir, "ann-exact-door.conf")
+    ann_conf = os.path.join(work_dir, "ann-door.conf")
+    _write_conf(exact_conf, broker_dir, exact_port, exact_extra)
+    _write_conf(ann_conf, broker_dir, ann_port, ann_extra)
+
+    def _door_metrics(port: int) -> tuple[dict, dict]:
+        m = _get_json(port, "/metrics")
+        return (m.get("freshness", {}),
+                (m.get("model_metrics") or {}).get(
+                    "kernel_route") or {})
+
+    procs = [_spawn(["serving"], exact_conf, None, log_path, device),
+             _spawn(["serving"], ann_conf, None, log_path, device)]
+    try:
+        for port in (exact_port, ann_port):
+            _await(lambda p=port: _get_json(p, "/ready") is None,
+                   "ann probe serving door", timeout=900.0)
+        # the first scoring call measures the route and loads the
+        # kernel libraries: warm before any rung (or spot answer)
+        for port in (exact_port, ann_port):
+            _get_json_retry_cold(
+                port, f"/recommend/{user_ids[0]}?howMany=10",
+                budget_sec=1200.0)
+        overlaps = []
+        for uid in user_ids[:20]:
+            got = [d["id"] for d in _get_json_retry_cold(
+                ann_port, f"/recommend/{uid}?howMany=10")]
+            want = [d["id"] for d in _get_json_retry_cold(
+                exact_port, f"/recommend/{uid}?howMany=10")]
+            overlaps.append(len(set(got) & set(want))
+                            / max(1, len(want)))
+        spot_overlap = round(sum(overlaps) / max(1, len(overlaps)), 4)
+        answers_match = bool(overlaps) and min(overlaps) == 1.0
+
+        def _ladder(port: int) -> tuple[list, dict | None]:
+            ladder, best, rate = [], None, 1.0
+            while rate <= ANN_LADDER_TOP_QPS:
+                out = None
+                for _attempt in range(2):
+                    out = run_recommend_open_loop(
+                        f"http://127.0.0.1:{port}", user_ids,
+                        rate_qps=rate,
+                        duration_sec=max(ANN_RUNG_MIN_S, duration_sec),
+                        workers=min(256, max(32, int(rate))))
+                    if out["sustained"]:
+                        break
+                ladder.append(out)
+                if out["sustained"]:
+                    best = out
+                else:
+                    break
+                rate = round(rate * 1.6, 1)
+            return ladder, best
+
+        for port in (exact_port, ann_port):
+            run_recommend_open_loop(
+                f"http://127.0.0.1:{port}", user_ids, rate_qps=2.0,
+                duration_sec=ANN_RUNG_MIN_S, workers=16)
+        exact_ladder, exact_best = _ladder(exact_port)
+        ann_ladder, ann_best = _ladder(ann_port)
+        exact_fresh, exact_route = _door_metrics(exact_port)
+        ann_fresh, ann_route = _door_metrics(ann_port)
+    finally:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait(timeout=15)
+
+    small_cell = None
+    if small is not None:
+        s_broker, s_items, s_users = small
+        s_port = _free_port()
+        s_conf = os.path.join(work_dir, "ann-small-door.conf")
+        s_extra = dict(ann_keys)
+        # a cheap quantizer: this door shows the route, not the recall
+        s_extra["oryx.als.ann.train-sample"] = max(cells, 16384)
+        s_extra["oryx.als.ann.train-iterations"] = 2
+        _write_conf(s_conf, s_broker, s_port, s_extra)
+        proc = _spawn(["serving"], s_conf, None, log_path, device)
+        try:
+            _await(lambda: _get_json(s_port, "/ready") is None,
+                   "ann probe small door", timeout=900.0)
+            got = _get_json_retry_cold(
+                s_port, f"/recommend/{s_users[0]}?howMany=10",
+                budget_sec=600.0)
+            s_fresh, s_route = _door_metrics(s_port)
+            small_cell = {
+                "items": s_items,
+                "served": bool(got),
+                "route_chosen": s_route.get("chosen"),
+                "ivf_routed": s_route.get("chosen") == "ivf",
+                "ann": s_route.get("ann"),
+                "ann_index_fallbacks":
+                    s_fresh.get("ann_index_fallbacks"),
+            }
+        finally:
+            proc.kill()
+            proc.wait(timeout=15)
+
+    probe_fraction = round(nprobe / cells, 5)
+    exact_qps = exact_best["achieved_qps"] if exact_best else 0.0
+    ann_qps = ann_best["achieved_qps"] if ann_best else 0.0
+    ivf_routed = ann_route.get("chosen") == "ivf"
+    return {
+        "items": items,
+        "features": features,
+        "users": users,
+        "cells": cells,
+        "nprobe": nprobe,
+        "probe_fraction": probe_fraction,
+        "publish_s": publish_s,
+        "emulated_device_ms_per_mrow": device_ms_per_mrow,
+        "emulated_exact_dispatch_ms": round(
+            device_ms_per_mrow * items / 1e6, 3),
+        "emulated_ann_dispatch_ms": round(
+            device_ms_per_mrow * items * probe_fraction / 1e6, 3),
+        "answers_match_exact": answers_match,
+        "spot_overlap_at_10": spot_overlap,
+        "catalog": "gaussian-mixture",
+        # the gated headline, withheld unless the route chose ivf
+        "open_loop_sustained_qps": ann_qps if ivf_routed else None,
+        "ann_door_qps_raw": ann_qps,
+        "ivf_routed": ivf_routed,
+        "sustained_p50_ms": ann_best["p50_ms"] if ann_best else None,
+        "sustained_p99_ms": ann_best["p99_ms"] if ann_best else None,
+        "speedup_vs_exact": (round(ann_qps / exact_qps, 2)
+                             if exact_qps and ivf_routed else None),
+        "certificate": ann_route.get("ann"),
+        "route_chosen": ann_route.get("chosen"),
+        "route_use_lsh": ann_route.get("use_lsh"),
+        "route_costs_exact_ms": ann_route.get("costs_exact_ms"),
+        "route_costs_lsh_ms": ann_route.get("costs_lsh_ms"),
+        "ann_model_load_s": ann_fresh.get("model_load_s"),
+        "ann_index_bytes": ann_fresh.get("ann_index_bytes"),
+        "ann_index_fallbacks": ann_fresh.get("ann_index_fallbacks"),
+        "exact": {
+            "open_loop_sustained_qps": exact_qps,
+            "sustained_p50_ms":
+                exact_best["p50_ms"] if exact_best else None,
+            "sustained_p99_ms":
+                exact_best["p99_ms"] if exact_best else None,
+            "model_load_s": exact_fresh.get("model_load_s"),
+            "route_chosen": exact_route.get("chosen"),
+            "ladder": exact_ladder,
+        },
+        "small_cell": small_cell,
+        "ladder": ann_ladder,
+    }
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1214,22 +1548,38 @@ def main(argv: list[str] | None = None) -> int:
                     help="before the cells, publish the catalog both "
                          "ways and boot this many shards against each.  "
                          "0 = off")
-    # the reference's options that wait for a later part of this package
     ap.add_argument("--regions", type=int, default=1,
-                    help="2 = the two-region mirror probe (not part of "
-                         "this package yet)")
+                    help="2 = run the two-region mirror probe before "
+                         "the cells: steady-state staleness and a "
+                         "healed partition's catch-up over a real "
+                         "mirror process and file:// brokers (the "
+                         "(..., 'mirror') pseudo-cell)")
+    ap.add_argument("--mirror-records", type=int, default=2000,
+                    help="backlog the mirror probe's healed partition "
+                         "must catch up through")
+    ap.add_argument("--ann", action="store_true",
+                    help="after the cells' publish, run the IVF-ANN "
+                         "rung: one large-catalog generation published "
+                         "with its index artifacts, an ANN door "
+                         "laddered against an exact door on the same "
+                         "generation, and a small-catalog control door "
+                         "(the (..., 'ann') pseudo-cell)")
+    ap.add_argument("--ann-items", type=int, default=10_000_000,
+                    help="ANN rung catalog size (the reference's "
+                         "protocol cell is 10M items; the artifact "
+                         "records what ran)")
+    ap.add_argument("--ann-cells", type=int, default=1024,
+                    help="IVF coarse-quantizer cells for the ANN rung")
+    ap.add_argument("--ann-nprobe", type=int, default=32,
+                    help="cells probed per query on the ANN rung")
+    # the reference's option that waits for a later part of this package
     ap.add_argument("--write-heavy", action="store_true",
                     help="the durable-ack write rung (not part of this "
                          "package yet)")
-    ap.add_argument("--ann", action="store_true",
-                    help="the IVF-ANN rung (not part of this package "
-                         "yet)")
     ap.add_argument("--out", default="BENCH_TORCH_GATEWAY.json")
     ap.add_argument("--keep-work", action="store_true")
     args = ap.parse_args(argv)
-    for flag, on in (("--regions", args.regions > 1),
-                     ("--write-heavy", args.write_heavy),
-                     ("--ann", args.ann)):
+    for flag, on in (("--write-heavy", args.write_heavy),):
         if on:
             print(f"gateway: {flag}: {DEFERRED_FLAGS[flag]} is not part "
                   f"of this package yet", file=sys.stderr)
@@ -1252,6 +1602,12 @@ def main(argv: list[str] | None = None) -> int:
         # one shared broker and model stream: every cell's replicas load
         # the identical topic (cells run one after another; a dead
         # cell's heartbeats age out past the TTL)
+        mirror_probe = None
+        if args.regions >= 2:
+            print("== two-region mirror probe ==", file=sys.stderr)
+            mirror_probe = run_mirror_probe(
+                work_dir, records=args.mirror_records)
+            print(json.dumps(mirror_probe), file=sys.stderr)
         load_compare = None
         if args.load_compare > 0:
             print("== load-compare probe (replay vs sliced) ==",
@@ -1270,6 +1626,21 @@ def main(argv: list[str] | None = None) -> int:
         publish_s = round(time.time() - t0, 1)
         print(f"== published model stream in {publish_s}s ==",
               file=sys.stderr)
+        ann_probe = None
+        if args.ann:
+            print("== ann probe (IVF vs exact, large catalog) ==",
+                  file=sys.stderr)
+            ann_probe = run_ann_probe(
+                work_dir, args.ann_items, args.features, args.users,
+                args.duration,
+                device_ms_per_mrow=args.device_ms_per_mrow,
+                cells=args.ann_cells, nprobe=args.ann_nprobe,
+                sharded=args.sharded_publish or 24,
+                small=(broker_dir, args.items, user_ids),
+                device=args.device)
+            print(json.dumps({k: v for k, v in ann_probe.items()
+                              if k not in ("ladder", "exact")}),
+                  file=sys.stderr)
         admission = {}
         if args.admission_max_inflight > 0:
             admission["oryx.cluster.admission.max-inflight"] = \
@@ -1317,6 +1688,13 @@ def main(argv: list[str] | None = None) -> int:
                              args.connections.split(",") if x],
                 device=args.device)
             row["publish_s"] = publish_s
+            if not rows:
+                # each probe rides the first row as its pseudo-cell:
+                # one measurement per round, one gate
+                if mirror_probe is not None:
+                    row["mirror"] = mirror_probe
+                if ann_probe is not None:
+                    row["ann"] = ann_probe
             rows.append(row)
             print(json.dumps({k: v for k, v in rows[-1].items()
                               if k != "ladder"}), file=sys.stderr)
@@ -1338,14 +1716,14 @@ def main(argv: list[str] | None = None) -> int:
         "sharded_publish": args.sharded_publish or None,
         "load_compare": load_compare,
         "regions": args.regions,
-        "mirror_probe": None,
+        "mirror_probe": mirror_probe,
         "write_probe": None,
-        "ann_probe": None,
+        "ann_probe": ann_probe,
         "zipf_a": args.zipf or None,
         "tracing_sample": args.tracing_sample,
         "emulated_device_ms_per_mrow": args.device_ms_per_mrow,
         "backend": "cpu" if args.device == "cpu" else "cuda",
-        "card": None if args.device == "cpu" else _card(),
+        "card": None if args.device == "cpu" else card_line(),
         "host_cpus": os.cpu_count(),
         "rows": rows,
         "scaling_vs_1": {

@@ -47,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from ..common.device import resolve_device
+from ..common.device import card_line, resolve_device
 
 __all__ = ["BASELINES", "build_model", "device_bytes", "serve",
            "measure_dispatch_floor", "descend_until_sustained",
@@ -428,6 +428,9 @@ def main(argv: list[str] | None = None) -> None:
     grid_doc = {
         "metric": "als_recommend_http_grid",
         "device": device,
+        # what bench/check_regression.py compares rounds by
+        "backend": dev.type,
+        "card": card_line() if dev.type == "cuda" else None,
         "dispatch_floor_ms": floor,
         "peaks": peaks,
         "host_loopback": host_cap,

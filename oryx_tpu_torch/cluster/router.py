@@ -8,10 +8,10 @@ Counterpart of ``oryx_tpu/cluster/router.py``: the threaded front end
 transport or HTTP/1.1 socket pool; and the exact result cache with
 single-flight coalescing (``oryx.cluster.cache.enabled``,
 ``oryx.cluster.coalesce.enabled``), fed by the membership consumer's
-tap.  The region mirror's keys (``oryx.cluster.region.mirror.*``) are
-not part of this package yet: each raises a ``ValueError`` naming its
-key.  The router's fold-in solves on ``device`` (None means ``cuda``),
-as a replica's does.
+tap.  The region mirror's keys (``oryx.cluster.region.mirror.*``)
+configure the mirror process that reads the same conf (cluster/mirror.py);
+the router ignores them.  The router's fold-in solves on ``device``
+(None means ``cuda``), as a replica's does.
 
 ``python -m oryx_tpu_torch router`` speaks the SAME public HTTP surface
 as a single serving layer — endpoints, JSON/CSV negotiation, gzip, DIGEST
@@ -50,7 +50,7 @@ import numpy as np
 
 from ..api.serving import OryxServingException
 from ..common import clock as clockmod
-from ..common.config import Config, refuse_configured
+from ..common.config import Config
 from ..common.device import resolve_device
 from ..kafka import utils as kafka_utils
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
@@ -89,13 +89,7 @@ from .sharding import shard_of
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["RouterLayer", "ROUTES", "UNPORTED_ROUTER_KEYS"]
-
-# keys of the reference's router whose features this package does not
-# have yet: each raises by name rather than being quietly ignored
-UNPORTED_ROUTER_KEYS = ("oryx.cluster.region.mirror.source-broker",
-                        "oryx.cluster.region.mirror.source-topic",
-                        "oryx.cluster.region.mirror.checkpoint-dir")
+__all__ = ["RouterLayer", "ROUTES"]
 
 
 # -- request-scope helpers ----------------------------------------------------
@@ -842,9 +836,6 @@ class RouterLayer:
     def __init__(self, config: Config, port: int | None = None,
                  device=None):
         self.config = config
-        refuse_configured(config, UNPORTED_ROUTER_KEYS,
-                          "the region mirror is not part of this package "
-                          "yet")
         # without a card, fail at boot, not at the first fold-in
         self.device = resolve_device(device)
         api = "oryx.serving.api"

@@ -7,9 +7,11 @@ without it raises instead of carrying on quietly on the host.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device", "check_f32_matmul"]
+__all__ = ["resolve_device", "check_f32_matmul", "card_line"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,3 +33,18 @@ def check_f32_matmul(device: torch.device) -> None:
             "torch.backends.cuda.matmul.allow_tf32 is set: ALS scoring needs "
             "full float32 products (the two-phase certificate's 1e-4 margin "
             "does not cover TF32 rounding)")
+
+
+def card_line() -> str | None:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them (None without
+    one): the label every bench artifact records beside its numbers."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
+        else None

@@ -8,18 +8,19 @@ from config, register a shutdown hook, start, await).  ``warmup``
 builds and loads the kernel libraries before traffic
 (deploy/warmup.py), ``config-to-properties`` prints the resolved
 configuration, ``serving --shard i/N`` starts a serving-cluster replica
-of catalog shard ``i`` of ``N``, and ``router`` the cluster's
-scatter-gather gateway (cluster/router.py).  ``speed --shard`` passes
+of catalog shard ``i`` of ``N``, ``router`` the cluster's
+scatter-gather gateway (cluster/router.py), ``mirror`` the cross-region
+update-topic mirror (cluster/mirror.py) and ``autoscale`` the
+gauge-driven replica supervisor (cluster/autoscaler.py).  ``speed --shard`` passes
 the reference's overlay to the speed layer, which refuses it by key
 until the sharded speed layer is part of this package, and ``router
 --async`` serves the router's public door on the asyncio front end
 (``oryx.cluster.async.enabled``, cluster/async_http.py).
 
 One flag the reference does not have: ``--device`` on ``batch``,
-``speed``, ``serving``, ``router`` and ``warmup``.  Its default is the
-CUDA card; ``--device cpu`` runs on the host when asked.  ``autoscale``
-and ``mirror`` are listed so that ``--help`` shows the reference's
-surface, and each exits non-zero at once, by name.
+``speed``, ``serving``, ``router``, ``autoscale`` (the spawned members'
+device) and ``warmup``.  Its default is the CUDA card; ``--device cpu``
+runs on the host when asked.  The mirror never touches the card.
 
 Usage:
     python -m oryx_tpu_torch <subcommand> [--conf my.conf] ...
@@ -36,16 +37,9 @@ import time
 from ..common.config import Config, from_dict, from_file, get_default
 from ..common.lang import ShutdownHook
 
-__all__ = ["main", "UNPORTED_COMMANDS"]
+__all__ = ["main"]
 
 _log = logging.getLogger(__name__)
-
-# the reference's subcommands whose layers this package does not have
-# yet: each refuses by name
-UNPORTED_COMMANDS = {
-    "autoscale": "the gauge-driven replica autoscaler",
-    "mirror": "the cross-region update-topic mirror",
-}
 
 
 def _load_config(conf: str | None) -> Config:
@@ -142,10 +136,38 @@ def _cmd_router(args) -> int:
     return 0
 
 
-def _cmd_unported(args) -> int:
-    print(f"oryx_tpu_torch: {args.command}: {UNPORTED_COMMANDS[args.command]}"
-          f" is not part of this package yet", file=sys.stderr)
-    return 2
+def _cmd_mirror(args) -> int:
+    """The cross-region update-topic mirror (cluster/mirror.py): tails a
+    source region's update topic and replays it into this region's topic
+    with exactly-once-effective dedup, loop prevention and measured
+    staleness gauges."""
+    from ..cluster.mirror import MirrorLayer
+    config = _load_config(args.conf)
+    overlay = {}
+    if args.source_broker:
+        overlay["oryx.cluster.region.mirror.source-broker"] = \
+            args.source_broker
+    if args.source_region:
+        overlay["oryx.cluster.region.mirror.source-region"] = \
+            args.source_region
+    if overlay:
+        config = from_dict(overlay, config)
+    _run_layer(lambda: MirrorLayer(config), "mirror", config)
+    return 0
+
+
+def _cmd_autoscale(args) -> int:
+    """The gauge-driven supervisor (cluster/autoscaler.py): polls the
+    router's merged p99 buckets, measured queue wait, replica update lag
+    and SLO burn against ``oryx.cluster.autoscale.*`` and spawns or
+    retires supervised ``serving --shard i/N`` members on ``--device``."""
+    from ..cluster.autoscaler import run_autoscaler
+    config = _load_config(args.conf)
+    if args.router_url:
+        config = from_dict(
+            {"oryx.cluster.autoscale.router-url": args.router_url},
+            config)
+    return run_autoscaler(config, args.conf, device=args.device)
 
 
 def _topic_config(config: Config) -> list[tuple[str, str]]:
@@ -261,10 +283,12 @@ _COMMANDS = [
     ("router", _cmd_router,
      "run the cluster gateway: scatter-gather router over sharded "
      "serving replicas (see serving --shard)"),
-    ("autoscale", _cmd_unported,
-     "not part of this package yet: " + UNPORTED_COMMANDS["autoscale"]),
-    ("mirror", _cmd_unported,
-     "not part of this package yet: " + UNPORTED_COMMANDS["mirror"]),
+    ("autoscale", _cmd_autoscale,
+     "gauge-driven supervisor: spawn/retire serving replica-group "
+     "members from the router's p99 / queue-wait / update-lag signals"),
+    ("mirror", _cmd_mirror,
+     "cross-region update-topic mirror: replay a remote region's "
+     "update topic into this region's (exactly-once-effective)"),
     ("kafka-setup", _cmd_kafka_setup, "create/check topics"),
     ("kafka-tail", _cmd_kafka_tail, "print topic traffic"),
     ("kafka-input", _cmd_kafka_input, "send lines to input topic"),
@@ -287,7 +311,8 @@ def main(argv: list[str] | None = None) -> int:
         p = sub.add_parser(name, help=help_)
         p.add_argument("--conf", help="HOCON config file overlaying defaults")
         p.set_defaults(fn=fn)
-        if name in ("batch", "speed", "serving", "router", "warmup"):
+        if name in ("batch", "speed", "serving", "router", "autoscale",
+                    "warmup"):
             p.add_argument("--device", default=None,
                            help="torch device (default: the CUDA card; "
                                 "'cpu' runs on the host)")
@@ -305,6 +330,20 @@ def main(argv: list[str] | None = None) -> int:
             p.add_argument("--shard", default=None, metavar="i/N",
                            help="serve catalog shard i of N as a cluster "
                                 "replica (oryx.cluster.shard)")
+        if name == "autoscale":
+            p.add_argument("--router-url", default=None,
+                           help="router base URL to poll (overrides "
+                                "oryx.cluster.autoscale.router-url)")
+        if name == "mirror":
+            p.add_argument("--source-broker", default=None,
+                           help="remote region's update-topic broker "
+                                "(overrides oryx.cluster.region."
+                                "mirror.source-broker)")
+            p.add_argument("--source-region", default=None,
+                           help="name recorded as origin-region for "
+                                "records born at the source (overrides "
+                                "oryx.cluster.region.mirror."
+                                "source-region)")
         if name == "kafka-tail":
             p.add_argument("--once", action="store_true",
                            help="drain current contents and exit")

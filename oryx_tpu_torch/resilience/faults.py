@@ -1,8 +1,7 @@
 """Process-wide fault-injection registry.
 
-Counterpart of ``oryx_tpu/resilience/faults.py``, cut down to the modes
-the serving path's points use.  A call site declares a named injection
-point::
+Counterpart of ``oryx_tpu/resilience/faults.py``.  A call site declares
+a named injection point::
 
     faults.fire("route-measure-lsh")
 
@@ -19,7 +18,12 @@ mode       effect at the call site
 ========== ==========================================================
 ``error``  raise (the point's ``error`` factory, or the spec's, or
            :class:`InjectedFault`)
+``crash``  raise :class:`InjectedCrash` — a BaseException, so layer
+           code that survives ``Exception`` dies as if the process
+           were killed at that line
 ``delay``  sleep ``delay_sec``, then continue
+``hold``   park on the point's gate until :func:`release` (or a 30 s
+           safety cap) — a deterministic stall
 ``drop``   return ``"drop"`` — the call site discards the operation
 ``duplicate`` return ``"duplicate"`` — the call site performs the
            operation twice (a producer retry's redelivery)
@@ -36,7 +40,8 @@ replay, per record), ``transport-frame-stall`` (a replica's frame
 dispatcher, per stream), ``async-loop-block`` (the router's asyncio
 front end, per request, on the loop), ``router-cache-stale-feed`` (the
 result cache's invalidation tap) and ``router-coalesce-leader-death``
-(a coalescing leader at its flight's start).  ``configure_from_config`` arms any name, so a
+(a coalescing leader at its flight's start), and the mirror's
+``mirror-link-partition`` and ``mirror-crash-mid-replay``.  ``configure_from_config`` arms any name, so a
 chaos config written for the reference may arm a point of a module this
 package does not have yet, which then never fires.
 """
@@ -51,11 +56,11 @@ from ..common import clock as clockmod
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["InjectedFault", "inject", "clear", "fire", "fired",
-           "add_fire_listener", "remove_fire_listener",
-           "configure_from_config"]
+__all__ = ["InjectedFault", "InjectedCrash", "inject", "clear", "fire",
+           "fired", "release", "add_fire_listener",
+           "remove_fire_listener", "configure_from_config"]
 
-_MODES = ("error", "delay", "drop", "duplicate")
+_MODES = ("error", "crash", "delay", "hold", "drop", "duplicate")
 
 
 class InjectedFault(Exception):
@@ -63,8 +68,14 @@ class InjectedFault(Exception):
     stands in for."""
 
 
+class InjectedCrash(BaseException):
+    """A simulated process kill.  BaseException on purpose: the layers'
+    ``except Exception`` survival handlers must not absorb it, as they
+    could not absorb ``kill -9``."""
+
+
 class _Spec:
-    __slots__ = ("mode", "remaining", "delay_sec", "error")
+    __slots__ = ("mode", "remaining", "delay_sec", "error", "gate")
 
     def __init__(self, mode: str, times: int | None, delay_sec: float,
                  error: Callable[[], BaseException] | None):
@@ -74,6 +85,7 @@ class _Spec:
         self.remaining = times  # None = unlimited
         self.delay_sec = delay_sec
         self.error = error
+        self.gate = threading.Event() if mode == "hold" else None
 
 
 _LOCK = threading.Lock()
@@ -120,6 +132,16 @@ def fired(point: str) -> int:
         return _FIRED.get(point, 0)
 
 
+def release(point: str) -> None:
+    """Open a ``mode="hold"`` point's gate: every caller parked at the
+    point resumes, and later activations pass straight through."""
+    with _LOCK:
+        spec = _SPECS.get(point)
+        gate = spec.gate if spec is not None else None
+    if gate is not None:
+        gate.set()
+
+
 def add_fire_listener(fn) -> None:
     """Register ``fn(point, mode)`` to observe every consumed fault
     activation.  It is called after the spec is consumed and the lock
@@ -139,7 +161,8 @@ def remove_fire_listener(fn) -> None:
 def fire(point: str,
          error: Callable[[], BaseException] | None = None) -> str | None:
     """Consume one activation of ``point`` if armed: raise for
-    ``error``, sleep for ``delay``, return the mode for ``drop`` and
+    ``error`` and ``crash``, sleep for ``delay``, park on the gate for
+    ``hold``, return the mode for ``drop`` and
     ``duplicate`` (the call site acts), and None when the point is not
     armed.  ``error`` is the call site's
     exception factory; a factory on the spec overrides it."""
@@ -156,6 +179,7 @@ def fire(point: str,
         _FIRED[point] = _FIRED.get(point, 0) + 1
         mode, delay = spec.mode, spec.delay_sec
         factory = spec.error or error
+        gate = spec.gate
     _log.info("Fault fired: %s mode=%s", point, mode)
     for listener in _LISTENERS:
         try:
@@ -165,6 +189,13 @@ def fire(point: str,
     if mode == "delay":
         clockmod.sleep(delay)
         return None
+    if mode == "hold":
+        # safety cap: a test that forgets release() stalls one point
+        # for 30 s, not forever
+        clockmod.wait(gate, 30.0)
+        return None
+    if mode == "crash":
+        raise InjectedCrash(f"injected crash at {point}")
     if mode == "error":
         raise factory() if factory else InjectedFault(
             f"injected fault at {point}")

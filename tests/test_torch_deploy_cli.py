@@ -1,7 +1,8 @@
 """The port's operator CLI (``python -m oryx_tpu_torch``) against the
 reference's (``python -m oryx_tpu``): its example confs parse, the topic
 commands and ``config-to-properties`` print what the reference prints
-for the same conf, unported subcommands refuse by name, a serving layer
+for the same conf, ``mirror`` and ``autoscale`` run from the CLI on
+``file://`` brokers with ``--device cpu`` members, a serving layer
 started from the CLI on the CPU answers ``/recommend`` as the
 reference's layer does on the same ``file://`` update topic, then exits
 0 on SIGINT, and two ``serving --shard i/2`` replicas behind a
@@ -12,12 +13,14 @@ from __future__ import annotations
 
 import glob
 import http.client
+import http.server
 import json
 import os
 import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -29,7 +32,6 @@ from oryx_tpu.deploy.main import main as jmain
 from oryx_tpu.kafka import inproc as jinproc
 from oryx_tpu.lambda_rt.serving import ServingLayer as JaxLayer
 from oryx_tpu_torch.common.config import from_file
-from oryx_tpu_torch.deploy.main import UNPORTED_COMMANDS
 from oryx_tpu_torch.deploy.main import main as tmain
 from oryx_tpu_torch.kafka import inproc as tinproc
 from oryx_tpu_torch.lambda_rt.serving import ServingLayer as TorchLayer
@@ -129,11 +131,131 @@ def test_cli_rejects_unknown_command():
     assert e.value.code != 0
 
 
-@pytest.mark.parametrize("command", sorted(UNPORTED_COMMANDS))
-def test_unported_commands_refuse_by_name(command, capsys):
-    assert tmain([command]) != 0
-    err = capsys.readouterr().err
-    assert command in err and "not part of this package" in err
+def _mirror_cli(tmp_path, env):
+    """``mirror`` replays region A's ``file://`` update topic into
+    region B's with origin headers and a checkpoint, and exits 0 on
+    SIGINT."""
+    a_uri, b_uri = (f"file://{tmp_path / d}" for d in ("a", "b"))
+    conf = _write_conf(tmp_path, b_uri, **{
+        "cluster.region.name": "east",
+        "cluster.region.mirror.checkpoint-dir": str(tmp_path / "ckpt"),
+        "cluster.region.mirror.poll-interval-ms": 100})
+    producer = tinproc.InProcTopicProducer(a_uri, "CliUp")
+    for j in range(5):
+        producer.send("UP", json.dumps(["X", f"u{j}", [1.0, 2.0], []]))
+    producer.send("HB", '{"replica":"r"}')
+    producer.close()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "oryx_tpu_torch", "mirror", "--conf", conf,
+         "--source-broker", a_uri, "--source-region", "west"],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    dest = tinproc.resolve_broker(b_uri)
+    try:
+        def replayed():
+            return sum(dest.latest_offsets("CliUp")) == 5
+        _wait(replayed, "the mirror's replay")
+        recs = list(dest.read_ranges("CliUp", [0],
+                                     dest.latest_offsets("CliUp")))
+        assert [(km.key, km.headers["origin-region"],
+                 km.headers["origin-offset"]) for km in recs] == [
+            ("UP", "west", str(j)) for j in range(5)]
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(30) == 0, proc.stderr.read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        _drop(tmp_path / "a")
+        _drop(tmp_path / "b")
+    doc = json.loads((tmp_path / "ckpt" / "mirror-checkpoint.json")
+                     .read_text())
+    assert doc["source"] == {"0": 6}
+    assert doc["watermarks"] == {"west|0": 4}
+
+
+class _PressuredRouter(http.server.BaseHTTPRequestHandler):
+    """A router's ``/metrics``: one shard with no ready replica, and a
+    data-plane route whose slow bucket grows on every scrape."""
+    scrapes = [0]
+
+    def do_GET(self):
+        if "prometheus-json" in self.path:
+            self.scrapes[0] += 1
+            # the (200, 500] ms bucket of the 14
+            buckets = [0] * 8 + [10 * self.scrapes[0]] + [0] * 5
+            doc = {"routes": {"GET /recommend/{userID}": {
+                "latency_ms": {"buckets": buckets}}}}
+        else:
+            doc = {"cluster": {"membership": {"shards": 1, "replicas": {}},
+                               "scatter": {}}}
+        body = json.dumps(doc).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):
+        pass
+
+
+def _autoscale_cli(tmp_path, env):
+    """``autoscale --device cpu`` against a router under pressure spawns
+    one ``serving --shard 0/1 --device cpu`` member (its heartbeat lands
+    on the update topic), and on SIGINT stops it and exits 0."""
+    uri = f"file://{tmp_path / 'broker'}"
+    router = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                             _PressuredRouter)
+    threading.Thread(target=router.serve_forever, daemon=True).start()
+    work = tmp_path / "asg"
+    conf = _write_conf(tmp_path, uri, **{
+        "serving.model-manager-class":
+            "oryx_tpu_torch.app.als.serving_manager.ALSServingModelManager",
+        "serving.application-resources": "oryx_tpu_torch.serving.als",
+        "cluster.heartbeat-interval-ms": 200,
+        "cluster.autoscale.poll-interval-ms": 200,
+        "cluster.autoscale.p99-high-ms": 100,
+        "cluster.autoscale.cooldown-ms": 600000,
+        "cluster.autoscale.work-dir": str(work),
+        "compile-cache-dir": str(tmp_path / "cache")})
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "oryx_tpu_torch", "autoscale", "--conf",
+         conf, "--router-url",
+         f"http://127.0.0.1:{router.server_address[1]}", "--device", "cpu"],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    broker = tinproc.resolve_broker(uri)
+    try:
+        def heartbeat():
+            ends = broker.latest_offsets("CliUp")
+            return next((json.loads(km.message) for km in
+                         broker.read_ranges("CliUp", [0] * len(ends), ends)
+                         if km.key == "HB"), None)
+        _wait(lambda: heartbeat() is not None, "the member's heartbeat")
+        hb = heartbeat()
+        assert (hb["replica"], hb["shard"], hb["of"]) == ("asg-0of1-1", 0, 1)
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(60) == 0, proc.stderr.read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        router.shutdown()
+        _drop(tmp_path / "broker")
+    member_log = (work / "asg-0of1-1.log").read_text()
+    # the member ran on the host and was stopped by SIGINT
+    assert "serving: kernel launches=" in member_log
+    assert "--device" not in member_log
+    assert (work / "asg-0of1-1.conf").read_text().count(
+        'oryx.cluster.shard = "0/1"') == 1
+
+
+@pytest.mark.parametrize("command", ["autoscale", "mirror"])
+def test_lifted_commands_run_from_the_cli(tmp_path, command):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    {"mirror": _mirror_cli, "autoscale": _autoscale_cli}[command](
+        tmp_path, env)
 
 
 def test_help_lists_the_reference_subcommands(capsys):
@@ -154,13 +276,9 @@ def test_help_lists_the_reference_subcommands(capsys):
             "oryx_tpu_torch.app.als.serving_manager.ALSServingModelManager"},
      "oryx.serving.api.item-shards"),
     (["speed", "--shard", "1/2"], {}, "oryx.speed.shard"),
-    (["router", "--async"],
-     {"cluster.region.mirror.source-broker": "memory://far"},
-     "oryx.cluster.region.mirror.source-broker"),
 ])
 def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key):
-    """--shard (and the router's --async) pass the reference's overlay;
-    the layer refuses a key it does not serve yet at once, before the
+    """--shard passes the reference's overlay; the layer refuses a key it does not serve yet at once, before the
     supervisor's restart budget."""
     broker_dir = tmp_path / "broker"
     conf = _write_conf(tmp_path, f"file://{broker_dir}", **extra)

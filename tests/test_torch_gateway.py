@@ -2,8 +2,11 @@
 size on the CPU — replicas 1 and 2 over 4,096 items x 8 features, 1 s
 rungs, with the reference's fast path (asyncio front end, frames, the
 result cache) and its Zipf and coalescing rungs — writes every key of
-the reference's artifact, rows and report alike; the three options
-that wait for a later part of the package exit 2 naming their flag."""
+the reference's artifact, rows and report alike; ``--regions 2`` and
+``--ann`` write their ``mirror`` and ``ann`` blocks (a real mirror
+process, ANN and exact doors over one generation, 1 s rungs); the
+option that waits for a later part of the package exits 2 naming its
+flag."""
 
 from __future__ import annotations
 
@@ -75,10 +78,56 @@ def test_toy_cells_write_the_reference_artifact(tmp_path):
     assert set(report["scaling_vs_1"]) == {"1", "2"}
 
 
+@pytest.fixture(scope="module")
+def probes_report(tmp_path_factory):
+    """One toy run with the two-region mirror probe and the ANN rung
+    (its ladder cut to 1 s rungs up to 2 qps)."""
+    out = tmp_path_factory.mktemp("gw-probes") / "gw.json"
+    mp = pytest.MonkeyPatch()
+    mp.setattr(gateway, "ANN_LADDER_TOP_QPS", 2.0)
+    mp.setattr(gateway, "ANN_RUNG_MIN_S", 1.0)
+    try:
+        assert gateway.main([
+            "--replicas", "1", "--items", "4096", "--features", "8",
+            "--users", "50", "--rates", "20", "--duration", "1",
+            "--device", "cpu", "--sharded-publish", "8",
+            "--regions", "2", "--mirror-records", "200",
+            "--ann", "--ann-items", "8192", "--ann-cells", "16",
+            "--ann-nprobe", "4", "--out", str(out)]) == 0
+    finally:
+        mp.undo()
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("block", ["mirror", "ann"])
+def test_regions_and_ann_write_their_blocks(probes_report, block):
+    report = probes_report
+    row = report["rows"][0]
+    assert report[f"{block}_probe"] == row[block]
+    if block == "mirror":
+        assert report["regions"] == 2
+        mir = row["mirror"]
+        # every backlog record replayed once, at a measured speed
+        assert mir["replayed"] == 200 and mir["dedup_skips"] == 0
+        assert mir["catch_up_records_per_s"] > 0
+        assert mir["steady_staleness_ms"] is not None
+    else:
+        ann = row["ann"]
+        assert ann["items"] == 8192 and ann["cells"] == 16
+        assert ann["certificate"]["routable"] is True
+        assert ann["answers_match_exact"] is True
+        # the headline only where the route chose ivf; the routed kind
+        # and the cost table ride beside it either way
+        assert ann["ivf_routed"] == (ann["route_chosen"] == "ivf")
+        assert (ann["open_loop_sustained_qps"] is None) \
+            == (not ann["ivf_routed"])
+        assert ann["route_costs_exact_ms"]
+        assert ann["small_cell"]["served"] is True
+        assert ann["exact"]["ladder"] and ann["ladder"]
+
+
 @pytest.mark.parametrize("argv,flag", [
-    (["--regions", "2"], "--regions"),
     (["--write-heavy"], "--write-heavy"),
-    (["--ann"], "--ann"),
 ])
 def test_deferred_flags_exit_2_by_name(argv, flag, capsys, tmp_path):
     out = tmp_path / "never.json"

@@ -1,13 +1,14 @@
 """The port's ServingLayer and RouterLayer refuse, by name, each
 reference key whose feature the port does not have yet (item sharding
-over several cards, the region mirror), instead of constructing and
-quietly ignoring it; and each key that used to be refused now starts
-its layer and its feature answers: the observability keys (tracing, the
-SLO engine, the event log and the flight recorder), the serving
-cluster's replica mode (``oryx.cluster.enabled``), TLS
-(``keystore-file``), DIGEST auth (``user-name`` and ``password``), the
-replica's framed transport and shard cache, and the router's result
-cache, coalescing, asyncio front end and framed transport."""
+over several cards), instead of constructing and quietly ignoring it;
+and each key that used to be refused now starts its layer and its
+feature answers: the observability keys (tracing, the SLO engine, the
+event log and the flight recorder), the serving cluster's replica mode
+(``oryx.cluster.enabled``), TLS (``keystore-file``), DIGEST auth
+(``user-name`` and ``password``), the replica's framed transport and
+shard cache, the router's result cache, coalescing, asyncio front end
+and framed transport, and the region mirror's keys, which configure the
+mirror process and which the router accepts."""
 
 import http.client
 import json
@@ -48,13 +49,17 @@ ROUTER_BASE = {"oryx.update-topic.broker": "memory://refusals",
     ("oryx.cluster.region.mirror.source-topic", "FarUpdate"),
     ("oryx.cluster.region.mirror.checkpoint-dir", "/tmp/mirror"),
 ])
-def test_router_refuses_unported_key_by_name(key, value):
-    cfg = tconfig.from_dict({**ROUTER_BASE, key: value})
-    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-        RouterLayer(cfg, port=0, device="cpu")
-    # at the defaults the router constructs
-    RouterLayer(tconfig.from_dict(ROUTER_BASE), port=0,
-                device="cpu").scatter.close()
+def test_router_accepts_the_mirror_key(key, value):
+    """The mirror's keys configure the mirror process that reads the
+    same conf: the router starts with each, and its ``/admin/region``
+    answers the region's name and the router's block."""
+    cfg = tconfig.from_dict({**ROUTER_BASE, key: value,
+                             "oryx.cluster.region.name": "east"})
+    with RouterLayer(cfg, port=0, device="cpu") as router:
+        status, body = _get(router.port, "/admin/region")
+    assert status == 200, body
+    region = json.loads(body)
+    assert region["region"] == "east" and region["role"] == "router"
 
 
 @pytest.mark.parametrize("key", ["oryx.cluster.cache.enabled",

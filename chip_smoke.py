@@ -418,11 +418,42 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     steady staleness, catch-up records/s over the healed partition,
     dedup skips, loop and heartbeat drops, the autoscaler's signal,
     spawn to member ready and retirement seconds).
+14. The sharded speed layer over the Kafka wire protocol
+    (``speed_shard``), on phase 5b's generation (``--phases speed_shard``
+    alone makes 5b's data and generation itself).  Right after phase 5b
+    the port's ``MiniKafkaBroker`` starts in this process on
+    ``127.0.0.1:0``, ``python -m oryx_tpu_torch kafka-setup`` makes the
+    input (4 partitions) and update (1) topics at its address, 5b's
+    MODEL-REF record (rank 100, 8 slices, its manifest envelope) is
+    copied onto the wire update topic, and ``speed --shard 0/2`` and
+    ``1/2`` start on the card with ``oryx.speed.checkpoint-dir`` and
+    their side doors, so that their loads overlap phases 6-13.  Both
+    hold their first UP publish 3 s (``speed-publish`` armed as a delay
+    once), so that both fold against the generation; worker 0 also arms
+    ``speed-crash-mid-batch`` as ``crash`` once.  Phase 14 sends 5b's
+    2,000 /pref events through the port's ``KafkaTopicProducer`` in one
+    Produce request.  Each a failure of the run: (a) worker 0 dies after
+    its batch's publishes and before its commit, its checkpoint's
+    ``pending`` set, and restarted without the fault on the same
+    checkpoint reports ``speed_shard_dedup_skips`` equal to that batch's
+    UP count and republishes nothing; (b) every (``speed-shard``,
+    ``speed-batch``, ``speed-seq``) triple on the update topic is
+    unique, every aggregated (user, item) pair has its X and its Y
+    record exactly once across the workers, and each worker folded only
+    items its ring slot owns (its logged skips are the ring's count);
+    (c) every UP vector lies within rtol 1e-4, atol 1e-5 of phase 5b's
+    float64 host loop on the generation's vectors; (d) each worker's
+    committed input offsets (OffsetFetch over the wire) and its
+    checkpoint's fence equal the input's end offsets, nothing pending.
+    A ``speed_shard`` line: each worker's spawn-to-loaded, model-load
+    and build seconds, worker 1's micro-batch seconds, the events each
+    folded and skipped, the UP records, the dedup skips, the seconds
+    from restart to recovery, and the phase's seconds.
 
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
 topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
-deploy = 9, obs = 10, cluster = 11, cluster_fast = 12, regions = 13);
-the default runs every phase. A
+deploy = 9, obs = 10, cluster = 11, cluster_fast = 12, regions = 13,
+speed_shard = 14); the default runs every phase. A
 partial run still ends with the two summary lines, its ``kernels`` line
 listing only what it ran.
 
@@ -679,11 +710,18 @@ AUTOSCALE_PRESSURE_S = 120.0
 TRICKLE_GAP_S = 0.02
 # the thinnest group is shard 0 (both hold one replica; lowest id first)
 MEMBER_ID = "asg-0of2-1"
+# phase 14: two speed workers over the Kafka wire broker on phase 5b's
+# generation; each holds its first UP publish this long, so that both
+# fold the generation before either's updates reach the other
+SHARD_COUNT = 2
+SHARD_HOLD_MS = 3_000
+SHARD_WAIT_S = 300.0
 KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
-          "deploy", "obs", "cluster", "cluster_fast", "regions")
+          "deploy", "obs", "cluster", "cluster_fast", "regions",
+          "speed_shard")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -2313,21 +2351,25 @@ def loop_config(work_dir: str):
     }, from_file(conf))
 
 
-def lambda_data(work_dir: str) -> None:
+def lambda_data(work_dir: str, ml20m: bool = True) -> None:
     """Phase 5's data, made in a child process while the card works on
     phases 2-4; touches no card.  The MovieLens-20M-shaped interactions
-    5a trains on go to ``ml20m.npz``; 250,000 more drawn interactions
-    over half its users and all its items go onto 5b's input topic as
+    5a trains on go to ``ml20m.npz`` (unless ``ml20m`` is false: phase
+    14 alone trains no 5a); 250,000 more drawn interactions over half
+    its users and all its items go onto 5b's input topic as
     ``u,i,strength,ts`` lines, timestamps in random order (so the
     generation's time split holds out a random tenth)."""
     from oryx_tpu_torch.bench.train import synthesize_movielens
     from oryx_tpu_torch.kafka import utils as kafka_utils
     from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
     t0 = time.perf_counter()
-    users, items, values, _, _ = synthesize_movielens(
-        ML_USERS, ML_ITEMS, ML_RATINGS, seed=TRAIN_SEED)
-    np.savez(os.path.join(work_dir, "ml20m.npz"), users=users, items=items,
-             values=values)
+    ml20m_pairs = 0
+    if ml20m:
+        users, items, values, _, _ = synthesize_movielens(
+            ML_USERS, ML_ITEMS, ML_RATINGS, seed=TRAIN_SEED)
+        np.savez(os.path.join(work_dir, "ml20m.npz"), users=users,
+                 items=items, values=values)
+        ml20m_pairs = int(users.shape[0])
     synth_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cfg = loop_config(work_dir)
@@ -2348,8 +2390,7 @@ def lambda_data(work_dir: str) -> None:
                 values[s:s + chunk].tolist(), ts[s:s + chunk].tolist())])
     with open(os.path.join(work_dir, "lambda_data.json"), "w",
               encoding="utf-8") as f:
-        json.dump({"ml20m_pairs": int(np.load(os.path.join(
-            work_dir, "ml20m.npz"))["users"].shape[0]), "synth_s": synth_s,
+        json.dump({"ml20m_pairs": ml20m_pairs, "synth_s": synth_s,
             "loop_lines": len(users),
             "loop_write_s": time.perf_counter() - t0}, f)
 
@@ -2513,6 +2554,20 @@ def expected_ups(new_data, snap: dict, implicit: bool) -> dict:
     return out
 
 
+def pref_events(x_ids: list, y_ids: list) -> tuple:
+    """(the rng, then drawn on, the users, the ``PREF_EVENTS`` (user,
+    item, strength) events) of phase 5b's /pref round, over the
+    generation's ids; phase 14 sends the same events."""
+    rng = np.random.default_rng(LOOP_SEED + 1)
+    pref_users = [x_ids[j] for j in rng.choice(len(x_ids), PREF_USERS,
+                                               replace=False)]
+    events = [(pref_users[j % PREF_USERS],
+               y_ids[int(rng.integers(len(y_ids)))],
+               f"{rng.uniform(0.5, 3.0):.3f}")
+              for j in range(PREF_EVENTS)]
+    return rng, pref_users, events
+
+
 def lambda_loop(work_dir: str, lam: float) -> dict:
     """Phase 5b: one batch generation, the serving and speed layers
     loading it, /pref events through the serving layer's HTTP, one speed
@@ -2611,13 +2666,7 @@ def lambda_loop(work_dir: str, lam: float) -> dict:
         broker.set_offsets(speed._group, in_topic,
                            broker.latest_offsets(in_topic))
         in_before = broker.latest_offsets(in_topic)
-        rng = np.random.default_rng(LOOP_SEED + 1)
-        pref_users = [x_ids[j] for j in rng.choice(len(x_ids), PREF_USERS,
-                                                   replace=False)]
-        events = [(pref_users[j % PREF_USERS],
-                   y_ids[int(rng.integers(len(y_ids)))],
-                   f"{rng.uniform(0.5, 3.0):.3f}")
-                  for j in range(PREF_EVENTS)]
+        rng, pref_users, events = pref_events(x_ids, y_ids)
         t0 = time.perf_counter()
         # the first /pref arrives sampled: its trace follows the record
         # to the speed layer's fold-in
@@ -6477,6 +6526,397 @@ def regions_phase(publisher, work_dir: str, region: dict,
     return line
 
 
+# -- phase 14: the sharded speed layer over the Kafka wire broker ------------
+
+def shard_generation(work_dir: str) -> None:
+    """Phase 5b's data and generation, for ``--phases speed_shard``
+    without ``lambda``: the 250,000 loop lines (no 5a data) and one batch
+    generation of the port's batch layer on the card, which publishes
+    the sliced MODEL-REF phase 14 copies."""
+    from oryx_tpu_torch.lambda_rt.batch import BatchLayer
+    t0 = time.perf_counter()
+    lambda_data(work_dir, ml20m=False)
+    batch = BatchLayer(loop_config(work_dir), device=DEVICE)
+    try:
+        batch.run_one_generation()
+    finally:
+        batch.close()
+    log({"phase": "speed_shard_generation",
+         "seconds": time.perf_counter() - t0})
+    free()
+
+
+def shard_model_ref(work_dir: str) -> str:
+    """Phase 5b's MODEL-REF record (the manifest envelope and all), off
+    the loop's ``file://`` update topic."""
+    from oryx_tpu_torch.kafka.inproc import resolve_broker
+    cfg = loop_config(work_dir)
+    broker = resolve_broker(cfg.get_string("oryx.update-topic.broker"))
+    topic = cfg.get_string("oryx.update-topic.message.topic")
+    ends = broker.latest_offsets(topic)
+    refs = [m.message for m in broker.read_ranges(topic, [0] * len(ends),
+                                                  ends)
+            if m.key == "MODEL-REF"]
+    check(len(refs) == 1, f"speed_shard: {len(refs)} MODEL-REF records "
+          f"on the loop's update topic")
+    return refs[0]
+
+
+def shard_overlay(shards: dict, shard: int, crash: bool) -> dict:
+    """A worker's keys over the port's example config: the wire broker,
+    the checkpoint directory, its side door, a 1 s micro-batch, and the
+    hold on its first UP publish; worker 0's first incarnation also
+    arms the crash point between the publishes and the commit."""
+    from oryx_tpu_torch.ops import cuda_build
+    overlay = {
+        "oryx.id": "shard-smoke",
+        "oryx.input-topic.broker": shards["bootstrap"],
+        "oryx.update-topic.broker": shards["bootstrap"],
+        "oryx.speed.checkpoint-dir": shards["checkpoint_dir"],
+        "oryx.speed.streaming.generation-interval-sec": 1,
+        "oryx.obs.metrics-port": shards["ports"][shard],
+        "oryx.resilience.supervisor.enabled": False,
+        "oryx.compile-cache-dir": str(cuda_build.BUILD_DIR.parent)}
+    if crash:
+        overlay["oryx.resilience.faults.speed-publish"] = {
+            "mode": "delay", "times": 1, "delay-ms": SHARD_HOLD_MS}
+    if crash and shard == 0:
+        overlay["oryx.resilience.faults.speed-crash-mid-batch"] = {
+            "mode": "crash", "times": 1}
+    return overlay
+
+
+def start_speed_shard(shards: dict, shard: int, crash: bool):
+    name = f"shard{shard}" + ("" if crash else "_restart")
+    conf = write_conf(os.path.join(shards["dir"], f"{name}.conf"),
+                      shard_overlay(shards, shard, crash))
+    return start_command(["speed", "--shard", f"{shard}/{SHARD_COUNT}",
+                          "--conf", conf, *device_args()],
+                         shards["logs"][shard])
+
+
+def start_speed_shards(work_dir: str) -> dict:
+    """Phase 14's set-up, started right after phase 5b so that the two
+    workers' loads overlap the phases between: the port's
+    MiniKafkaBroker in this process, the topics made by ``kafka-setup``
+    at its address (the example config's partition counts), phase 5b's
+    MODEL-REF copied onto the wire update topic, and ``speed --shard
+    i/2`` for both slices on the card."""
+    from oryx_tpu_torch.common.config import from_file
+    from oryx_tpu_torch.kafka.client import KafkaTopicProducer
+    from oryx_tpu_torch.kafka.mini_broker import MiniKafkaBroker
+    t0 = time.perf_counter()
+    shard_dir = os.path.join(work_dir, "speed_shard")
+    os.makedirs(shard_dir)
+    mini = MiniKafkaBroker()
+    shards = {"dir": shard_dir, "mini": mini, "bootstrap": mini.bootstrap,
+              "checkpoint_dir": os.path.join(shard_dir, "checkpoints"),
+              "ports": [free_port() for _ in range(SHARD_COUNT)],
+              "logs": [os.path.join(shard_dir, f"shard{i}.log")
+                       for i in range(SHARD_COUNT)],
+              "procs": [], "model_ref": shard_model_ref(work_dir)}
+    try:
+        conf = write_conf(os.path.join(shard_dir, "setup.conf"),
+                          shard_overlay(shards, 0, False))
+        setup = subprocess.run(
+            [sys.executable, "-m", "oryx_tpu_torch", "kafka-setup", "--conf",
+             conf], cwd=REPO, env=cli_env(), capture_output=True, text=True,
+            timeout=120)
+        check(setup.returncode == 0 and setup.stdout.count(": exists") == 2,
+              f"speed_shard: kafka-setup exited {setup.returncode}: "
+              f"{setup.stdout}{setup.stderr[-2000:]}")
+        shards["setup_s"] = time.perf_counter() - t0
+        cfg = from_file(conf)
+        shards["in_topic"] = cfg.get_string("oryx.input-topic.message.topic")
+        shards["up_topic"] = cfg.get_string(
+            "oryx.update-topic.message.topic")
+        KafkaTopicProducer(mini.bootstrap, shards["up_topic"]).send(
+            "MODEL-REF", shards["model_ref"])
+        shards["t_spawn"] = time.perf_counter()
+        shards["procs"] = [start_speed_shard(shards, i, True)
+                           for i in range(SHARD_COUNT)]
+    except BaseException:
+        stop_speed_shards(shards)
+        raise
+    return shards
+
+
+def stop_speed_shards(shards: dict | None) -> None:
+    if not shards:
+        return
+    for proc in shards["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(30)
+    shards["mini"].close()
+
+
+def shard_metrics(shards: dict, shard: int) -> dict:
+    """A worker's side-door ``/metrics`` ({} while its process starts)."""
+    try:
+        status, body, _ = http_call(shards["ports"][shard], "GET",
+                                    "/metrics")
+    except OSError:
+        return {"counters": {}, "freshness": {}}
+    return json.loads(body) if status == 200 else \
+        {"counters": {}, "freshness": {}}
+
+
+def log_seconds(path: str, first: str, last: str) -> float | None:
+    """Seconds between the log lines matching ``first`` and ``last``
+    (the first of each), from their timestamps."""
+    import datetime
+    stamps = {}
+    with open(path, encoding="utf-8", errors="replace") as f:
+        for line in f:
+            for key, pattern in (("a", first), ("b", last)):
+                if key not in stamps and re.search(pattern, line):
+                    m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d+)",
+                                 line)
+                    if m:
+                        stamps[key] = datetime.datetime.strptime(
+                            m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+    if len(stamps) < 2:
+        return None
+    return (stamps["b"] - stamps["a"]).total_seconds()
+
+
+def generation_snapshot(model_ref: str) -> tuple:
+    """(the generation's PMML path, X ids, Y ids, implicit flag) and a
+    function giving its X and Y vectors by id with their Gramians in
+    float64, from the MODEL-REF's slices on the local store: the speed
+    model's state before any micro-batch."""
+    from oryx_tpu_torch.app.als import slices
+    from oryx_tpu_torch.common import pmml as pmml_io
+    path, model_dir, manifest = slices.parse_model_ref(model_ref)
+    model_dir = model_dir or path.rsplit("/", 1)[0]
+    doc = pmml_io.read(path)
+    features = int(pmml_io.get_extension_value(doc, "features"))
+
+    def vectors() -> dict:
+        snap = {"X": {}, "Y": {}}
+        rows = {"X": [], "Y": []}
+        for entry in manifest["slices"]:
+            ids, matrix, _ = slices.read_slice(model_dir, entry, features)
+            rows["Y"].append(np.asarray(matrix, np.float64))
+            snap["Y"].update(zip(ids, rows["Y"][-1]))
+        x_ids, X, _ = slices.read_x_known(model_dir, manifest["x"],
+                                          features)
+        rows["X"].append(np.asarray(X, np.float64))
+        snap["X"].update(zip(x_ids, rows["X"][-1]))
+        for side in ("X", "Y"):
+            m = np.concatenate(rows[side])
+            snap[f"{side}t{side}"] = m.T @ m
+        return snap
+
+    return (pmml_io.get_extension_content(doc, "XIDs"),
+            pmml_io.get_extension_content(doc, "YIDs"),
+            pmml_io.get_extension_value(doc, "implicit") == "true", vectors)
+
+
+def speed_shard_phase(shards: dict) -> dict:
+    """Phase 14: phase 5b's 2,000 /pref events through the port's
+    KafkaTopicProducer onto the wire input topic, folded by two ``speed
+    --shard i/2`` workers on the card, worker 0 killed between its
+    publishes and its commit and restarted on its checkpoint; checks
+    a-d and the ``speed_shard`` line."""
+    from oryx_tpu_torch.cluster.sharding import is_local_item
+    from oryx_tpu_torch.kafka.client import KafkaTopicProducer
+    from oryx_tpu_torch.kafka.inproc import resolve_broker
+    from oryx_tpu_torch.lambda_rt.speed_checkpoint import (
+        H_SPEED_BATCH, H_SPEED_SEQ, H_SPEED_SHARD)
+    t_phase = time.perf_counter()
+    broker = resolve_broker(shards["bootstrap"])
+    in_topic, up_topic = shards["in_topic"], shards["up_topic"]
+    procs, logs = shards["procs"], shards["logs"]
+    x_ids, y_ids, implicit, vectors = generation_snapshot(
+        shards["model_ref"])
+
+    # both workers loaded the generation and pinned their fence
+    def loaded(i: int) -> bool:
+        check(procs[i].poll() is None, f"speed_shard: worker {i} exited "
+              f"{procs[i].poll()} while loading:\n"
+              + open(logs[i], errors="replace").read()[-3000:])
+        fresh = shard_metrics(shards, i)["freshness"]
+        return bool(log_match(logs[i], "Model updated")) \
+            and fresh.get("update_lag_records") == 0 \
+            and fresh.get("speed_checkpoint_age_sec") is not None
+
+    loaded_s = []
+    for i in range(SHARD_COUNT):
+        wait_for(lambda i=i: loaded(i), f"speed_shard: worker {i}'s load",
+                 SHARD_WAIT_S)
+        loaded_s.append(time.perf_counter() - shards["t_spawn"])
+    waited_s = time.perf_counter() - t_phase
+
+    # the events, all in one Produce request: every worker's micro-batch
+    # reads all of them or none
+    _, _, events = pref_events(x_ids, y_ids)
+    ts = int(time.time() * 1000)
+    lines = [f"{u},{i},{v},{ts + j}" for j, (u, i, v) in enumerate(events)]
+    in_before = broker.latest_offsets(in_topic)
+    t_post = time.perf_counter()
+    KafkaTopicProducer(shards["bootstrap"], in_topic).send_many(
+        [(None, line, {"ts": str(ts)}) for line in lines])
+    in_ends = broker.latest_offsets(in_topic)
+    check(sum(in_ends) - sum(in_before) == PREF_EVENTS,
+          f"speed_shard: {sum(in_ends) - sum(in_before)} of {PREF_EVENTS} "
+          f"events on the input topic")
+    new_data = broker.read_ranges(in_topic, in_before, in_ends)
+    # the float64 loop on the generation, while the workers fold
+    want = expected_ups(new_data, vectors(), implicit)
+
+    # a. worker 0 dies after its publishes, before its commit
+    try:
+        crash_rc = procs[0].wait(SHARD_WAIT_S)
+    except subprocess.TimeoutExpired:
+        crash_rc = None
+    crash_s = time.perf_counter() - t_post
+    worker0_log = open(logs[0], errors="replace").read()
+    check(crash_rc is not None and "injected crash at "
+          "speed-crash-mid-batch" in worker0_log,
+          f"speed_shard: worker 0 did not die at the crash point "
+          f"({crash_rc}):\n{worker0_log[-3000:]}")
+    ckpt_path = [os.path.join(shards["checkpoint_dir"],
+                              f"shard-{i}-of-{SHARD_COUNT}",
+                              "speed-checkpoint.json")
+                 for i in range(SHARD_COUNT)]
+
+    def checkpoint(i: int) -> dict:
+        with open(ckpt_path[i], encoding="utf-8") as f:
+            return json.load(f)
+
+    staged = checkpoint(0)["pending"]
+    check(staged is not None and staged["ends"] == in_ends,
+          f"speed_shard: worker 0's checkpoint after the crash: {staged}")
+    n_staged = len(staged["updates"])
+    check(n_staged > 0, "speed_shard: worker 0 staged no update")
+    # the restart on the same checkpoint, no fault: every staged record
+    # is found in the log (so all had landed before the crash), none is
+    # republished
+    t_restart = time.perf_counter()
+    procs[0] = start_speed_shard(shards, 0, False)
+    # worker 1 folds and commits its half meanwhile
+    wait_for(lambda: shard_metrics(shards, 1)["freshness"].get(
+        "input_lag_records") == 0, "speed_shard: worker 1's commit",
+        SHARD_WAIT_S)
+    fresh1 = shard_metrics(shards, 1)["freshness"]
+    check(fresh1.get("micro_batch_records") == PREF_EVENTS,
+          f"speed_shard: worker 1 read {fresh1}")
+    wait_for(lambda: procs[0].poll() is None and shard_metrics(
+        shards, 0)["counters"].get("speed_shard_dedup_skips") is not None
+        and shard_metrics(shards, 0)["freshness"].get(
+            "input_lag_records") == 0,
+        "speed_shard: worker 0's recovery", SHARD_WAIT_S)
+    recovery_s = time.perf_counter() - t_restart
+    dedup = shard_metrics(shards, 0)["counters"]["speed_shard_dedup_skips"]
+    check(dedup == n_staged, f"speed_shard: {dedup} dedup skips for "
+          f"{n_staged} staged updates")
+    # both workers stop while the topic is read
+    for proc in procs:
+        proc.send_signal(signal.SIGINT)
+
+    # b. exactly once: unique identities, each pair's X and Y once, each
+    # worker on its own ring slots
+    ends = broker.latest_offsets(up_topic)
+    ups = [km for km in broker.read_ranges(up_topic, [0] * len(ends), ends)
+           if km.key == "UP"]
+    triples = [tuple((km.headers or {}).get(h) for h in (
+        H_SPEED_SHARD, H_SPEED_BATCH, H_SPEED_SEQ)) for km in ups]
+    check(None not in {t[0] for t in triples}
+          and len(set(triples)) == len(triples),
+          f"speed_shard: {len(triples) - len(set(triples))} repeated "
+          f"(shard, batch, seq) identities")
+    got, per_worker = {}, {f"{i}/{SHARD_COUNT}": 0
+                           for i in range(SHARD_COUNT)}
+    for km, (tag, _, _) in zip(ups, triples):
+        kind, id_, vec, other = json.loads(km.message)
+        key = (kind, id_, other[0])
+        check(key not in got, f"speed_shard: {key} published twice")
+        got[key] = np.asarray(vec, np.float64)
+        item = id_ if kind == "Y" else other[0]
+        check(is_local_item(item, int(tag.split("/")[0]), SHARD_COUNT),
+              f"speed_shard: worker {tag} folded {item}, not its own")
+        per_worker[tag] += 1
+    check(per_worker[f"0/{SHARD_COUNT}"] == n_staged,
+          f"speed_shard: worker 0 staged {n_staged} updates, the topic "
+          f"holds {per_worker[f'0/{SHARD_COUNT}']} (the restart "
+          f"republished, or the crash lost some)")
+    pairs = {(u, i) for u, i, _ in events}
+    check(set(got) == set(want)
+          and {(k[1], k[2]) for k in want if k[0] == "X"} == pairs
+          and {(k[2], k[1]) for k in want if k[0] == "Y"} == pairs,
+          f"speed_shard: {len(got)} UP records for {len(want)} expected "
+          f"({len(set(got) ^ set(want))} differ) over {len(pairs)} pairs")
+
+    # c. the vectors against the float64 host loop on the generation
+    err = max(float(np.max(np.abs(got[k] - v) / (FOLD_ATOL + FOLD_RTOL
+                                                * np.abs(v))))
+              for k, v in want.items())
+    check(err <= 1.0, f"speed_shard: an UP vector is {err} times the "
+          f"fold-in tolerance from the float64 loop")
+    max_abs = max(float(np.max(np.abs(got[k] - v))) for k, v in want.items())
+
+    # d. the offsets: each group's commits over the wire and each
+    # checkpoint's fence at the input's end, nothing pending
+    for i in range(SHARD_COUNT):
+        group = f"OryxGroup-SpeedLayer-shard-smoke-{i}x{SHARD_COUNT}"
+        committed = broker.get_offsets(group, in_topic)
+        check(committed == in_ends, f"speed_shard: worker {i}'s group "
+              f"committed {committed}, the input ends at {in_ends}")
+        doc = checkpoint(i)
+        check(doc["pending"] is None and [doc["input"].get(str(p)) for p
+                                          in range(len(in_ends))] == in_ends,
+              f"speed_shard: worker {i}'s checkpoint {doc['input']}, "
+              f"pending {doc['pending'] is not None}")
+    for i, proc in enumerate(procs):
+        try:
+            rc = proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+            rc = None
+        check(rc == 0, f"speed_shard: worker {i} exited {rc} on SIGINT")
+
+    # e. each worker's load, micro-batch, and the events it folded
+    workers = []
+    owned_total = 0
+    for i in range(SHARD_COUNT):
+        tag = f"{i}/{SHARD_COUNT}"
+        batch = [m for m in log_match(
+            logs[i], r"Micro-batch of (\d+) records: (\d+) updates built "
+                     r"in ([0-9.]+) s \((\d+) remote events skipped")]
+        check(len(batch) == 1 and int(batch[0][0]) == PREF_EVENTS,
+              f"speed_shard: worker {i}'s micro-batches: {batch}")
+        skipped = int(batch[0][3])
+        owned = sum(is_local_item(it, i, SHARD_COUNT) for _, it, _ in events)
+        check(skipped == PREF_EVENTS - owned,
+              f"speed_shard: worker {i} skipped {skipped}, the ring gives "
+              f"it {owned} of {PREF_EVENTS}")
+        owned_total += owned
+        workers.append({
+            "shard": tag, "spawn_to_loaded_s": loaded_s[i],
+            "model_load_s": log_seconds(logs[i], "Loading new model",
+                                        "Model updated"),
+            "build_s": float(batch[0][2]),
+            "micro_batch_s": (fresh1["micro_batch_duration_ms"] / 1e3
+                              if i == 1 else None),
+            "events_folded": owned, "skipped_remote_events": skipped,
+            "up_records": per_worker[tag]})
+    check(owned_total == PREF_EVENTS, "speed_shard: the ring split lost "
+          "events")
+    line = {"phase": "speed_shard", "broker": "MiniKafkaBroker (wire)",
+            "events": PREF_EVENTS, "pairs": len(pairs),
+            "workers": workers, "hold_ms": SHARD_HOLD_MS,
+            "setup_s": shards["setup_s"], "waited_for_loads_s": waited_s,
+            "post_to_crash_s": crash_s, "crash_exit_code": crash_rc,
+            "staged_updates": n_staged, "dedup_skips": dedup,
+            "restart_to_recovery_s": recovery_s, "up_records": len(ups),
+            "up_max_abs_err": max_abs, "up_err_of_tolerance": err,
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    return line
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -6581,71 +7021,85 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         # update topic (BASELINE.md:37)
         serves["1M_50f_f32_lsh0.3_topic"] = serve_update_topic(
             children["publisher"], work_dir, rng, trace_dir)
-    if "lambda" in phases:
-        lambda_phase(children["preparer"], work_dir)
-    # phase 6: the IVF index at the protocol catalog, the k-means app at
-    # the bench's shape and through its loop, then the index's load path
-    # (last: its generation is the slowest child's work)
-    if "ann" in phases:
-        ann_at_scale(rng)
-        free()
-    if "kmeans" in phases:
-        kmeans_at_scale()
-        free()
-        kmeans_loop(work_dir)
-        free()
-    if "ann" in phases:
-        ann_topic(children["ann_publisher"], work_dir)
-        free()
-    if "rdf" in phases:
-        # phase 7: the random decision forest app, its trainer at the
-        # bench's shape and its lambda loop
-        rdf_at_scale()
-        free()
-        rdf_loop(work_dir)
-        free()
-    if "bench" in phases:
-        # phase 8: the benches and the probe kernels
-        entries += bench_phase()
-        free()
-    deploy = None
-    if "deploy" in phases:
-        # phase 9: the operator entry point, warmup and the kernel cache
-        deploy = deploy_phase(children["publisher"], work_dir)
-    obs = None
-    if "obs" in phases:
-        # phase 10: the observability surface on phase 4's model
-        obs = obs_phase(children["publisher"], work_dir,
-                        serves.get("1M_50f_f32_lsh0.3_topic"))
-        free()
-    cluster = fast = region = regions = None
-    if "cluster_fast" in phases:
-        # phase 12's replicas start now: their start overlaps phase 11
-        fast = start_fast_replicas(work_dir)
-    if "regions" in phases:
-        # phase 13's region B too: it loads while phases 11-12 run
-        region = start_region_b(work_dir)
+    shards = None
     try:
-        if "cluster" in phases:
-            # phase 11: two replicas and the router on one card
-            cluster = cluster_phase(children["cluster_publisher"],
-                                    work_dir, fast, region)
+        if "lambda" in phases:
+            lambda_phase(children["preparer"], work_dir)
+            if "speed_shard" in phases:
+                # phase 14's workers start now: their loads overlap the
+                # phases between
+                shards = start_speed_shards(work_dir)
+        # phase 6: the IVF index at the protocol catalog, the k-means app at
+        # the bench's shape and through its loop, then the index's load path
+        # (last: its generation is the slowest child's work)
+        if "ann" in phases:
+            ann_at_scale(rng)
             free()
-        if fast is not None:
-            # phase 12: the fast path on phase 11's model
-            fast = cluster_fast_phase(children["cluster_publisher"],
-                                      work_dir, fast, cluster)
+        if "kmeans" in phases:
+            kmeans_at_scale()
             free()
-        if region is not None:
-            # phase 13: region B through the mirror, and the autoscaler
-            regions = regions_phase(children["cluster_publisher"],
-                                    work_dir, region, cluster)
+            kmeans_loop(work_dir)
             free()
+        if "ann" in phases:
+            ann_topic(children["ann_publisher"], work_dir)
+            free()
+        if "rdf" in phases:
+            # phase 7: the random decision forest app, its trainer at the
+            # bench's shape and its lambda loop
+            rdf_at_scale()
+            free()
+            rdf_loop(work_dir)
+            free()
+        if "bench" in phases:
+            # phase 8: the benches and the probe kernels
+            entries += bench_phase()
+            free()
+        deploy = None
+        if "deploy" in phases:
+            # phase 9: the operator entry point, warmup and the kernel cache
+            deploy = deploy_phase(children["publisher"], work_dir)
+        obs = None
+        if "obs" in phases:
+            # phase 10: the observability surface on phase 4's model
+            obs = obs_phase(children["publisher"], work_dir,
+                            serves.get("1M_50f_f32_lsh0.3_topic"))
+            free()
+        cluster = fast = region = regions = None
+        if "cluster_fast" in phases:
+            # phase 12's replicas start now: their start overlaps phase 11
+            fast = start_fast_replicas(work_dir)
+        if "regions" in phases:
+            # phase 13's region B too: it loads while phases 11-12 run
+            region = start_region_b(work_dir)
+        try:
+            if "cluster" in phases:
+                # phase 11: two replicas and the router on one card
+                cluster = cluster_phase(children["cluster_publisher"],
+                                        work_dir, fast, region)
+                free()
+            if fast is not None:
+                # phase 12: the fast path on phase 11's model
+                fast = cluster_fast_phase(children["cluster_publisher"],
+                                          work_dir, fast, cluster)
+                free()
+            if region is not None:
+                # phase 13: region B through the mirror, and the autoscaler
+                regions = regions_phase(children["cluster_publisher"],
+                                        work_dir, region, cluster)
+                free()
+        finally:
+            if isinstance(fast, dict) and "pipes" in fast:
+                stop_replicas(fast["pipes"], fast["procs"])
+            if region is not None:
+                stop_region_b(region)
+        if "speed_shard" in phases:
+            # phase 14: the sharded speed layer over the wire broker
+            if shards is None:
+                shard_generation(work_dir)
+                shards = start_speed_shards(work_dir)
+            speed_shard_phase(shards)
     finally:
-        if isinstance(fast, dict) and "pipes" in fast:
-            stop_replicas(fast["pipes"], fast["procs"])
-        if region is not None:
-            stop_region_b(region)
+        stop_speed_shards(shards)
     if "serving" in phases:
         entries = product_entries(cases, serves) + entries
     if deploy is not None:

@@ -9,10 +9,11 @@ timestamp order, delete-aware aggregation, one fold-in per event).
 ``build_updates`` aggregates the micro-batch on the host, then folds
 every user-side update in one batched solve and every item-side update
 in another (``ops/als_fold_in.fold_in_batch``), on the card that holds
-the Gramian solvers.
-
-Not part of this package yet: the sharded speed layer
-(``oryx.speed.shard`` other than ``0/1`` raises).
+the Gramian solvers.  With ``oryx.speed.shard = "i/N"`` the model stays
+whole (the solvers need the whole catalog, and every UP record is
+applied) but ``build_updates`` folds only the events whose item this
+worker owns on the murmur2 ring, so N workers split the fold-in by item
+slice as serving replicas split scoring.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from ...api.speed import AbstractSpeedModelManager, SpeedModel
+from ...cluster.sharding import is_local_item, parse_shard_spec
 from ...common import pmml as pmml_io
 from ...common import store
 from ...common import text as text_utils
@@ -39,17 +41,7 @@ from .factor_model import FactorModelBase
 
 _log = logging.getLogger(__name__)
 
-__all__ = ["ALSSpeedModel", "ALSSpeedModelManager", "check_shard"]
-
-
-def check_shard(config: Config) -> str | None:
-    """``oryx.speed.shard``, refused unless absent or ``0/1``: the
-    sharded fold-in is not part of this package yet."""
-    spec = config.get_optional_string("oryx.speed.shard")
-    if spec not in (None, "0/1"):
-        raise ValueError(f"oryx.speed.shard = {spec!r}: the sharded speed "
-                         f"layer is not part of this package yet (0/1 only)")
-    return spec
+__all__ = ["ALSSpeedModel", "ALSSpeedModelManager"]
 
 
 class ALSSpeedModel(FactorModelBase, SpeedModel):
@@ -80,7 +72,12 @@ class ALSSpeedModelManager(AbstractSpeedModelManager):
             "oryx.speed.min-model-load-fraction")
         if not 0.0 <= self.min_model_load_fraction <= 1.0:
             raise ValueError("min-model-load-fraction must be in [0,1]")
-        check_shard(config)
+        # ring-sharded fold-in (oryx.speed.shard = "i/N"): events whose
+        # item another worker owns are counted and left to it
+        shard_spec = config.get_optional_string("oryx.speed.shard")
+        self.shard_index, self.shard_count = (
+            parse_shard_spec(shard_spec) if shard_spec else (0, 1))
+        self.skipped_remote_events = 0
         self._log_rate_limit = RateLimitCheck(60.0)
         # integrity counters (as the serving manager's)
         self.rejected_updates = 0
@@ -203,6 +200,12 @@ class ALSSpeedModelManager(AbstractSpeedModelManager):
         model.precompute_solvers()
 
         events = als_common.parse_events(new_data)
+        if self.shard_count > 1:
+            owned = [ev for ev in events
+                     if is_local_item(ev[1], self.shard_index,
+                                      self.shard_count)]
+            self.skipped_remote_events += len(events) - len(owned)
+            events = owned
         agg = als_common.aggregate(events, model.implicit,
                                    model.log_strength, model.epsilon)
         if len(agg.values) == 0:

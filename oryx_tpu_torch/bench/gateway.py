@@ -49,15 +49,20 @@ index artifacts (centroids and cells, the ``oryx.als.ann.publish-index``
 layout), an ANN-enabled serving door laddered against an exact door on
 the same generation, and a small-catalog control door.  Its headline is
 withheld (None) unless the ANN door's measured route chose ``ivf``; the
-routed kind and the route's cost table ride beside it.  One option of
-the reference waits for a later part of this package and exits 2
-naming its flag: ``--write-heavy`` (the durable-ack ingest rung).
+routed kind and the route's cost table ride beside it.
+``--write-heavy`` runs the durable-ack ingest rung: a real serving door,
+a tight door and a checkpointed ``speed --shard 0/1`` worker over one
+``file://`` broker, an open-loop POST ``/pref`` ladder to the highest
+sustained acked writes/s, a burst on the tight door whose overload must
+be fast 503s with ``Retry-After`` (``ingest_sheds``), and the ledger:
+every ack durable in the input topic and folded once (acked equals
+durable, zero dedup republishes, ``ingest_to_servable_ms``).
 
 Writes ``--out`` (default ``BENCH_TORCH_GATEWAY.json``) with the
 reference's artifact keys, plus the card's name and power limit;
 ``bench/check_regression.py --kind gateway`` gates successive rounds,
-with the ``mirror`` and ``ann`` probes as pseudo-cells of the first
-row.
+with the ``mirror``, ``writes`` and ``ann`` probes as pseudo-cells of
+the first row.
 """
 
 from __future__ import annotations
@@ -81,13 +86,7 @@ from ..kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
 from ..kafka.inproc import resolve_broker
 from .load import run_recommend_open_loop
 
-__all__ = ["run_cell", "main", "DEFERRED_FLAGS"]
-
-# the reference's options that wait for a later part of this package
-DEFERRED_FLAGS = {
-    "--write-heavy": "the durable-ack ingest rung (the Kafka wire broker "
-                     "and the sharded speed layer)",
-}
+__all__ = ["run_cell", "run_write_heavy_probe", "main"]
 
 
 def keys_to_hocon(kv) -> str:
@@ -1224,6 +1223,216 @@ def run_mirror_probe(work_dir: str, records: int = 2000,
     }
 
 
+def _write_window(port: int, n_users: int, n_items: int,
+                  rate_qps: float, duration_sec: float,
+                  workers: int = 48) -> list[dict]:
+    """Fixed-rate POST ``/pref/{u}/{i}`` driver recording each answer's
+    status, ``Retry-After`` and latency — the write path's twin of
+    ``_probe_window``.  Every 2xx is a durable-ack claim the probe's
+    broker-side ledger checks afterwards."""
+    import threading as th
+    n = max(1, int(rate_qps * duration_sec))
+    results: list[dict] = []
+    lock = th.Lock()
+    next_i = [0]
+    t0 = time.monotonic()
+
+    def worker():
+        while True:
+            with lock:
+                i = next_i[0]
+                if i >= n:
+                    return
+                next_i[0] += 1
+            scheduled = t0 + i / rate_qps
+            now = time.monotonic()
+            if scheduled > now:
+                time.sleep(scheduled - now)
+            sent = time.monotonic()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/pref/u{i % n_users}"
+                f"/i{i % n_items}", data=b"1.0", method="POST")
+            status, retry_after = 0, None
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    r.read()
+                    status = r.status
+            except urllib.error.HTTPError as e:
+                status = e.code
+                retry_after = e.headers.get("Retry-After")
+                e.read()
+            except Exception:  # noqa: BLE001 — a transport failure
+                status = 0
+            done = time.monotonic()
+            with lock:
+                results.append({
+                    "t": done - t0,
+                    "ms": (done - sent) * 1000.0,
+                    "status": status, "retry_after": retry_after})
+
+    threads = [th.Thread(target=worker, daemon=True)
+               for _ in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
+def run_write_heavy_probe(work_dir: str, users: int = 200,
+                          items: int = 120, features: int = 4,
+                          rates: list[float] | None = None,
+                          duration: float = 2.5,
+                          device: str | None = None) -> dict:
+    """The ``--write-heavy`` rung: the durable-ack write path end to end
+    over real processes — a serving door (``python -m oryx_tpu_torch
+    serving``, ingest gate armed), a tight door (``max-inflight-sends:
+    1``) and a ``speed --shard 0/1`` worker with
+    ``oryx.speed.checkpoint-dir``, all on one durable ``file://``
+    broker; the doors and the worker run on ``device`` (None means the
+    card).
+
+    - **sustained acked writes/s** (the gated headline): an open-loop
+      POST ``/pref`` rate ladder; a rung sustains only with every
+      answer a 2xx (no shed, no error) at 0.9 of the offered rate;
+    - **the overload shape**: the tight door takes a concurrent burst,
+      which must degrade to fast 503s with ``Retry-After``
+      (``ingest_sheds``), never slow errors;
+    - **the ledger**: the acked answers of every window must equal the
+      input topic's offset delta (nothing acked and lost), and once the
+      worker has drained, its checkpoint fence and dedup counter show
+      every acked record folded once (zero dedup republishes), with
+      ``ingest_to_servable_ms`` as the freshness.
+    """
+    wr_dir = os.path.join(work_dir, "write-broker")
+    ckpt = os.path.join(work_dir, "write-speed-ckpt")
+    _publish_model(wr_dir, users, items, features)
+    api_port, tight_port = _free_port(), _free_port()
+    speed_obs = _free_port()
+    speed_conf = os.path.join(work_dir, "write-speed.conf")
+    _write_conf(speed_conf, wr_dir, _free_port(), {
+        "oryx.speed.model-manager-class":
+            "oryx_tpu_torch.app.als.speed.ALSSpeedModelManager",
+        "oryx.speed.checkpoint-dir": ckpt,
+        "oryx.speed.streaming.generation-interval-sec": 1,
+        "oryx.obs.metrics-port": speed_obs,
+    })
+    serve_conf = os.path.join(work_dir, "write-serving.conf")
+    _write_conf(serve_conf, wr_dir, api_port, {
+        # bounded but generous: the ladder measures the broker, not the
+        # gate — the tight door measures the gate
+        "oryx.serving.ingest.max-inflight-sends": 64,
+        "oryx.serving.ingest.retry-after-sec": 1,
+    })
+    tight_conf = os.path.join(work_dir, "write-tight.conf")
+    _write_conf(tight_conf, wr_dir, tight_port, {
+        "oryx.serving.ingest.max-inflight-sends": 1,
+        "oryx.serving.ingest.retry-after-sec": 1,
+    })
+    log_path = os.path.join(work_dir, "write-probe.log")
+    broker = resolve_broker(f"file://{wr_dir}")
+    n0 = broker.latest_offset("GwIn")
+
+    def _speed_gauges() -> dict:
+        return _get_json(speed_obs, "/metrics").get("freshness", {})
+
+    procs = [_spawn(["speed", "--shard", "0/1"], speed_conf, None,
+                    log_path, device)]
+    try:
+        # the worker's fence starts at the input head it first sees, so
+        # it must be up before the first write, and its model replayed,
+        # or early events would fold against nothing
+        _await(lambda: (_speed_gauges().get("update_lag_records") == 0
+                        and _speed_gauges()
+                        .get("model_generation_age_sec") is not None
+                        and _speed_gauges()
+                        .get("speed_checkpoint_age_sec") is not None),
+               "write probe speed worker model replay", timeout=300.0)
+        procs.append(_spawn(["serving"], serve_conf, None, log_path,
+                            device))
+        procs.append(_spawn(["serving"], tight_conf, None, log_path,
+                            device))
+        for port in (api_port, tight_port):
+            _await(lambda p=port: _get_json(p, "/ready") is None,
+                   "write probe serving door", timeout=300.0)
+
+        ladder, acked, sustained = [], 0, 0.0
+        for rate in rates or [150.0, 300.0, 600.0, 1200.0, 2400.0]:
+            results = _write_window(api_port, users, items, rate,
+                                    duration)
+            # a mutation answering nothing renders as 204: that is the
+            # durable ack
+            ok = [r for r in results if r["status"] in (200, 204)]
+            shed = [r for r in results if r["status"] == 503]
+            span = max(r["t"] for r in results)
+            achieved = round(len(ok) / span, 1) if span else 0.0
+            rung_ok = (len(ok) == len(results)
+                       and achieved >= 0.9 * rate)
+            ladder.append({
+                "offered_qps": rate, "requests": len(results),
+                "acked": len(ok), "shed_503": len(shed),
+                "other_errors": len(results) - len(ok) - len(shed),
+                "achieved_acked_qps": achieved,
+                "p50_ack_ms": round(float(np.percentile(
+                    [r["ms"] for r in ok], 50)), 1) if ok else None,
+                "sustained": rung_ok,
+            })
+            acked += len(ok)
+            if rung_ok:
+                sustained = achieved
+            else:
+                break
+
+        # the overload burst against the tight door: concurrency far
+        # above its one slot, so admission must shed — the shed's shape
+        # (fast, Retry-After stamped) is what is measured
+        over = _write_window(tight_port, users, items,
+                             max(2000.0, 2.0 * sustained), 1.5,
+                             workers=64)
+        over_ok = [r for r in over if r["status"] in (200, 204)]
+        over_shed = [r for r in over if r["status"] == 503]
+        acked += len(over_ok)
+        overload = {
+            "requests": len(over),
+            "acked": len(over_ok),
+            "shed_503": len(over_shed),
+            "shed_with_retry_after": sum(
+                1 for r in over_shed if r["retry_after"]),
+            "other_errors": len(over) - len(over_ok) - len(over_shed),
+            "p50_shed_ms": round(float(np.percentile(
+                [r["ms"] for r in over_shed], 50)), 1)
+            if over_shed else None,
+        }
+
+        # the ledger, read once the worker has drained to the head
+        _await(lambda: _speed_gauges().get("input_lag_records") == 0,
+               "write probe fold-in drain", timeout=300.0)
+        durable = broker.latest_offset("GwIn") - n0
+        m = _get_json(speed_obs, "/metrics")
+        gauges = m.get("freshness", {})
+        counters = m.get("counters", {})
+        serving_counters = _get_json(tight_port, "/metrics").get(
+            "counters", {})
+    finally:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait(timeout=15)
+    return {
+        "open_loop_sustained_qps": sustained,
+        "ladder": ladder,
+        "acked": acked,
+        "durable": durable,
+        "acked_equals_durable": acked == durable,
+        "overload": overload,
+        "ingest_sheds": serving_counters.get("ingest_sheds", 0),
+        "ingest_to_servable_ms": gauges.get("ingest_to_servable_ms"),
+        "speed_checkpoint_age_sec":
+            gauges.get("speed_checkpoint_age_sec"),
+        "dedup_skips": counters.get("speed_shard_dedup_skips", 0),
+    }
+
+
 # the ANN rung's ladder: rates from 1 qps by 1.6x up to this top, each
 # rung at least this many seconds (the reference's protocol)
 ANN_LADDER_TOP_QPS = 640.0
@@ -1572,18 +1781,18 @@ def main(argv: list[str] | None = None) -> int:
                     help="IVF coarse-quantizer cells for the ANN rung")
     ap.add_argument("--ann-nprobe", type=int, default=32,
                     help="cells probed per query on the ANN rung")
-    # the reference's option that waits for a later part of this package
     ap.add_argument("--write-heavy", action="store_true",
-                    help="the durable-ack write rung (not part of this "
-                         "package yet)")
+                    help="run the durable-ack write rung before the "
+                         "cells: a serving door, a tight door and a "
+                         "checkpointed speed --shard 0/1 worker on one "
+                         "file:// broker (the (..., 'writes') "
+                         "pseudo-cell)")
+    ap.add_argument("--write-rates", default="",
+                    help="explicit comma rate ladder (writes/s) for the "
+                         "write-heavy rung (default 150..2400 doubling)")
     ap.add_argument("--out", default="BENCH_TORCH_GATEWAY.json")
     ap.add_argument("--keep-work", action="store_true")
     args = ap.parse_args(argv)
-    for flag, on in (("--write-heavy", args.write_heavy),):
-        if on:
-            print(f"gateway: {flag}: {DEFERRED_FLAGS[flag]} is not part "
-                  f"of this package yet", file=sys.stderr)
-            return 2
     if args.device_ms_per_mrow > 0 and args.device != "cpu":
         ap.error("--device-ms-per-mrow is for --device cpu runs only")
     resolve_device(args.device)
@@ -1608,6 +1817,16 @@ def main(argv: list[str] | None = None) -> int:
             mirror_probe = run_mirror_probe(
                 work_dir, records=args.mirror_records)
             print(json.dumps(mirror_probe), file=sys.stderr)
+        write_probe = None
+        if args.write_heavy:
+            print("== write-heavy probe (durable-ack ingest) ==",
+                  file=sys.stderr)
+            write_probe = run_write_heavy_probe(
+                work_dir,
+                rates=[float(r) for r in args.write_rates.split(",")
+                       if r] or None,
+                device=args.device)
+            print(json.dumps(write_probe), file=sys.stderr)
         load_compare = None
         if args.load_compare > 0:
             print("== load-compare probe (replay vs sliced) ==",
@@ -1693,6 +1912,8 @@ def main(argv: list[str] | None = None) -> int:
                 # one measurement per round, one gate
                 if mirror_probe is not None:
                     row["mirror"] = mirror_probe
+                if write_probe is not None:
+                    row["writes"] = write_probe
                 if ann_probe is not None:
                     row["ann"] = ann_probe
             rows.append(row)
@@ -1717,7 +1938,7 @@ def main(argv: list[str] | None = None) -> int:
         "load_compare": load_compare,
         "regions": args.regions,
         "mirror_probe": mirror_probe,
-        "write_probe": None,
+        "write_probe": write_probe,
         "ann_probe": ann_probe,
         "zipf_a": args.zipf or None,
         "tracing_sample": args.tracing_sample,

@@ -11,11 +11,15 @@ configuration, ``serving --shard i/N`` starts a serving-cluster replica
 of catalog shard ``i`` of ``N``, ``router`` the cluster's
 scatter-gather gateway (cluster/router.py), ``mirror`` the cross-region
 update-topic mirror (cluster/mirror.py) and ``autoscale`` the
-gauge-driven replica supervisor (cluster/autoscaler.py).  ``speed --shard`` passes
-the reference's overlay to the speed layer, which refuses it by key
-until the sharded speed layer is part of this package, and ``router
---async`` serves the router's public door on the asyncio front end
-(``oryx.cluster.async.enabled``, cluster/async_http.py).
+gauge-driven replica supervisor (cluster/autoscaler.py).  ``speed --shard
+i/N`` starts a sharded speed worker that folds item slice ``i`` of ``N``
+(``oryx.speed.shard``; with ``oryx.speed.checkpoint-dir`` it is safe
+across a crash, lambda_rt/speed_checkpoint.py), and ``router --async``
+serves the router's public door on the asyncio front end
+(``oryx.cluster.async.enabled``, cluster/async_http.py).  The broker
+addresses of the conf may be ``memory://``, ``file://`` or a Kafka
+broker's ``host:port`` (kafka/client.py), for the layers and the
+``kafka-*`` commands alike.
 
 One flag the reference does not have: ``--device`` on ``batch``,
 ``speed``, ``serving``, ``router``, ``autoscale`` (the spawned members'

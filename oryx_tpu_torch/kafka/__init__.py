@@ -1,1 +1,2 @@
-"""Update-topic messaging: the in-process and file:// broker."""
+"""Messaging: the in-process and file:// broker, and the Kafka wire
+protocol's client and in-process test broker."""

@@ -1,13 +1,13 @@
 """In-process message broker with Kafka's topic/partition/offset
 semantics, optionally backed by files.
 
-Counterpart of ``oryx_tpu/kafka/inproc.py``, cut down to what the
-three layers need: topics, keyed partitioning, appends (one record, or
-a pipelined batch in one write per partition, for the input topic's
-``/ingest``), offset reads, range reads of every partition (the batch
-and speed layers' drains), the blocking consume from offset 0, and
-committed per-(group, topic, partition) offsets, from which the batch
-and speed layers resume.
+Counterpart of ``oryx_tpu/kafka/inproc.py``: topics (created, checked,
+deleted), keyed partitioning, appends (one record, or a pipelined batch
+in one write per partition, for the input topic's ``/ingest``), offset
+reads, range reads of every partition (the batch and speed layers'
+drains), the blocking consume, from a group's committed offsets when
+one is named, and committed per-(group, topic, partition) offsets, from
+which the batch and speed layers resume.
 
 Brokers are addressed by URI: ``memory://<name>`` is a shared named
 broker in this process; ``file://<dir>`` keeps each partition as an
@@ -18,8 +18,8 @@ array per line, partition 0 in ``<topic>.topic.jsonl``, partitions
 ``<topic>.meta.json`` when above 1, the committed offsets in an
 ``offsets.json`` sidecar written behind with a short throttle (and on
 ``flush``) — so a topic and a group's offsets written by either package
-are read by the other.  A ``kafka://`` or ``host:port`` address
-(a wire-protocol broker) is not part of this package yet.
+are read by the other.  A bare ``host:port`` address is a Kafka broker,
+spoken to over the wire protocol (kafka/client.py).
 """
 
 from __future__ import annotations
@@ -74,19 +74,19 @@ def drop_broker(name: str) -> bool:
     return True
 
 
-def resolve_broker(broker_uri: str) -> "InProcBroker":
+def resolve_broker(broker_uri: str):
     """``memory://<name>`` (or bare ``memory://``) names an in-process
     broker; ``file://<dir>`` a durable one whose logs live under
-    ``<dir>``, shared between processes and packages."""
+    ``<dir>``, shared between processes and packages; anything else is
+    a Kafka broker's ``host:port``, bound to the wire client
+    (``client.KafkaBroker``, one per address)."""
     if broker_uri.startswith("memory://"):
         return get_broker(broker_uri[len("memory://"):] or "default")
     if broker_uri.startswith("file://"):
         path = os.path.abspath(broker_uri[len("file://"):])
         return get_broker(name=f"file:{path}", persist_dir=path)
-    raise ValueError(
-        f"broker {broker_uri!r}: only memory:// and file:// brokers are "
-        f"part of this package; a Kafka wire-protocol broker is not in "
-        f"this slice")
+    from .client import get_kafka_broker
+    return get_kafka_broker(broker_uri)
 
 
 class _Partition:
@@ -326,6 +326,26 @@ class InProcBroker:
                     json.dump({"partitions": partitions}, f)
                 os.replace(tmp, meta)
 
+    def delete_topic(self, topic: str) -> None:
+        """Drop the topic, its partition logs and meta sidecar, and every
+        group's offsets of it."""
+        with self._lock:
+            t = self._topics.pop(topic, None)
+            if t:
+                t.close()
+                for p in t.partitions:
+                    if p.persist_path and os.path.exists(p.persist_path):
+                        os.remove(p.persist_path)
+                if self._persist_dir:
+                    meta = os.path.join(self._persist_dir,
+                                        f"{topic}.meta.json")
+                    if os.path.exists(meta):
+                        os.remove(meta)
+            self._offsets = {k: v for k, v in self._offsets.items()
+                             if k[1] != topic}
+            if self._offsets_path:
+                self._write_offsets_locked(drop_topic=topic)
+
     def _topic(self, topic: str) -> _Topic:
         with self._lock:
             if topic not in self._topics:
@@ -379,9 +399,27 @@ class InProcBroker:
             t.partitions[p].append_many(recs)
         return sent
 
+    def latest_offset(self, topic: str) -> int:
+        """The end offset of a single-partition topic."""
+        t = self._topic(topic)
+        if t.num_partitions != 1:
+            raise ValueError(
+                f"topic {topic!r} has {t.num_partitions} partitions; "
+                "use latest_offsets")
+        return t.partitions[0].latest_offset()
+
     def latest_offsets(self, topic: str) -> list[int]:
         """Per-partition end offsets."""
         return [p.latest_offset() for p in self._topic(topic).partitions]
+
+    def read_range(self, topic: str, start: int, end: int) -> list[KeyMessage]:
+        """[start, end) of a single-partition topic."""
+        t = self._topic(topic)
+        if t.num_partitions != 1:
+            raise ValueError(
+                f"topic {topic!r} has {t.num_partitions} partitions; "
+                "use read_ranges")
+        return t.partitions[0].read_range(start, end)
 
     def read_ranges(self, topic: str, starts: list[int | None],
                     ends: list[int]) -> list[KeyMessage]:
@@ -403,48 +441,75 @@ class InProcBroker:
                                    jobs))
         return [km for chunk in chunks for km in chunk]
 
-    def consume(self, topic: str, from_beginning: bool = False,
+    def consume(self, topic: str, group: str | None = None,
+                from_beginning: bool = False,
                 poll_timeout_sec: float = 0.1,
                 stop: threading.Event | None = None,
                 max_idle_sec: float | None = None) -> Iterator[KeyMessage]:
-        """Blocking iterator over every partition of a topic, from offset
-        0 with ``from_beginning`` or else from the latest.  Partitions
-        are interleaved round-robin; order within a partition is kept.
-        Ends when ``stop`` is set or ``max_idle_sec`` passes with no new
+        """Blocking iterator over every partition of a topic.  With a
+        ``group``, each partition starts at the group's committed offset
+        (else as below) and commits as the consumer comes back for the
+        next record — at least once (UpdateOffsetsFn.java:37-64);
+        without one, from offset 0 with ``from_beginning`` or else from
+        the latest, never committing.  Partitions are interleaved
+        round-robin; order within a partition is kept.  Ends when
+        ``stop`` is set or ``max_idle_sec`` passes with no new
         record."""
         t = self._topic(topic)
         n = t.num_partitions
-        pos = [0 if from_beginning else t.partitions[i].latest_offset()
-               for i in range(n)]
+        pos: list[int] = []
+        for part in range(n):
+            p = None if group is None else self.get_offset(group, topic,
+                                                           part)
+            if p is None:
+                p = 0 if from_beginning \
+                    else t.partitions[part].latest_offset()
+            pos.append(p)
         idle_since = time.monotonic()
         next_part = 0
-        while True:
+        try:
             while True:
-                ready = [i for i in range(n)
-                         if pos[i] < t.partitions[i].size()]
-                if ready:
-                    break
+                while True:
+                    ready = [i for i in range(n)
+                             if pos[i] < t.partitions[i].size()]
+                    if ready:
+                        break
+                    if stop is not None and stop.is_set():
+                        return
+                    if (max_idle_sec is not None
+                            and time.monotonic() - idle_since
+                            > max_idle_sec):
+                        return
+                    with t.cond:
+                        # bounded wait: an append between the size check
+                        # and this wait costs at most one poll interval
+                        t.cond.wait(poll_timeout_sec)
+                    # other processes' appends never signal our Condition
+                    t.refresh_all()
+                part = min(ready, key=lambda i: (i - next_part) % n)
+                key, message, headers = t.partitions[part].get(pos[part])
+                pos[part] += 1
+                next_part = (part + 1) % n
+                idle_since = time.monotonic()
+                # committed only once the consumer has processed the
+                # record and come back: a consumer that dies mid-record
+                # has it redelivered
+                yield KeyMessage(key, message, headers)
+                if group is not None:
+                    self.set_offset(group, topic, pos[part], part)
                 if stop is not None and stop.is_set():
                     return
-                if (max_idle_sec is not None
-                        and time.monotonic() - idle_since > max_idle_sec):
-                    return
-                with t.cond:
-                    # bounded wait: an append between the size check and
-                    # this wait costs at most one poll interval
-                    t.cond.wait(poll_timeout_sec)
-                # other processes' appends never signal our Condition
-                t.refresh_all()
-            part = min(ready, key=lambda i: (i - next_part) % n)
-            key, message, headers = t.partitions[part].get(pos[part])
-            pos[part] += 1
-            next_part = (part + 1) % n
-            idle_since = time.monotonic()
-            yield KeyMessage(key, message, headers)
-            if stop is not None and stop.is_set():
-                return
+        finally:
+            if group is not None:
+                self.flush()
 
     # -- committed offsets ---------------------------------------------------
+
+    def get_offset(self, group: str, topic: str,
+                   partition: int = 0) -> int | None:
+        """The group's committed offset of one partition, or None."""
+        with self._lock:
+            return self._offsets.get((group, topic, partition))
 
     def get_offsets(self, group: str, topic: str) -> list[int | None]:
         """The group's committed offset of every partition (None where
@@ -453,6 +518,14 @@ class InProcBroker:
         with self._lock:
             return [self._offsets.get((group, topic, p)) for p in range(n)]
 
+    def set_offset(self, group: str, topic: str, offset: int,
+                   partition: int = 0) -> None:
+        """Commit the group's next offset of one partition."""
+        faults.fire("inproc-commit")  # chaos seam: commit failure
+        with self._lock:
+            self._offsets[(group, topic, partition)] = int(offset)
+            self._maybe_write_offsets_locked()
+
     def set_offsets(self, group: str, topic: str,
                     offsets: list[int]) -> None:
         """Commit the group's next offset of every partition."""
@@ -460,16 +533,27 @@ class InProcBroker:
         with self._lock:
             for p, off in enumerate(offsets):
                 self._offsets[(group, topic, p)] = int(off)
-            if self._offsets_path:
-                # written behind: losing the last interval's commits in
-                # a crash only redelivers, which at-least-once allows;
-                # flush() bounds the window
-                self._offsets_dirty = True
-                if (time.monotonic() - self._offsets_last_write
-                        >= _OFFSET_FLUSH_SEC):
-                    self._write_offsets_locked()
+            self._maybe_write_offsets_locked()
 
-    def _write_offsets_locked(self) -> None:
+    def fill_in_latest_offsets(self, group: str, topics: list[str]) -> None:
+        """Commit the latest offset of every (topic, partition) the group
+        has none for — "start from now" (KafkaUtils.fillInLatestOffsets)."""
+        for topic in topics:
+            for part, end in enumerate(self.latest_offsets(topic)):
+                if self.get_offset(group, topic, part) is None:
+                    self.set_offset(group, topic, end, part)
+
+    def _maybe_write_offsets_locked(self) -> None:
+        # written behind with a throttle: losing the last interval's
+        # commits in a crash only redelivers, which at-least-once
+        # allows; flush() (and a grouped consume's end) bounds the window
+        if self._offsets_path:
+            self._offsets_dirty = True
+            if (time.monotonic() - self._offsets_last_write
+                    >= _OFFSET_FLUSH_SEC):
+                self._write_offsets_locked()
+
+    def _write_offsets_locked(self, drop_topic: str | None = None) -> None:
         # merged with the file's entries, so processes sharing the
         # broker directory keep each other's groups
         merged: dict[tuple[str, str, int], int] = {}
@@ -480,6 +564,8 @@ class InProcBroker:
             except (OSError, ValueError):
                 pass
         merged.update(self._offsets)
+        if drop_topic is not None:
+            merged = {k: v for k, v in merged.items() if k[1] != drop_topic}
         tmp = self._offsets_path + ".tmp"
         with open(tmp, "w", encoding="utf-8") as f:
             json.dump({f"{g}\x00{t}\x00{p}": v

@@ -40,8 +40,13 @@ replay, per record), ``transport-frame-stall`` (a replica's frame
 dispatcher, per stream), ``async-loop-block`` (the router's asyncio
 front end, per request, on the loop), ``router-cache-stale-feed`` (the
 result cache's invalidation tap) and ``router-coalesce-leader-death``
-(a coalescing leader at its flight's start), and the mirror's
-``mirror-link-partition`` and ``mirror-crash-mid-replay``.  ``configure_from_config`` arms any name, so a
+(a coalescing leader at its flight's start), the mirror's
+``mirror-link-partition`` and ``mirror-crash-mid-replay``, the Kafka wire
+client's ``wire-send`` and ``wire-read`` and its ``MiniKafkaBroker``'s
+``mini-broker-drop``, ``mini-broker-produce-error`` and
+``mini-broker-fetch-error``, and the speed layer's ``speed-publish`` and
+``speed-crash-mid-batch`` (between a micro-batch's publishes and its
+checkpoint commit).  ``configure_from_config`` arms any name, so a
 chaos config written for the reference may arm a point of a module this
 package does not have yet, which then never fires.
 """

@@ -275,16 +275,44 @@ def test_help_lists_the_reference_subcommands(capsys):
         "serving.model-manager-class":
             "oryx_tpu_torch.app.als.serving_manager.ALSServingModelManager"},
      "oryx.serving.api.item-shards"),
-    (["speed", "--shard", "1/2"], {}, "oryx.speed.shard"),
+    (["speed", "--shard", "1/2"], {
+        "speed.model-manager-class":
+            "oryx_tpu_torch.app.als.speed.ALSSpeedModelManager"},
+     "oryx.speed.shard"),
 ])
-def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key):
-    """--shard passes the reference's overlay; the layer refuses a key it does not serve yet at once, before the
-    supervisor's restart budget."""
+def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key,
+                                              monkeypatch):
+    """--shard passes the reference's overlay.  The serving layer
+    refuses a key it does not serve yet at once, before the
+    supervisor's restart budget; ``speed --shard 1/2`` starts a sharded
+    worker (its layer, built as the CLI builds it, starts and folds
+    slice 1 of 2)."""
+    from oryx_tpu_torch.deploy import main as tmain_mod
     broker_dir = tmp_path / "broker"
     conf = _write_conf(tmp_path, f"file://{broker_dir}", **extra)
+    started = []
+
+    def run_layer(make_layer, name, config):
+        layer = make_layer()
+        layer.start()
+        try:
+            started.append((name, config.get_string(key),
+                            layer.shard_tag, layer._group,
+                            layer.model_manager.shard_count,
+                            layer.consuming))
+        finally:
+            layer.close()
+
     try:
-        with pytest.raises(ValueError, match=key):
-            tmain([*argv, "--conf", conf, "--device", "cpu"])
+        if argv[0] == "speed":
+            monkeypatch.setattr(tmain_mod, "_run_layer", run_layer)
+            assert tmain([*argv, "--conf", conf, "--device", "cpu"]) == 0
+            assert started == [("speed", "1/2", "1/2",
+                                "OryxGroup-SpeedLayer-default-1x2", 2,
+                                True)]
+        else:
+            with pytest.raises(ValueError, match=key):
+                tmain([*argv, "--conf", conf, "--device", "cpu"])
     finally:
         _drop(broker_dir)
 

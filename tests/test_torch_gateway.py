@@ -4,9 +4,10 @@ rungs, with the reference's fast path (asyncio front end, frames, the
 result cache) and its Zipf and coalescing rungs — writes every key of
 the reference's artifact, rows and report alike; ``--regions 2`` and
 ``--ann`` write their ``mirror`` and ``ann`` blocks (a real mirror
-process, ANN and exact doors over one generation, 1 s rungs); the
-option that waits for a later part of the package exits 2 naming its
-flag."""
+process, ANN and exact doors over one generation, 1 s rungs), and
+``--write-heavy`` its ``writes`` block (real serving doors and a
+checkpointed ``speed --shard 0/1`` worker), which
+``bench/check_regression.py`` reads as a pseudo-cell."""
 
 from __future__ import annotations
 
@@ -80,8 +81,9 @@ def test_toy_cells_write_the_reference_artifact(tmp_path):
 
 @pytest.fixture(scope="module")
 def probes_report(tmp_path_factory):
-    """One toy run with the two-region mirror probe and the ANN rung
-    (its ladder cut to 1 s rungs up to 2 qps)."""
+    """One toy run with the two-region mirror probe, the write-heavy
+    rung (two rates) and the ANN rung (its ladder cut to 1 s rungs up
+    to 2 qps)."""
     out = tmp_path_factory.mktemp("gw-probes") / "gw.json"
     mp = pytest.MonkeyPatch()
     mp.setattr(gateway, "ANN_LADDER_TOP_QPS", 2.0)
@@ -92,6 +94,7 @@ def probes_report(tmp_path_factory):
             "--users", "50", "--rates", "20", "--duration", "1",
             "--device", "cpu", "--sharded-publish", "8",
             "--regions", "2", "--mirror-records", "200",
+            "--write-heavy", "--write-rates", "20,40",
             "--ann", "--ann-items", "8192", "--ann-cells", "16",
             "--ann-nprobe", "4", "--out", str(out)]) == 0
     finally:
@@ -129,12 +132,34 @@ def test_regions_and_ann_write_their_blocks(probes_report, block):
 @pytest.mark.parametrize("argv,flag", [
     (["--write-heavy"], "--write-heavy"),
 ])
-def test_deferred_flags_exit_2_by_name(argv, flag, capsys, tmp_path):
-    out = tmp_path / "never.json"
-    assert gateway.main([*argv, "--device", "cpu", "--out",
-                         str(out)]) == 2
-    assert flag in capsys.readouterr().err
-    assert not out.exists()
+def test_deferred_flags_exit_2_by_name(argv, flag, probes_report):
+    """The once-deferred ``--write-heavy`` rung ran in the toy run: every
+    acked write is durable in the input topic, the checkpointed worker
+    drained it with no dedup republish, the tight door shed with
+    ``Retry-After``, and ``check_regression`` reads the ``writes``
+    pseudo-cell."""
+    from oryx_tpu_torch.bench import check_regression
+    assert flag in argv
+    report = probes_report
+    w = report["rows"][0]["writes"]
+    assert report["write_probe"] == w
+    assert [r["offered_qps"] for r in w["ladder"]] == [20.0, 40.0]
+    assert all(r["sustained"] for r in w["ladder"])
+    assert w["open_loop_sustained_qps"] == w["ladder"][-1][
+        "achieved_acked_qps"]
+    assert w["acked"] == w["durable"] and w["acked_equals_durable"]
+    assert w["dedup_skips"] == 0
+    assert w["ingest_to_servable_ms"] is not None
+    assert w["speed_checkpoint_age_sec"] is not None
+    over = w["overload"]
+    assert over["other_errors"] == 0
+    assert over["shed_503"] == over["shed_with_retry_after"] > 0
+    assert w["ingest_sheds"] == over["shed_503"]
+    cells = check_regression._cells(report)
+    key = next(k for k in cells if k[-1] == "writes")
+    assert cells[key]["open_loop_sustained_qps"] == \
+        w["open_loop_sustained_qps"]
+    assert cells[key]["acked_equals_durable"] is True
 
 
 def test_device_emulation_is_refused_on_the_card(monkeypatch):

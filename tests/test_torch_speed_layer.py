@@ -264,7 +264,9 @@ def test_micro_batch_loop_follows_group_offsets(tmp_path):
 
 def test_failed_publish_commits_nothing(tmp_path):
     """An UP publish that fails past its retries leaves the offsets
-    where they were, so the same input is read again."""
+    where they were, so the same input is read again; a crash between
+    the publishes and the commit (the checkpointed path) commits nothing
+    either, and the next micro-batch skips what landed."""
     name = f"tspeed-{time.monotonic_ns()}"
     cfg = _config(tmp_path, name, **{
         "oryx.resilience.retry.max-attempts": 1})
@@ -284,13 +286,26 @@ def test_failed_publish_commits_nothing(tmp_path):
         speed.run_one_micro_batch()
     assert broker.get_offsets(group, "ItInput") == start
     tfaults.clear()
+    # the crash point sits on the checkpointed path, as the
+    # reference's: the publishes land, the commit does not, and the next
+    # micro-batch finds them in the log instead of folding again
+    ckpt = SpeedLayer(_config(tmp_path, name, **{
+        "oryx.resilience.retry.max-attempts": 1,
+        "oryx.speed.checkpoint-dir": str(tmp_path / "ckpt")}),
+        device="cpu")
+    for m in broker.consume("ItUpdate", from_beginning=True,
+                            max_idle_sec=0.2):
+        ckpt.model_manager.consume_key_message(m.key, m.message)
+    assert ckpt._group == group
     tfaults.inject("speed-crash-mid-batch", mode="error", times=1)
     with pytest.raises(tfaults.InjectedFault):
-        speed.run_one_micro_batch()
+        ckpt.run_one_micro_batch()
     assert broker.get_offsets(group, "ItInput") == start
-    speed.run_one_micro_batch()
+    ckpt.run_one_micro_batch()
+    assert ckpt.dedup_skips > 0
     assert broker.get_offsets(group, "ItInput") == \
         broker.latest_offsets("ItInput")
+    ckpt.close()
     speed.close()
 
 
@@ -299,13 +314,43 @@ def test_failed_publish_commits_nothing(tmp_path):
     ("oryx.speed.shard", "1/2"),
 ])
 def test_deferred_speed_keys_raise(tmp_path, key, value):
-    cfg = _config(tmp_path, f"tspeed-{time.monotonic_ns()}",
-                  **{key: value})
-    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-        SpeedLayer(cfg, device="cpu")
-    if key == "oryx.speed.shard":
-        with pytest.raises(ValueError, match="oryx.speed.shard"):
-            ALSSpeedModelManager(cfg, device="cpu")
+    """The keys the port once refused now start a layer: with
+    ``oryx.speed.checkpoint-dir`` the micro-batch loop pins its fence in
+    ``shard-0-of-1`` and the side door's gauge reads its age; with
+    ``oryx.speed.shard = 1/2`` the worker takes the reference's group
+    and its manager folds slice 1 of 2."""
+    if key == "oryx.speed.checkpoint-dir":
+        value = str(tmp_path / "ckpt")
+    name = f"tspeed-{time.monotonic_ns()}"
+    cfg = _config(tmp_path, name, **{key: value})
+    layer = SpeedLayer(cfg, device="cpu")
+    layer.start()
+    try:
+        if key == "oryx.speed.checkpoint-dir":
+            path = os.path.join(value, "shard-0-of-1",
+                                "speed-checkpoint.json")
+            deadline = time.monotonic() + 30
+            while not os.path.exists(path) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+            assert doc == {"dest_scanned": {}, "input": {"0": 0},
+                           "next_batch": 1, "pending": None}
+            assert layer.metrics.gauge_value(
+                "speed_checkpoint_age_sec") is not None
+            assert layer._group == "OryxGroup-SpeedLayer-it"
+        else:
+            assert layer.shard_tag == "1/2" and layer.checkpoint is None
+            assert layer._group == "OryxGroup-SpeedLayer-it-1x2"
+            mgr = ALSSpeedModelManager(cfg, device="cpu")
+            assert (mgr.shard_index, mgr.shard_count) == (1, 2)
+            assert (layer.model_manager.shard_index,
+                    layer.model_manager.shard_count) == (1, 2)
+        assert layer.consuming
+    finally:
+        layer.close()
+        drop_broker(name)
 
 
 def _side_door(port: int, path: str, method: str = "GET"):

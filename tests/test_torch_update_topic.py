@@ -1,7 +1,8 @@
 """The update topic and the model artifacts are shared between the
 packages: the port's ``file://`` broker reads what the reference's
 wrote and the reverse, ``publish_sliced`` writes the same bytes and
-checksums in both, and the UP trust gate refuses the same records."""
+checksums in both, the UP trust gate refuses the same records, and a
+broker address resolves as the reference resolves it."""
 
 from __future__ import annotations
 
@@ -125,10 +126,20 @@ def test_a_tailing_reader_keeps_its_place_beside_a_writer(tmp_path):
 
 
 def test_other_broker_schemes_are_refused():
-    with pytest.raises(ValueError, match="not in this slice"):
-        tinproc.resolve_broker("kafka://localhost:9092")
-    with pytest.raises(ValueError, match="not in this slice"):
-        tinproc.resolve_broker("localhost:9092")
+    """Any address but ``memory://`` and ``file://`` resolves as the
+    reference resolves it: a bare ``host:port`` binds the wire client (a
+    connection is opened at first use), and a ``kafka://`` URI, which is
+    no ``host:port``, is refused with the reference's ``ValueError``."""
+    from oryx_tpu.kafka.client import KafkaBroker as JKafkaBroker
+    from oryx_tpu_torch.kafka.client import KafkaBroker
+    for inproc in (tinproc, jinproc):
+        with pytest.raises(ValueError):
+            inproc.resolve_broker("kafka://localhost:9092")
+    got = tinproc.resolve_broker("localhost:9092")
+    want = jinproc.resolve_broker("localhost:9092")
+    assert isinstance(got, KafkaBroker) and isinstance(want, JKafkaBroker)
+    assert (got.bootstrap, got._client.host, got._client.port) == \
+        (want.bootstrap, want._client.host, want._client.port)
 
 
 def _catalog(seed=7, n_items=300, n_users=12, features=5):

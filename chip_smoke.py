@@ -232,13 +232,16 @@ without a card, outside a checkout, or when any phase fails.  Phases:
 8. The benches and the probe kernels (``bench``):
    a. ``phase_a_qm`` (the queries as the tensor cores' M side, kernel 6's
       counterpart) against its plain version (``phase_a_reference``),
-      exact and LSH, at 8, 32, 256 and 300 queries on the probes' head
-      shape (19,996,672 x 128 bf16 rows, buckets 0-127, one differing bit,
-      every 11th row and one whole block retired, the last eighth of each
-      window's queries zero) and at 8 and 300 queries on 1,048,576-row
-      coverage shapes of widths 96 and 256: -inf in the same places, no
-      NaN, finite maxima within rtol 1e-4, zero queries exactly 0.  ``phase_a`` is held the same way at the head shape and
-      at the small-feature probe's two stores (kernels 5, 7 and 8).
+      exact and LSH, at 8, 32, 128, 256 and 300 queries on the probes'
+      head shape (19,996,672 x 128 bf16 rows, buckets 0-127, one differing
+      bit, every 11th row and one whole block retired, the last eighth of
+      each window's queries zero) and at 8, 128 and 300 queries on
+      1,048,576-row coverage shapes of widths 96 and 256: -inf in the same
+      places, no NaN, finite maxima within rtol 1e-4, zero queries exactly
+      0.  Each case names the design and instantiation that ran, its
+      registers and spills; at the head shape also its time and bound.
+      ``phase_a`` is held the same way at the head shape and at the
+      small-feature probe's two stores (kernels 5, 7 and 8).
    b. With every count set to 0: the port's ``lsh_mask_probe`` (its gate:
       the two LSH variants agree) and ``smallf_probe`` at their default
       shapes, one line per kernel with its time, bound, plain and library
@@ -649,6 +652,9 @@ PROBE_ITEMS_M = 20.0
 QM_WINDOWS = (8, 32, 128, 256, 300)
 QM_COVERAGE_WIDTHS = (96, 256)
 QM_COVERAGE_WINDOWS = (8, 128, 300)
+# phase_a_qm's time before its redesign, B = 256 LSH at the head shape, ms
+# (chip_smoke's last run of that kernel on an H100 80GB HBM3 at 700 W)
+QM_PREV_MS = 3.235
 GRID_ITEMS, GRID_FEATURES = 1_000_000, 50
 GRID_SEED = SEED + 15
 GRID_CHECK_USERS = 32
@@ -4243,24 +4249,40 @@ def window(Qc, b: int):
     return q
 
 
-def qm_cases(Y, Qc, pen, bkt, tgt, windows, label: str) -> float:
+def qm_cases(Y, Qc, pen, bkt, tgt, windows, label: str,
+             timed: bool = False) -> float:
     """``phase_a_qm`` against its plain version at each window, exact and
-    LSH; the largest absolute error."""
+    LSH; the largest absolute error.  Each case also says which design
+    and instantiation ran, its registers and spills (from the compiler's
+    output); with ``timed``, the kernel's time and bound there."""
     from oryx_tpu_torch.bench.diag.lsh_mask_probe import MB
+    from oryx_tpu_torch.bench.kernel_probe import bound, time_exec
     from oryx_tpu_torch.ops import phase_a as pa
     from oryx_tpu_torch.ops import phase_a_qm as qm
+    n, width = Y.shape
     worst = 0.0
     for b in windows:
-        plan = qm.plan(Y.shape[1], b)
         q = window(Qc, b)
         for lsh in (False, True):
+            plan = qm.plan(width, b, lsh)
             args = (bkt, tgt[:b], MB) if lsh else (None, None, 0)
             M = qm.phase_a_qm(q, Y, pen, *args)
             R = pa.phase_a_reference(q, Y, pen, *args)
-            worst = max(worst, held_kernel(
-                "phase_a_qm", label, M, R, b // 8,
-                {"rows": Y.shape[0], "width": Y.shape[1], "B": b,
-                 "lsh": lsh, **plan}))
+            # the compiler's counts where this process built the library,
+            # else the kernel's attributes (plan)
+            usage = ptxas_usage("phase_a_qm.cu", plan["variant"])
+            fields = {"rows": n, "width": width, "B": b, "lsh": lsh, **plan,
+                      **{k: v for k, v in usage.items() if v is not None}}
+            if timed:
+                nbytes = (n * width * 2 + b * width * 2 + n * 4
+                          + b * (n // 128) * 4 + (n * 4 + b * 4 if lsh
+                                                   else 0))
+                fields["ms"] = time_exec(
+                    lambda: qm.phase_a_qm(q, Y, pen, *args), m=4,
+                    min_delta_ms=20.0)["exec_ms"]
+                fields.update(bound(nbytes, 2.0 * n * width * b, Y.device))
+            worst = max(worst, held_kernel("phase_a_qm", label, M, R, b // 8,
+                                           fields))
             del M, R
     return worst
 
@@ -4277,7 +4299,7 @@ def probe_checks() -> dict:
     Y, Qc, pen, bkt, tgt = qm_inputs(rows, lsh_mask_probe.W,
                                      max(QM_WINDOWS))
     errs = {"phase_a_qm": qm_cases(Y, Qc, pen, bkt, tgt, QM_WINDOWS,
-                                   "probe_head")}
+                                   "probe_head", timed=True)}
     q = window(Qc, 256)
     for lsh, key in ((True, "lsh"), (False, "exact")):
         args = (bkt, tgt[:256], lsh_mask_probe.MB) if lsh else (None, None, 0)
@@ -4360,6 +4382,7 @@ def bench_phase() -> list[dict]:
     from oryx_tpu_torch.bench import grid
     from oryx_tpu_torch.bench.diag import lsh_mask_probe, smallf_probe
     from oryx_tpu_torch.bench.kernel_probe import measure_peaks
+    from oryx_tpu_torch.ops import phase_a_qm as qm
     t0 = time.perf_counter()
     errs = probe_checks()
     t_checks = time.perf_counter() - t0
@@ -4395,9 +4418,16 @@ def bench_phase() -> list[dict]:
     head = {"rows": lines["exact_floor"]["rows"], "width": lsh_mask_probe.W,
             "B": 256, "store": "bfloat16"}
     qm_line = lines["mask_2d_transposed"]
+    design = qm.plan(lsh_mask_probe.W, 256, True)
     out = [{**entry("phase_a_qm", "phase_a_qm", KERNELS["phase_a_qm"][0],
                     qm_line, errs["phase_a_qm"], {**head, "lsh": True}),
-            "launches": launches["phase_a_qm"], "body": "wgmma"}]
+            "launches": launches["phase_a_qm"], "body": "wgmma",
+            "prev_ms": QM_PREV_MS, "design": design["design"],
+            "variant": design["variant"], "registers": design["registers"],
+            "consumer_registers": design["consumer_registers"],
+            "spill_bytes": design["local_bytes"],
+            **{k: v for k, v in ptxas_usage(
+                "phase_a_qm.cu", design["variant"]).items() if v is not None}}]
     for variant, err in (("mask_3d_current", errs["lsh"]),
                          ("exact_floor", errs["exact"])):
         line = lines[variant]

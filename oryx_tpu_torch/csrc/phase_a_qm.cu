@@ -1,13 +1,13 @@
 // Phase A of the two-phase streaming top-k over a bf16 store, with the
 // queries as the wgmma M side: per-block maxima of Q . Y^T.
 //
-// Replaces variant_b of docs/bench_diag/lsh_mask_probe.py, the probe that
-// computes kernel 1's LSH body (_batch_top_n_twophase_pallas of
-// oryx_tpu/app/als/serving_model.py) with the scores transposed to
-// (queries, rows), so that the per-row bucket vector broadcasts once per
-// tile and the block maximum reduces along the other axis.  It computes
-// what csrc/phase_a.cu's bf16 body computes, with the same arguments: for
-// every 128-row item block `blk` and query `q`
+// Replaces variant_b of docs/bench_diag/lsh_mask_probe.py (:67, its
+// pallas_call :86), the probe that computes kernel 1's LSH body
+// (_batch_top_n_twophase_pallas of oryx_tpu/app/als/serving_model.py) with
+// the scores transposed to (queries, rows), so that the per-row bucket
+// vector broadcasts once per tile and the block maximum reduces along the
+// other axis.  It computes what csrc/phase_a.cu's bf16 body computes, with
+// the same arguments: for every 128-row item block `blk` and query `q`
 //
 //   M[q, blk] = max over rows r of block blk of (Y[r] . Q[q] + penalty[r])
 //
@@ -19,35 +19,68 @@
 // chip_smoke.py launch it, to compare its orientation with phase_a.cu's.
 //
 // What bounds it on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 dense):
-// at the probe's 19,996,672 rows x 128 bf16 and B = 256, 5.12 GB of rows
-// plus 80 MB of penalty (and 80 MB of buckets), 1.60 ms (1.62 LSH), and
-// 1.31 TFLOP, 1.33 ms: bytes bound it.
+// at the probe's 19,996,672 rows x 128 bf16 and B = 256, 5.12 GB of rows,
+// 80 MB of penalty, 80 MB of buckets and 160 MB of maxima, 5.44 GB: 1.624
+// ms (1.600 exact); the products are 1.31 TFLOP, 1.33 ms at the data
+// sheet's rate but about 1.8 ms at the 701-746 TFLOP/s the card sustains
+// under its 700 W limit, where its clock sits at 1.2-1.56 GHz.  So the
+// products and the bytes bound it about equally, and the epilogue has to
+// hide under them.
 //
 // Design: wgmma.mma_async m64n128k16, bf16 x bf16 -> f32, both operands
-// K-major in shared memory (the wrappers of wgmma_bf16.cuh).  Phase_a.cu
-// makes the item rows the M side and the queries the N side; here the
-// roles swap, as phase_a_i8.cu's int8 body does above 64 queries: the
-// queries are the M side, an m-tile of 64 queries for each of NWG
-// consumer warpgroups (NWG = 1, 2 or 4 for a tile of up to 64, 128 or 256
-// queries; rows past B zero-filled by TMA), and the 128 rows of a block
-// are the N side of one instruction.  One producer warp keeps a ring of
-// stages (128 rows x KC columns, KC = 64 with the 128-byte swizzle, or 32
-// with the 64-byte swizzle for widths that are not a multiple of 64) full
-// by TMA, and with the block's last stage it copies the block's 128
-// penalties and buckets into that stage's side slot, on the same "full"
-// mbarrier.  Persistent thread blocks (about one per SM, two at NWG <= 2)
-// walk the 128-row blocks, so every block is read from device memory
-// once per query tile.  The epilogue is the point of the probe: each
-// thread keeps its two queries' target buckets in registers, reads the
-// penalty and the bucket of each of its 32 columns from the side slot
-// (eight lanes share an address: a broadcast), adds the penalty, applies
-// the ball test, takes the max over its own columns and then over the
-// four lanes of a quad with two shuffles — no cross-warp reduction
-// through shared memory, where phase_a.cu needs one.  Each warp hands the
-// last stage back after its epilogue.  B < 64 wastes most of each
-// instruction (an m-tile of 64 queries at B = 8); that is measured, not
-// fixed here.
+// K-major in shared memory (wgmma_bf16.cuh).  The queries are the M side,
+// an m-tile of 64 queries for each of NWG consumer warpgroups (NWG = 1, 2
+// or 4 for a tile of up to 64, 128 or 256 queries; rows past B
+// zero-filled by TMA), and the 128 rows of a block are the N side of one
+// instruction.  A producer (one warp; at NWG = 4 a warpgroup whose
+// registers setmaxnreg hands to the consumers, 112 a thread) keeps a ring
+// of stages (128 rows x KC columns, KC = 64 with the 128-byte swizzle, or
+// 32 with the 64-byte swizzle for widths that are not a multiple of 64)
+// full by TMA, and with the block's last stage it copies the block's 128
+// penalties (and, in the LSH body, buckets) into that stage's side slot,
+// on the same "full" mbarrier.  Persistent thread blocks (one per SM; two
+// at NWG <= 2 where the ring still holds a block) walk the 128-row
+// blocks, so every block is read from device memory once per query tile.
 //
+// Ping-pong: the warpgroups issue a block's products in turn, ordered by
+// a "turn" mbarrier each (warpgroup k issues block b after warpgroup k - 1
+// issued it, warpgroup 0 after the last one issued block b - 1), then
+// wait for their own and reduce; so the tensor cores take the warpgroups'
+// products one after another, and a warpgroup reduces its block while the
+// others' products of it run.  The epilogue: each thread keeps its two
+// queries' target buckets in registers, reads the penalty (and bucket) of
+// each of its 32 columns from the side slot (a broadcast to the eight
+// lanes of a column), adds the penalty and, in the LSH body, takes the
+// max only where the ball test holds (a predicated max, no select); the
+// exact body is its own instantiation and reads and tests no bucket.
+// Then the max over the four lanes of a quad with two shuffles.  The
+// maxima leave block-major, (N/128, B): one block's maxima of a warp's 16
+// queries are 64 contiguous bytes, one store; the wrapper returns the (B,
+// N/128) view.  Instructions of the epilogue per accumulator value
+// (bench/diag/sass_counts.py, nvcc 12.8): LSH 5.6 (FADD 1, LOP3 1.1, POPC
+// 1, ISETP 1.4, FMNMX 1.1), exact 2.6 (FADD 1, FMNMX 1.1, the rest loop
+// control); the first version, one function for both bodies, 8.8 (a
+// select and a max more per value in the LSH body, the bucket test's
+// branch in both).
+//
+// What chose it (bench/diag/qm_designs.py, B = 256 at the probe's head
+// shape, one H100 80GB HBM3 at 700 W, medians of four alternating rounds,
+// LSH ms): this kernel 2.702 (its copy in the probe 2.731); lockstep, each
+// warpgroup issuing as soon as its stages are full, 2.676; the
+// query-major store of the first version 2.817; a ball test for one
+// differing bit without the population count (x & (x - 1)) 2.761; halves
+// (two m64n64k16 products a block, the next half issued before the
+// current one is reduced) 3.371, since ptxas cannot follow the commit
+// groups through the stage loop's runtime trip count (F / KC) and injects
+// wgmma waits (C7517, C7519), so no product stays in flight through an
+// epilogue.  Exact times spread by 0.3 ms between identical builds in one
+// run and separate no design.  So neither the order of issue, nor the
+// store, nor the population count moves the LSH time, which stays about
+// 0.4 ms above the exact body's: the LSH epilogue's integer work does not
+// hide under the products.  Ping-pong ships because it puts the other
+// warpgroups' products beside each epilogue by construction, at the
+// lockstep order's time.
+
 // The kernel needs N % 128 == 0 and a width that is a multiple of 32
 // columns, at most 256; it launches on the caller's stream, allocates
 // nothing and does not synchronise.
@@ -62,21 +95,56 @@ constexpr int BS = 128;  // rows per item block (_BLOCK_ROWS)
 namespace qm {
 
 constexpr int MAX_STAGES = 8;
-// consumer warpgroups of 64 queries each, and one producer warp
+// consumer warpgroups of 64 queries each, and one producer warp; at NWG = 4
+// a producer warpgroup, whose registers setmaxnreg hands to the consumers
+// (a lone warp cannot give enough: 96 registers a thread at 544 threads)
 template <int NWG>
-constexpr int THREADS = 128 * NWG + 32;
+constexpr int THREADS = 128 * NWG + (NWG == 4 ? 128 : 32);
+// registers of a consumer (producer) thread after setmaxnreg at NWG = 4:
+// 512 x 112 + 128 x 24 of the 640 x 96 the launch gives the thread block
+constexpr int CONSUMER_REGS = 112, PRODUCER_REGS = 24;
 // bytes of one stage's side slot: 128 float penalties, 128 int32 buckets
 constexpr int SIDE = 2 * BS * 4;
 
 // Shared memory of one thread block, from a 1024-byte aligned base: the
 // ring (stages of 128 rows x KC bf16), the query tile (F / KC chunks of
-// 64 NWG rows x KC), the stages' side slots, barriers.
+// 64 NWG rows x KC), the stages' side slots, barriers (full and empty per
+// stage, the query tile's, a turn per warpgroup).
 inline size_t smem_bytes(int nwg, int kc, int stages, int F) {
   return 1024 + (size_t)stages * BS * kc * 2 + (size_t)F * 64 * nwg * 2
-      + (size_t)stages * SIDE + (2 * stages + 1) * 8;
+      + (size_t)stages * SIDE + (2 * stages + 1 + 4) * 8;
 }
 
-template <int NWG, int KC>
+// the max over this thread's 32 columns of the block, for its two
+// queries: value 4n + 2i + j of `acc` is query row i, column 8n + 2 (lane
+// % 4) + j; `sp` and `sb` the block's penalties and buckets
+template <bool LSH>
+__device__ __forceinline__ void block_max(const float* acc, const float* sp,
+                                          const int32_t* sb,
+                                          const int32_t* tgt, int max_bits,
+                                          int lane, float* m) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const int col = 8 * n + 2 * (lane % 4);
+    const float2 p2 = *reinterpret_cast<const float2*>(sp + col);
+    int2 b2;
+    if constexpr (LSH) b2 = *reinterpret_cast<const int2*>(sb + col);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float v = acc[4 * n + 2 * i + j] + (j ? p2.y : p2.x);
+        if constexpr (LSH) {
+          if (__popc((j ? b2.y : b2.x) ^ tgt[i]) <= max_bits)
+            m[i] = fmaxf(m[i], v);
+        } else {
+          m[i] = fmaxf(m[i], v);
+        }
+      }
+  }
+}
+
+template <int NWG, int KC, bool LSH>
 __global__ void __launch_bounds__(THREADS<NWG>, NWG <= 2 ? 2 : 1)
 phase_a_qm(const __grid_constant__ CUtensorMap ymap,
            const __grid_constant__ CUtensorMap qmap,
@@ -89,14 +157,17 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
   constexpr int QCHUNK = QT * KC * 2;     // bytes of one query chunk
   constexpr int CONSUMERS = 128 * NWG;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // 1024-byte aligned by indexing the shared array, so that the side
+  // slots' reads compile to shared-memory loads (a pointer rebuilt from an
+  // integer compiles to generic ones)
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int nk = F / KC;
   uint8_t* qs = ring + (size_t)stages * STAGE;
   uint8_t* side = qs + (size_t)nk * QCHUNK;
   uint64_t* full = reinterpret_cast<uint64_t*>(side + (size_t)stages * SIDE);
   uint64_t* empty = full + stages;
   uint64_t* qbar = empty + stages;
+  uint64_t* turn = qbar + 1;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -105,14 +176,18 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
       tc::mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
     }
     tc::mbar_init(qbar, 1);
+    for (int k = 0; k < NWG; ++k) tc::mbar_init(&turn[k], 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (tid >= CONSUMERS) {
     // producer: one lane issues every copy
+    if constexpr (NWG == 4)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(PRODUCER_REGS) : "memory");
     if (tid == CONSUMERS) {
-      const uint32_t side_bytes = buckets ? SIDE : SIDE / 2;
+      const uint32_t side_bytes = LSH ? SIDE : SIDE / 2;
       tc::mbar_expect_tx(qbar, (uint32_t)(nk * QCHUNK));
       for (int c = 0; c < nk; ++c)
         tc::tma_load(qs + (size_t)c * QCHUNK, &qmap, qbar, c * KC, q0);
@@ -128,7 +203,7 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
           if (last) {
             uint8_t* sd = side + (size_t)s * SIDE;
             tc::bulk_load(sd, penalty + (size_t)blk * BS, BS * 4, &full[s]);
-            if (buckets)
+            if (LSH)
               tc::bulk_load(sd + BS * 4, buckets + (size_t)blk * BS, BS * 4,
                             &full[s]);
           }
@@ -145,73 +220,79 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
   // consumers: warpgroup wg takes queries [64 wg, 64 wg + 64) of the
   // tile; fragment value 4n + 2i + j is query 64 wg + 16 (warp % 4) +
   // lane / 4 + 8i, block row 8n + 2 (lane % 4) + j
-  const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  if constexpr (NWG == 4)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(CONSUMER_REGS) : "memory");
+  // the warpgroup, warp-uniform as the compiler sees it
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = tid / 32, lane = tid % 32;
   const int qrow = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // and +8
   int32_t tgt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    tgt[i] = (buckets && qrow + 8 * i < B) ? target[qrow + 8 * i] : 0;
-  float acc[64];
+    tgt[i] = (LSH && qrow + 8 * i < B) ? target[qrow + 8 * i] : 0;
+  // this warpgroup's queries in each chunk of the tile
+  const uint8_t* qa = qs + (size_t)64 * wg * KC * 2;
+  // lanes 0 and 1 of a quad store its two queries' maxima
+  const int qst = qrow + 8 * (lane % 4);
   tc::mbar_wait(qbar, 0);
   int s = 0;
   uint32_t phase = 0;
+
+  float acc[64];
+  uint32_t turn_phase = 0;
+  // the last warpgroup lets warpgroup 0 take the first block
+  if (NWG > 1 && wg == NWG - 1) {
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(&turn[0]);
+  }
   for (int blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
-    int prev = -1;
+    if constexpr (NWG > 1) {
+      tc::mbar_wait(&turn[wg], turn_phase);
+      turn_phase ^= 1;
+    }
+    const int s0 = s;
     for (int c = 0; c < nk; ++c) {
       tc::mbar_wait(&full[s], phase);
       tc::wg_fence();
-      const uint64_t da = tc::desc<2 * KC>(qs + (size_t)c * QCHUNK
-                                           + (size_t)64 * wg * KC * 2);
+      const uint64_t da = tc::desc<2 * KC>(qa + (size_t)c * QCHUNK);
       const uint64_t db = tc::desc<2 * KC>(ring + (size_t)s * STAGE);
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk)  // 32 bytes = 2 units per step
+      for (int kk = 0; kk < KC / 16; ++kk)  // 32 bytes = 2 units a step
         tc::Wgmma<128>::mma(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
       tc::wg_commit();
-      if (prev >= 0) {
-        // the previous stage's products are done: hand its slot back
-        tc::wg_wait<1>();
-        if (lane == 0) tc::mbar_arrive(&empty[prev]);
-      }
-      prev = s;
       if (++s == stages) {
         s = 0;
         phase ^= 1;
       }
     }
-    tc::wg_wait<0>();
-
-    // epilogue, from the side slot of the block's last stage
-    const float* sp = reinterpret_cast<const float*>(
-        side + (size_t)prev * SIDE);
-    const int32_t* sb = reinterpret_cast<const int32_t*>(sp + BS);
-    float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const int col = 8 * n + 2 * (lane % 4);
-      const float2 p2 = *reinterpret_cast<const float2*>(sp + col);
-      const int2 b2 = buckets ? *reinterpret_cast<const int2*>(sb + col)
-                              : make_int2(0, 0);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float v = acc[4 * n + 2 * i + j] + (j ? p2.y : p2.x);
-          if (buckets && __popc((j ? b2.y : b2.x) ^ tgt[i]) > max_bits)
-            v = -INFINITY;
-          m[i] = fmaxf(m[i], v);
-        }
+    // the next warpgroup may issue this block's products
+    if constexpr (NWG > 1) {
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(&turn[(wg + 1) % NWG]);
     }
+    tc::wg_wait<0>();
+    // hand back every stage of the block but the last, whose side slot
+    // the epilogue reads
+    int t = s0;
+    for (int c = 0; c < nk - 1; ++c) {
+      __syncwarp();
+      if (lane == 0) tc::mbar_arrive(&empty[t]);
+      if (++t == stages) t = 0;
+    }
+    const float* sp = reinterpret_cast<const float*>(side + (size_t)t * SIDE);
+    float m[2] = {-INFINITY, -INFINITY};
+    block_max<LSH>(acc, sp, reinterpret_cast<const int32_t*>(sp + BS), tgt,
+                   max_bits, lane, m);
     __syncwarp();
-    if (lane == 0) tc::mbar_arrive(&empty[prev]);
-    // over the four lanes of one query (the block's 128 rows)
+    if (lane == 0) tc::mbar_arrive(&empty[t]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float v = m[i];
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      const int q = qrow + 8 * i;
-      if (lane % 4 == 0 && q < B) out[(size_t)q * n_blocks + blk] = v;
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
     }
+    if (lane % 4 < 2 && qst < B)
+      out[(size_t)blk * B + qst] = lane % 4 ? m[1] : m[0];
   }
 }
 
@@ -231,22 +312,29 @@ bool encode(CUtensorMap* map, const void* base, int cols, int rows,
 // consumer warpgroups for a tile of nq queries
 int qm_groups(int nq) { return nq <= 64 ? 1 : nq <= 128 ? 2 : 4; }
 
-// as many ring stages as fit: in half the SM's shared memory at NWG <= 2,
-// where two thread blocks share an SM
-int qm_stages(int nwg, int kc, int F) {
-  const size_t budget = nwg <= 2 ? SMEM_LIMIT / 2 - 1024 : SMEM_LIMIT;
+// as many ring stages as fit in `budget` bytes
+int fit_stages(int nwg, int kc, int F, size_t budget) {
   int stages = qm::MAX_STAGES;
   while (stages > 2 && qm::smem_bytes(nwg, kc, stages, F) > budget) --stages;
   return stages;
 }
 
-// one grid over every block for queries [q0, q0 + min(B - q0, 64 NWG))
-template <int NWG, int KC>
+// as many ring stages as fit: in half the SM's shared memory at NWG <= 2,
+// where two thread blocks share an SM, unless that holds fewer than one
+// block's F / KC stages (a warpgroup issues a whole block before it hands
+// a stage back): then in all of it, one thread block per SM
+int qm_stages(int nwg, int kc, int F) {
+  const int stages = fit_stages(
+      nwg, kc, F, nwg <= 2 ? SMEM_LIMIT / 2 - 1024 : SMEM_LIMIT);
+  return stages >= F / kc ? stages : fit_stages(nwg, kc, F, SMEM_LIMIT);
+}
+
+template <int NWG, int KC, bool LSH>
 int launch_qm(const void* y, const void* q, const float* penalty,
               const int32_t* buckets, const int32_t* target, float* out,
               int n_blocks, int F, int q_stride, int q0, int B, int max_bits,
               cudaStream_t stream) {
-  auto kernel = qm::phase_a_qm<NWG, KC>;
+  auto kernel = qm::phase_a_qm<NWG, KC, LSH>;
   static bool smem_set = false;
   if (const int rc = set_smem(kernel, smem_set)) return rc;
   const int stages = qm_stages(NWG, KC, F);
@@ -263,22 +351,50 @@ int launch_qm(const void* y, const void* q, const float* penalty,
   return (int)cudaGetLastError();
 }
 
-template <int KC>
+template <int KC, bool LSH>
 int launch_tile(const void* y, const void* q, const float* penalty,
                 const int32_t* buckets, const int32_t* target, float* out,
                 int n_blocks, int F, int q_stride, int q0, int B,
                 int max_bits, cudaStream_t s) {
   switch (qm_groups(B - q0)) {
     case 1:
-      return launch_qm<1, KC>(y, q, penalty, buckets, target, out, n_blocks,
-                              F, q_stride, q0, B, max_bits, s);
+      return launch_qm<1, KC, LSH>(y, q, penalty, buckets, target, out,
+                                   n_blocks, F, q_stride, q0, B, max_bits,
+                                   s);
     case 2:
-      return launch_qm<2, KC>(y, q, penalty, buckets, target, out, n_blocks,
-                              F, q_stride, q0, B, max_bits, s);
+      return launch_qm<2, KC, LSH>(y, q, penalty, buckets, target, out,
+                                   n_blocks, F, q_stride, q0, B, max_bits,
+                                   s);
     default:
-      return launch_qm<4, KC>(y, q, penalty, buckets, target, out, n_blocks,
-                              F, q_stride, q0, B, max_bits, s);
+      return launch_qm<4, KC, LSH>(y, q, penalty, buckets, target, out,
+                                   n_blocks, F, q_stride, q0, B, max_bits,
+                                   s);
   }
+}
+
+template <bool LSH>
+int launch_body(const void* y, const void* q, const float* penalty,
+                const int32_t* buckets, const int32_t* target, float* out,
+                int n_blocks, int F, int q_stride, int q0, int B,
+                int max_bits, cudaStream_t s) {
+  return F % 64 == 0
+      ? launch_tile<64, LSH>(y, q, penalty, buckets, target, out, n_blocks,
+                             F, q_stride, q0, B, max_bits, s)
+      : launch_tile<32, LSH>(y, q, penalty, buckets, target, out, n_blocks,
+                             F, q_stride, q0, B, max_bits, s);
+}
+
+// the kernel instantiation a tile of nq queries at width F runs
+template <bool LSH>
+const void* kernel_of(int F, int nq) {
+  const int nwg = qm_groups(nq);
+  if (F % 64 == 0)
+    return nwg == 1 ? (const void*)qm::phase_a_qm<1, 64, LSH>
+        : nwg == 2 ? (const void*)qm::phase_a_qm<2, 64, LSH>
+                   : (const void*)qm::phase_a_qm<4, 64, LSH>;
+  return nwg == 1 ? (const void*)qm::phase_a_qm<1, 32, LSH>
+      : nwg == 2 ? (const void*)qm::phase_a_qm<2, 32, LSH>
+                 : (const void*)qm::phase_a_qm<4, 32, LSH>;
 }
 
 }  // namespace
@@ -287,8 +403,9 @@ int launch_tile(const void* y, const void* q, const float* penalty,
 // 16-byte aligned; features a multiple of 32, at most 256 and at most
 // q_stride; only the first `features` columns of Q are read.  penalty
 // (n_rows / 128, 128) float32; buckets (n_rows,) and target (n_queries,)
-// int32, both null for the exact body.  out (n_queries, n_rows / 128)
-// float32.  Returns the CUDA error of the launch, 0 on success.
+// int32, both null for the exact body.  out (n_rows / 128, n_queries)
+// float32: block-major, the transpose of the (n_queries, n_rows / 128)
+// maxima.  Returns the CUDA error of the launch, 0 on success.
 extern "C" int oryx_phase_a_qm(const void* y, const void* q,
                                const float* penalty, const int32_t* buckets,
                                const int32_t* target, float* out, int n_rows,
@@ -303,11 +420,11 @@ extern "C" int oryx_phase_a_qm(const void* y, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // one grid per tile of up to 256 queries
   for (int q0 = 0; q0 < n_queries; q0 += 256) {
-    const int rc = features % 64 == 0
-        ? launch_tile<64>(y, q, penalty, buckets, target, out, n_blocks,
-                          features, q_stride, q0, n_queries, max_bits, s)
-        : launch_tile<32>(y, q, penalty, buckets, target, out, n_blocks,
-                          features, q_stride, q0, n_queries, max_bits, s);
+    const int rc = buckets
+        ? launch_body<true>(y, q, penalty, buckets, target, out, n_blocks,
+                            features, q_stride, q0, n_queries, max_bits, s)
+        : launch_body<false>(y, q, penalty, buckets, target, out, n_blocks,
+                             features, q_stride, q0, n_queries, max_bits, s);
     if (rc) return rc;
   }
   return 0;
@@ -315,17 +432,30 @@ extern "C" int oryx_phase_a_qm(const void* y, const void* q,
 
 // What a launch of oryx_phase_a_qm with these sizes runs on its first
 // query tile, for reports: the queries of the tile (64 x the consumer
-// warpgroups), the columns per stage row (KC), its ring stages and the
-// dynamic shared memory of one thread block.  Returns -1 for sizes the
-// kernel does not take.
-extern "C" int oryx_phase_a_qm_plan(int features, int n_queries, int* tile,
-                                    int* kc, int* stages, int* smem) {
+// warpgroups), the columns per stage row (KC), its ring stages, the
+// dynamic shared memory of one thread block, and of that instantiation
+// (exact or LSH) the registers of a thread at launch, those of a
+// consumer thread after setmaxnreg, and its local memory (bytes a thread
+// spills).  Returns -1 for sizes the kernel does not take, or the CUDA
+// error of the attribute query.
+extern "C" int oryx_phase_a_qm_plan(int features, int n_queries, int lsh,
+                                    int* tile, int* kc, int* stages,
+                                    int* smem, int* regs, int* consumer_regs,
+                                    int* local) {
   if (features <= 0 || features % 32 || features > 256 || n_queries <= 0)
     return -1;
-  const int nwg = qm_groups(n_queries < 256 ? n_queries : 256);
+  const int nq = n_queries < 256 ? n_queries : 256;
+  const int nwg = qm_groups(nq);
   *tile = 64 * nwg;
   *kc = features % 64 == 0 ? 64 : 32;
   *stages = qm_stages(nwg, *kc, features);
   *smem = (int)qm::smem_bytes(nwg, *kc, *stages, features);
+  cudaFuncAttributes attr;
+  const void* k = lsh ? kernel_of<true>(features, nq)
+                      : kernel_of<false>(features, nq);
+  if (const cudaError_t rc = cudaFuncGetAttributes(&attr, k)) return (int)rc;
+  *regs = attr.numRegs;
+  *consumer_regs = nwg == 4 ? qm::CONSUMER_REGS : attr.numRegs;
+  *local = (int)attr.localSizeBytes;
   return 0;
 }

@@ -30,6 +30,9 @@ from .phase_a import BLOCK_ROWS, MAX_WIDTH, phase_a_reference
 __all__ = ["phase_a_qm", "build", "plan", "LAUNCHES", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_qm.cu"
+# how the kernel keeps the tensor cores busy through its epilogue (the
+# source's note)
+DESIGN = "ping-pong"
 _WIDTH_ALIGN = 32
 
 # kernel launches since the process started (or a caller reset it)
@@ -50,30 +53,38 @@ def build() -> ctypes.CDLL:
                                             + [ctypes.c_int] * 5
                                             + [ctypes.c_void_p])
             lib.oryx_phase_a_qm.restype = ctypes.c_int
-            lib.oryx_phase_a_qm_plan.argtypes = ([ctypes.c_int] * 2
-                                                 + [ctypes.c_void_p] * 4)
+            lib.oryx_phase_a_qm_plan.argtypes = ([ctypes.c_int] * 3
+                                                 + [ctypes.c_void_p] * 7)
             lib.oryx_phase_a_qm_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def plan(features: int, n_queries: int) -> dict:
+def plan(features: int, n_queries: int, lsh: bool = True) -> dict:
     """What a kernel call of this size runs on its first query tile:
     ``tile`` (the queries of the tile, 64 per consumer warpgroup),
-    ``kc`` (columns per ring stage row), ring ``stages`` and
-    ``smem_bytes`` of one thread block.  Builds the library if it is not
-    current."""
-    tile, kc, stages, smem = (ctypes.c_int(), ctypes.c_int(),
-                              ctypes.c_int(), ctypes.c_int())
+    ``kc`` (columns per ring stage row), ring ``stages``, ``smem_bytes``
+    of one thread block; of the instantiation (exact or LSH), the
+    ``registers`` of a thread at launch, the ``consumer_registers`` after
+    setmaxnreg, and ``local_bytes`` (what a thread spills).  Builds the
+    library if it is not current."""
+    vals = [ctypes.c_int() for _ in range(7)]
     code = build().oryx_phase_a_qm_plan(
-        int(features), int(n_queries), ctypes.byref(tile), ctypes.byref(kc),
-        ctypes.byref(stages), ctypes.byref(smem))
+        int(features), int(n_queries), int(bool(lsh)),
+        *(ctypes.byref(v) for v in vals))
     if code < 0:
         raise ValueError(f"phase_a_qm: no kernel for {features} columns "
                          f"and {n_queries} queries")
-    return {"body": "wgmma", "variant": f"phase_a_qm<{tile.value // 64}, "
-            f"{kc.value}>", "tile": tile.value, "kc": kc.value,
-            "stages": stages.value, "smem_bytes": smem.value}
+    if code > 0:
+        raise RuntimeError(f"phase_a_qm: kernel attributes: CUDA error "
+                           f"{code}")
+    tile, kc, stages, smem, regs, consumer_regs, local = (v.value
+                                                          for v in vals)
+    return {"body": "wgmma", "design": DESIGN,
+            "variant": f"phase_a_qm<{tile // 64}, {kc}, "
+            f"{'true' if lsh else 'false'}>", "tile": tile, "kc": kc,
+            "stages": stages, "smem_bytes": smem, "registers": regs,
+            "consumer_registers": consumer_regs, "local_bytes": local}
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:
@@ -92,7 +103,9 @@ def phase_a_qm(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
     mask; ``buckets`` (N,) and ``target`` (B,) int32.  A CPU ``Y`` takes
     the plain version.  A CUDA ``Y`` launches the kernel, which needs a
     bfloat16 store, ``bs == 128``, N % 128 == 0, F % 32 == 0 and F <=
-    ``MAX_WIDTH``; anything it does not take raises."""
+    ``MAX_WIDTH``; anything it does not take raises.  The kernel writes
+    the maxima block-major, (N // bs, B), and the result is the (B, N //
+    bs) view of that, not contiguous."""
     if Y.device.type == "cpu":
         return phase_a_reference(Qc, Y, penalty, buckets, target, max_bits,
                                  bs)
@@ -122,7 +135,8 @@ def phase_a_qm(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
            if t is not None):
         raise ValueError("phase_a_qm: Y, Qc, penalty and buckets must be "
                          "16-byte aligned for the kernel's copies")
-    out = torch.empty((b, n // bs), dtype=torch.float32, device=dev)
+    # block-major, as the kernel writes it: one block's maxima contiguous
+    out = torch.empty((n // bs, b), dtype=torch.float32, device=dev)
     lib = build()
     with torch.cuda.device(dev):
         rc = lib.oryx_phase_a_qm(
@@ -136,4 +150,4 @@ def phase_a_qm(Qc: torch.Tensor, Y: torch.Tensor, penalty: torch.Tensor,
     global LAUNCHES
     with _count_lock:
         LAUNCHES += 1
-    return out
+    return out.T

@@ -238,8 +238,8 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       each window's queries zero) and at 8, 128 and 300 queries on
       1,048,576-row coverage shapes of widths 96 and 256: -inf in the same
       places, no NaN, finite maxima within rtol 1e-4, zero queries exactly
-      0.  Each case names the design and instantiation that ran, its
-      registers and spills; at the head shape also its time and bound.
+      0.  Each case names the instantiation that ran, its registers and
+      spills, its time and its bound.
       ``phase_a`` is held the same way at the head shape and at the
       small-feature probe's two stores (kernels 5, 7 and 8).
    b. With every count set to 0: the port's ``lsh_mask_probe`` (its gate:
@@ -652,9 +652,6 @@ PROBE_ITEMS_M = 20.0
 QM_WINDOWS = (8, 32, 128, 256, 300)
 QM_COVERAGE_WIDTHS = (96, 256)
 QM_COVERAGE_WINDOWS = (8, 128, 300)
-# phase_a_qm's time before its redesign, B = 256 LSH at the head shape, ms
-# (chip_smoke's last run of that kernel on an H100 80GB HBM3 at 700 W)
-QM_PREV_MS = 3.235
 GRID_ITEMS, GRID_FEATURES = 1_000_000, 50
 GRID_SEED = SEED + 15
 GRID_CHECK_USERS = 32
@@ -4252,8 +4249,8 @@ def window(Qc, b: int):
 def qm_cases(Y, Qc, pen, bkt, tgt, windows, label: str,
              timed: bool = False) -> float:
     """``phase_a_qm`` against its plain version at each window, exact and
-    LSH; the largest absolute error.  Each case also says which design
-    and instantiation ran, its registers and spills (from the compiler's
+    LSH; the largest absolute error.  Each case also says which
+    instantiation ran, its registers and spills (from the compiler's
     output); with ``timed``, the kernel's time and bound there."""
     from oryx_tpu_torch.bench.diag.lsh_mask_probe import MB
     from oryx_tpu_torch.bench.kernel_probe import bound, time_exec
@@ -4313,7 +4310,8 @@ def probe_checks() -> dict:
         Y, Qc, pen, bkt, tgt = qm_inputs(COVERAGE_ROWS, width,
                                          max(QM_COVERAGE_WINDOWS))
         errs["phase_a_qm"] = max(errs["phase_a_qm"], qm_cases(
-            Y, Qc, pen, bkt, tgt, QM_COVERAGE_WINDOWS, "coverage"))
+            Y, Qc, pen, bkt, tgt, QM_COVERAGE_WINDOWS, "coverage",
+            timed=True))
         del Y, Qc, pen, bkt, tgt
     free()
     n = int(PROBE_ITEMS_M * 1e6) // smallf_probe.ROW_ALIGN \
@@ -4422,9 +4420,7 @@ def bench_phase() -> list[dict]:
     out = [{**entry("phase_a_qm", "phase_a_qm", KERNELS["phase_a_qm"][0],
                     qm_line, errs["phase_a_qm"], {**head, "lsh": True}),
             "launches": launches["phase_a_qm"], "body": "wgmma",
-            "prev_ms": QM_PREV_MS, "design": design["design"],
             "variant": design["variant"], "registers": design["registers"],
-            "consumer_registers": design["consumer_registers"],
             "spill_bytes": design["local_bytes"],
             **{k: v for k, v in ptxas_usage(
                 "phase_a_qm.cu", design["variant"]).items() if v is not None}}]

@@ -39,47 +39,51 @@
 // full by TMA, and with the block's last stage it copies the block's 128
 // penalties (and, in the LSH body, buckets) into that stage's side slot,
 // on the same "full" mbarrier.  Persistent thread blocks (one per SM; two
-// at NWG <= 2 where the ring still holds a block) walk the 128-row
-// blocks, so every block is read from device memory once per query tile.
+// at NWG <= 2) walk the 128-row blocks, so every block is read from
+// device memory once per query tile.
 //
-// Ping-pong: the warpgroups issue a block's products in turn, ordered by
-// a "turn" mbarrier each (warpgroup k issues block b after warpgroup k - 1
-// issued it, warpgroup 0 after the last one issued block b - 1), then
-// wait for their own and reduce; so the tensor cores take the warpgroups'
-// products one after another, and a warpgroup reduces its block while the
-// others' products of it run.  The epilogue: each thread keeps its two
-// queries' target buckets in registers, reads the penalty (and bucket) of
-// each of its 32 columns from the side slot (a broadcast to the eight
-// lanes of a column), adds the penalty and, in the LSH body, takes the
-// max only where the ball test holds (a predicated max, no select); the
-// exact body is its own instantiation and reads and tests no bucket.
-// Then the max over the four lanes of a quad with two shuffles.  The
-// maxima leave block-major, (N/128, B): one block's maxima of a warp's 16
-// queries are 64 contiguous bytes, one store; the wrapper returns the (B,
-// N/128) view.  Instructions of the epilogue per accumulator value
-// (bench/diag/sass_counts.py, nvcc 12.8): LSH 5.6 (FADD 1, LOP3 1.1, POPC
-// 1, ISETP 1.4, FMNMX 1.1), exact 2.6 (FADD 1, FMNMX 1.1, the rest loop
-// control); the first version, one function for both bodies, 8.8 (a
-// select and a max more per value in the LSH body, the bucket test's
-// branch in both).
+// Each warpgroup issues a stage's products as soon as the stage is full,
+// one commit group a stage, and hands a stage back once the next stage's
+// products are issued and its own are done (wait<1>); it waits for all of
+// a block's products only before the epilogue.  Its epilogue overlaps the
+// other warpgroups' products (and at NWG <= 2 the other thread block's):
+// the tensor cores take the warpgroups' groups one after another, so the
+// warpgroups drift apart by a group and no order needs enforcing.  The
+// epilogue: each thread keeps its two queries' target buckets in
+// registers, reads the penalty (and bucket) of each of its 32 columns
+// from the side slot (a broadcast to the eight lanes of a column), adds
+// the penalty and, in the LSH body, takes the max only where the ball
+// test holds (a predicated max, no select); the exact body is its own
+// instantiation and reads and tests no bucket.  Then the max over the
+// four lanes of a quad with two shuffles.  The maxima leave block-major,
+// (N/128, B): one block's maxima of a warp's 16 queries are 64 contiguous
+// bytes, one store; the wrapper returns the (B, N/128) view.
 //
-// What chose it (bench/diag/qm_designs.py, B = 256 at the probe's head
-// shape, one H100 80GB HBM3 at 700 W, medians of four alternating rounds,
-// LSH ms): this kernel 2.702 (its copy in the probe 2.731); lockstep, each
-// warpgroup issuing as soon as its stages are full, 2.676; the
-// query-major store of the first version 2.817; a ball test for one
-// differing bit without the population count (x & (x - 1)) 2.761; halves
-// (two m64n64k16 products a block, the next half issued before the
-// current one is reduced) 3.371, since ptxas cannot follow the commit
-// groups through the stage loop's runtime trip count (F / KC) and injects
-// wgmma waits (C7517, C7519), so no product stays in flight through an
-// epilogue.  Exact times spread by 0.3 ms between identical builds in one
-// run and separate no design.  So neither the order of issue, nor the
-// store, nor the population count moves the LSH time, which stays about
-// 0.4 ms above the exact body's: the LSH epilogue's integer work does not
-// hide under the products.  Ping-pong ships because it puts the other
-// warpgroups' products beside each epilogue by construction, at the
-// lockstep order's time.
+// Instructions of the epilogue per accumulator value (cuobjdump -sass of
+// nvcc 12.8's build, bench/diag/sass_counts.py --per 64): LSH 5.5-5.6
+// (FADD 1, LOP3 1.1, POPC 1, ISETP 1.3-1.4, FMNMX 1.1), exact 2.5-2.6
+// (FADD 1, FMNMX 1.1, the rest loop control); the first version, one
+// function for both bodies, 8.8 in both (a select and a max more per
+// value, the bucket test's branch).
+//
+// What chose it (one H100 80GB HBM3 at 700 W, LSH at B = 256 on the
+// probe's head shape, 19,996,672 x 128; bench/diag/qm_time.py with each
+// version first on PYTHONPATH, two alternating runs): the first version
+// 3.238-3.245 ms, this kernel 2.586-2.707 (the spread of identical
+// builds).  Dropped: a warpgroup handing a block's stages back only after
+// all its products, 2.616-2.690 here but up to 7 % slower at width 256
+// with 256-300 queries (LSH at B = 300 on 1,048,576 x 256: 0.438-0.444 ms
+// against 0.406-0.422); and, timed against each other in an earlier build
+// of this kernel that handed stages back that way (same card, medians of
+// four rounds): the warpgroups issuing a block in turn, ordered by an
+// mbarrier each (ping-pong), 2.702 ms against 2.676 without the order;
+// the query-major store of the first version 2.817; a ball test for one
+// differing bit without the population count 2.761; two 64-row halves a
+// block, the next issued before the current one is reduced, 3.371, since
+// ptxas cannot follow the commit groups through the stage loop's runtime
+// trip count and injects wgmma waits (C7517, C7519), so no product stays
+// in flight through an epilogue.  The LSH body stays about 0.4 ms above
+// the exact one: its integer work does not hide under the products.
 
 // The kernel needs N % 128 == 0 and a width that is a multiple of 32
 // columns, at most 256; it launches on the caller's stream, allocates
@@ -109,10 +113,10 @@ constexpr int SIDE = 2 * BS * 4;
 // Shared memory of one thread block, from a 1024-byte aligned base: the
 // ring (stages of 128 rows x KC bf16), the query tile (F / KC chunks of
 // 64 NWG rows x KC), the stages' side slots, barriers (full and empty per
-// stage, the query tile's, a turn per warpgroup).
+// stage, the query tile's).
 inline size_t smem_bytes(int nwg, int kc, int stages, int F) {
   return 1024 + (size_t)stages * BS * kc * 2 + (size_t)F * 64 * nwg * 2
-      + (size_t)stages * SIDE + (2 * stages + 1 + 4) * 8;
+      + (size_t)stages * SIDE + (2 * stages + 1) * 8;
 }
 
 // the max over this thread's 32 columns of the block, for its two
@@ -167,7 +171,6 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
   uint64_t* full = reinterpret_cast<uint64_t*>(side + (size_t)stages * SIDE);
   uint64_t* empty = full + stages;
   uint64_t* qbar = empty + stages;
-  uint64_t* turn = qbar + 1;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -176,7 +179,6 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
       tc::mbar_init(&empty[s], 4 * NWG);  // one arrival per consumer warp
     }
     tc::mbar_init(qbar, 1);
-    for (int k = 0; k < NWG; ++k) tc::mbar_init(&turn[k], 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -240,46 +242,32 @@ phase_a_qm(const __grid_constant__ CUtensorMap ymap,
   uint32_t phase = 0;
 
   float acc[64];
-  uint32_t turn_phase = 0;
-  // the last warpgroup lets warpgroup 0 take the first block
-  if (NWG > 1 && wg == NWG - 1) {
-    __syncwarp();
-    if (lane == 0) tc::mbar_arrive(&turn[0]);
-  }
   for (int blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
-    if constexpr (NWG > 1) {
-      tc::mbar_wait(&turn[wg], turn_phase);
-      turn_phase ^= 1;
-    }
-    const int s0 = s;
+    int t = s;
     for (int c = 0; c < nk; ++c) {
       tc::mbar_wait(&full[s], phase);
       tc::wg_fence();
       const uint64_t da = tc::desc<2 * KC>(qa + (size_t)c * QCHUNK);
       const uint64_t db = tc::desc<2 * KC>(ring + (size_t)s * STAGE);
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk)  // 32 bytes = 2 units a step
+      for (int kk = 0; kk < KC / 16; ++kk)  // 32 bytes = 2 units per step
         tc::Wgmma<128>::mma(acc, da + 2 * kk, db + 2 * kk, (c | kk) != 0);
       tc::wg_commit();
+      if (c > 0) {
+        // the previous stage's products are done: hand its slot back
+        tc::wg_wait<1>();
+        __syncwarp();
+        if (lane == 0) tc::mbar_arrive(&empty[t]);
+      }
+      t = s;
       if (++s == stages) {
         s = 0;
         phase ^= 1;
       }
     }
-    // the next warpgroup may issue this block's products
-    if constexpr (NWG > 1) {
-      __syncwarp();
-      if (lane == 0) tc::mbar_arrive(&turn[(wg + 1) % NWG]);
-    }
+    // the block's last stage goes back once the epilogue has read its
+    // side slot
     tc::wg_wait<0>();
-    // hand back every stage of the block but the last, whose side slot
-    // the epilogue reads
-    int t = s0;
-    for (int c = 0; c < nk - 1; ++c) {
-      __syncwarp();
-      if (lane == 0) tc::mbar_arrive(&empty[t]);
-      if (++t == stages) t = 0;
-    }
     const float* sp = reinterpret_cast<const float*>(side + (size_t)t * SIDE);
     float m[2] = {-INFINITY, -INFINITY};
     block_max<LSH>(acc, sp, reinterpret_cast<const int32_t*>(sp + BS), tgt,
@@ -312,21 +300,13 @@ bool encode(CUtensorMap* map, const void* base, int cols, int rows,
 // consumer warpgroups for a tile of nq queries
 int qm_groups(int nq) { return nq <= 64 ? 1 : nq <= 128 ? 2 : 4; }
 
-// as many ring stages as fit in `budget` bytes
-int fit_stages(int nwg, int kc, int F, size_t budget) {
+// as many ring stages as fit: in half the SM's shared memory at NWG <= 2,
+// where two thread blocks share an SM
+int qm_stages(int nwg, int kc, int F) {
+  const size_t budget = nwg <= 2 ? SMEM_LIMIT / 2 - 1024 : SMEM_LIMIT;
   int stages = qm::MAX_STAGES;
   while (stages > 2 && qm::smem_bytes(nwg, kc, stages, F) > budget) --stages;
   return stages;
-}
-
-// as many ring stages as fit: in half the SM's shared memory at NWG <= 2,
-// where two thread blocks share an SM, unless that holds fewer than one
-// block's F / KC stages (a warpgroup issues a whole block before it hands
-// a stage back): then in all of it, one thread block per SM
-int qm_stages(int nwg, int kc, int F) {
-  const int stages = fit_stages(
-      nwg, kc, F, nwg <= 2 ? SMEM_LIMIT / 2 - 1024 : SMEM_LIMIT);
-  return stages >= F / kc ? stages : fit_stages(nwg, kc, F, SMEM_LIMIT);
 }
 
 template <int NWG, int KC, bool LSH>
@@ -434,14 +414,12 @@ extern "C" int oryx_phase_a_qm(const void* y, const void* q,
 // query tile, for reports: the queries of the tile (64 x the consumer
 // warpgroups), the columns per stage row (KC), its ring stages, the
 // dynamic shared memory of one thread block, and of that instantiation
-// (exact or LSH) the registers of a thread at launch, those of a
-// consumer thread after setmaxnreg, and its local memory (bytes a thread
-// spills).  Returns -1 for sizes the kernel does not take, or the CUDA
-// error of the attribute query.
+// (exact or LSH) the registers of a thread at launch and its local memory
+// (bytes a thread spills).  Returns -1 for sizes the kernel does not
+// take, or the CUDA error of the attribute query.
 extern "C" int oryx_phase_a_qm_plan(int features, int n_queries, int lsh,
                                     int* tile, int* kc, int* stages,
-                                    int* smem, int* regs, int* consumer_regs,
-                                    int* local) {
+                                    int* smem, int* regs, int* local) {
   if (features <= 0 || features % 32 || features > 256 || n_queries <= 0)
     return -1;
   const int nq = n_queries < 256 ? n_queries : 256;
@@ -455,7 +433,6 @@ extern "C" int oryx_phase_a_qm_plan(int features, int n_queries, int lsh,
                       : kernel_of<false>(features, nq);
   if (const cudaError_t rc = cudaFuncGetAttributes(&attr, k)) return (int)rc;
   *regs = attr.numRegs;
-  *consumer_regs = nwg == 4 ? qm::CONSUMER_REGS : attr.numRegs;
   *local = (int)attr.localSizeBytes;
   return 0;
 }

@@ -30,9 +30,6 @@ from .phase_a import BLOCK_ROWS, MAX_WIDTH, phase_a_reference
 __all__ = ["phase_a_qm", "build", "plan", "LAUNCHES", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "phase_a_qm.cu"
-# how the kernel keeps the tensor cores busy through its epilogue (the
-# source's note)
-DESIGN = "ping-pong"
 _WIDTH_ALIGN = 32
 
 # kernel launches since the process started (or a caller reset it)
@@ -54,7 +51,7 @@ def build() -> ctypes.CDLL:
                                             + [ctypes.c_void_p])
             lib.oryx_phase_a_qm.restype = ctypes.c_int
             lib.oryx_phase_a_qm_plan.argtypes = ([ctypes.c_int] * 3
-                                                 + [ctypes.c_void_p] * 7)
+                                                 + [ctypes.c_void_p] * 6)
             lib.oryx_phase_a_qm_plan.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -65,10 +62,9 @@ def plan(features: int, n_queries: int, lsh: bool = True) -> dict:
     ``tile`` (the queries of the tile, 64 per consumer warpgroup),
     ``kc`` (columns per ring stage row), ring ``stages``, ``smem_bytes``
     of one thread block; of the instantiation (exact or LSH), the
-    ``registers`` of a thread at launch, the ``consumer_registers`` after
-    setmaxnreg, and ``local_bytes`` (what a thread spills).  Builds the
-    library if it is not current."""
-    vals = [ctypes.c_int() for _ in range(7)]
+    ``registers`` of a thread at launch and ``local_bytes`` (what a
+    thread spills).  Builds the library if it is not current."""
+    vals = [ctypes.c_int() for _ in range(6)]
     code = build().oryx_phase_a_qm_plan(
         int(features), int(n_queries), int(bool(lsh)),
         *(ctypes.byref(v) for v in vals))
@@ -78,13 +74,12 @@ def plan(features: int, n_queries: int, lsh: bool = True) -> dict:
     if code > 0:
         raise RuntimeError(f"phase_a_qm: kernel attributes: CUDA error "
                            f"{code}")
-    tile, kc, stages, smem, regs, consumer_regs, local = (v.value
-                                                          for v in vals)
-    return {"body": "wgmma", "design": DESIGN,
+    tile, kc, stages, smem, regs, local = (v.value for v in vals)
+    return {"body": "wgmma",
             "variant": f"phase_a_qm<{tile // 64}, {kc}, "
             f"{'true' if lsh else 'false'}>", "tile": tile, "kc": kc,
             "stages": stages, "smem_bytes": smem, "registers": regs,
-            "consumer_registers": consumer_regs, "local_bytes": local}
+            "local_bytes": local}
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, shape) -> None:

@@ -61,7 +61,7 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
     # the benches and the probes import, and a toy probe runs
     for mod in ("bench.load", "bench.traffic", "bench.kernel_probe",
                 "bench.grid", "bench.fold_in", "bench.diag.lsh_mask_probe",
-                "bench.diag.smallf_probe", "bench.diag.qm_designs",
+                "bench.diag.smallf_probe", "bench.diag.qm_time",
                 "bench.diag.sass_counts", "ops.phase_a_qm",
                 "bench.datasets", "bench.train", "bench.sweep", "bench.apps",
                 "bench.coldstart", "bench.e2e_smoke", "deploy.main",

@@ -97,3 +97,19 @@ def test_phase_a_qm_matches_the_reference(monkeypatch, batch, width, lsh):
     zero = got[batch - batch // 8:]
     assert (zero[np.isfinite(zero)] == 0).all()
     assert np.isfinite(zero).any()
+
+
+def test_qm_time_holds_and_times_each_case_on_the_cpu():
+    from oryx_tpu_torch.bench.diag import qm_time
+
+    lines = []
+    before = qm.LAUNCHES
+    recs = qm_time.run([(1024, 96), (768, 256)], [8, 65], device="cpu",
+                       log=lines.append)
+    assert qm.LAUNCHES == before
+    assert [(r["rows"], r["width"], r["B"], r["lsh"]) for r in recs] == [
+        (rows, width, b, lsh) for rows, width in ((1024, 96), (768, 256))
+        for b in (8, 65) for lsh in (False, True)]
+    assert all(r["ms"] > 0 and r["max_abs_err"] == 0.0
+               and r["bound_ms"] is None for r in recs)
+    assert len(lines) == len(recs) + 1 and "compiler_notes" in lines[-1]

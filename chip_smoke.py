@@ -68,6 +68,9 @@ without a card, outside a checkout, or when any phase fails.  Phases:
    launched, and no other phase-A kernel.  One served window at each
    ladder size is timed first, with the int8 kinds' bound epilogue
    (query quantization and ``_i8_bounds``) timed apart.
+   The two configurations that differ from the one before only in
+   their int8 selection serve that model, re-routed, instead of a
+   second load.
    Configurations (static first kind in brackets): 5M x 250 float32
    [pallas], 5M x 250 float32 with int8_selection="true" [i8], 5M x 250
    bfloat16 [pallas], 1M x 250 float32 LSH 0.3 [pallas], 5M x 50
@@ -123,8 +126,8 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       the AUC.
    b. The lambda loop through the port's layers, from
       ``oryx_tpu_torch/conf/als-example.conf`` on a temporary ``file://``
-      broker at rank 100, 3 sweeps and 8 slices: 250,000 drawn
-      interactions over 34,624 users (a quarter of MovieLens-20M's, at
+      broker at rank 100, 3 sweeps and 8 slices: 125,000 drawn
+      interactions over 17,312 users (an eighth of MovieLens-20M's, at
       its density) and its 26,744 items on the input topic;
       one ``BatchLayer`` generation, which must commit its offsets,
       publish a MODEL-REF whose manifest names 8 slices and write a PMML
@@ -272,7 +275,8 @@ without a card, outside a checkout, or when any phase fails.  Phases:
       kernel may launch for the requests (the process logs its launch
       counts at the route and at exit), and SIGINT must end it with exit
       0 (``deploy_serve`` line).
-   c. ``python -m oryx_tpu_torch.bench.coldstart`` at 200,000 ratings and
+   c. ``python -m oryx_tpu_torch.bench.coldstart`` (beside b, whose load
+      it overlaps) at 200,000 ratings and
       rank 50 (its warmup and two children; ``deploy_coldstart`` line).
    The layers this script starts in its own process keep their libraries
    in ``build/kernels``: phase 1 sets the cache directory to ``build``
@@ -282,7 +286,9 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     ``als-example.conf`` with every obs key on (tracing at sample ratio
     1.0, an availability and a latency objective, the event log, the
     flight recorder with no debounce, ``profile-dir``) loads phase 4's
-    1M x 50 model off a ``file://`` update topic of its own.  256
+    1M x 50 model off a ``file://`` update topic of its own (the layer
+    starts and its records are sent before phase 9, so that the load
+    overlaps phase 9's processes).  256
     ``/recommend`` requests at 32 clients, for users u0-u255, run three
     times: untimed, with the sample ratio at 0, and at 1.0 with every
     count set to 0 (only the routed kind's kernel may launch).  The
@@ -312,7 +318,7 @@ without a card, outside a checkout, or when any phase fails.  Phases:
 11. The serving cluster on one card (``cluster``): two replicas, shards
     ``0/2`` and ``1/2``, each a ``ServingLayer`` from
     ``als-example.conf`` in a process of its own, load their halves of a
-    2,097,152 x 50 float32 model (10,000 users, 9 known items each;
+    1,179,648 x 50 float32 model (10,000 users, 9 known items each;
     published in 8 slices by a child process while the earlier phases
     run) off a ``file://`` update topic, and announce themselves with
     heartbeats; the router (``cluster/router.py``) runs in this
@@ -341,9 +347,10 @@ without a card, outside a checkout, or when any phase fails.  Phases:
 12. The serving cluster's fast path (``cluster_fast``), on phase 11's
     model directory (the publisher child runs for this phase alone
     too) sent as a MODEL-REF on a topic of this phase's own: two more
-    replicas (``0/2``, ``1/2``, started before phase 11 so that their
-    start overlaps it; its MODEL-REF goes 15 s before phase 11's, so
-    that the two pairs' route measurements do not overlap) with the
+    replicas (``0/2``, ``1/2``, started and sent their MODEL-REF
+    before phase 10, so that their start and load overlap phases 10-11,
+    at least 15 s before phase 11's, so that the two pairs' route
+    measurements do not overlap) with the
     framed transport
     (``oryx.cluster.transport.enabled``) and the shard cache
     (``replica-cache``), and a router in this process on the asyncio
@@ -375,7 +382,7 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     lag, the caches' and the scatter's counters).
 
 13. Two regions, the mirror and the autoscaler (``regions``).  Region A
-    is phase 11's update topic (its 2,097,152 x 50 float32 model; with
+    is phase 11's update topic (its 1,179,648 x 50 float32 model; with
     ``--phases regions`` alone this phase starts the publisher child and
     sends the MODEL-REF itself).  Region B, on a ``file://`` broker of
     its own, is two replicas (``0/2``, ``1/2``, processes of their own
@@ -452,11 +459,45 @@ without a card, outside a checkout, or when any phase fails.  Phases:
     and build seconds, worker 1's micro-batch seconds, the events each
     folded and skipped, the UP records, the dedup skips, the seconds
     from restart to recovery, and the phase's seconds.
+15. Several devices (``mesh``) on one card: a mesh of two entries of
+    ``cuda:0`` runs the code that two cards run, so this phase holds
+    correctness and each entry's overhead, not the speed of two cards.
+    Each a failure of the run:
+    (a) an ``ALSServingModel(item_shards=2, mesh=...)`` over phase 3's
+    5M x 250 bfloat16 vectors (phase 3's model, kept, and frozen out of
+    the garbage collector's passes until here; built from the seed when
+    phase 3 did not run) answers
+    256 users at 8 and at 256 queries a window as the one-entry model
+    does: the same ids in order but for near-ties within the bfloat16
+    margin (rtol 1e-4; counted, at most 1 % of the rows), scores within
+    rtol 1e-4; each model's window milliseconds at both sizes;
+    (b) ``train_als_distributed`` in the gather and the ring mode at
+    rank 100 over a random sample of phase 5a's interactions, as many
+    as keep the dense blocks within ``MESH_ALS_SLOTS`` slots (P the
+    next power of two of the longest row), 2 sweeps, against the port's
+    ``train_als`` at the same seed within rtol 2e-3 and atol 2e-3;
+    (c) ``train_kmeans_distributed`` at phase 6c's width (20 features,
+    k = 100, k-means|| initialization) on 1,000,000 points, against its
+    one-entry run from the same initial centers (each center within 0.25
+    of the other run's nearest, both ways; the mean squared distance
+    within 0.1 %); ``train_forest(mesh=...)`` at phase 7's widths (20 predictors,
+    20 trees, 32 bins) on 250,000 examples at depth 8: the
+    classification forest equal to the one-entry forest (importances
+    and held-out predictions), the regression forest's RMSE within 5 %
+    of the one-entry forest's and below half the target's deviation;
+    (d) ``initialize_multihost`` joins a one-process NCCL group at
+    ``127.0.0.1:<free port>`` and one ``all_reduce`` runs through the
+    mesh's cross-process sum.  A ``mesh`` line gives each part's seconds
+    and checks.
+
+Every process of the run writes its standard error into this
+process's; a line saying a thread ran CUDA work with no current CUDA
+context fails the run.
 
 ``--phases`` runs a subset (comma-separated names: serving = phases 2-3,
 topic = 4, lambda = 5, ann = 6a-b, kmeans = 6c-d, rdf = 7, bench = 8,
 deploy = 9, obs = 10, cluster = 11, cluster_fast = 12, regions = 13,
-speed_shard = 14); the default runs every phase. A
+speed_shard = 14, mesh = 15); the default runs every phase. A
 partial run still ends with the two summary lines, its ``kernels`` line
 listing only what it ran.
 
@@ -571,12 +612,12 @@ AUC_LEARNED = 0.6
 ROW_CHECKS = 512
 ROW_RTOL = 1e-3
 # phase 5b: the lambda loop through the port's three layers on a file://
-# broker, from oryx_tpu_torch/conf/als-example.conf; a quarter of
+# broker, from oryx_tpu_torch/conf/als-example.conf; an eighth of
 # MovieLens-20M's users at its density (cut from 1,000,000 interactions
-# over all of them, then from 500,000 over half, so that the default
-# run, phases 11-13 included, stays under 1,100 s)
-LOOP_USERS = 34_624
-LOOP_RATINGS = 250_000
+# over all of them, then from 500,000 over half and from 250,000 over a
+# quarter, so that the default run, phase 15 included, stays near 900 s)
+LOOP_USERS = 17_312
+LOOP_RATINGS = 125_000
 LOOP_SEED = TRAIN_SEED + 1
 LOOP_T0 = 1_700_000_000_000
 LOOP_SLICES = 8
@@ -675,7 +716,10 @@ OBS_OVERHEAD_ITERATIONS = 100_000
 OBS_BUDGET_US = 10.0
 # the phase-A kinds of a hand-written kernel
 # phase 11: the serving cluster on one card
-CLUSTER_ITEMS = 2_097_152
+# 9 x 2^17 items: each shard's ~589,824 stay above the streaming path's
+# 2^19 rows after the store's 2^17 rounding (cut from 2,097,152 so that
+# the default run, phase 15 included, stays near 900 s)
+CLUSTER_ITEMS = 1_179_648
 CLUSTER_FEATURES = 50
 CLUSTER_USERS = 10_000
 CLUSTER_RING = 8
@@ -719,12 +763,31 @@ MEMBER_ID = "asg-0of2-1"
 SHARD_COUNT = 2
 SHARD_HOLD_MS = 3_000
 SHARD_WAIT_S = 300.0
+# phase 15: two entries of the one card
+MESH_ENTRIES = 2
+MESH_USERS = 256
+MESH_WINDOWS = (8, 256)
+MESH_TIE_SHARE = 0.01
+MESH_ALS_SLOTS = 1 << 26
+MESH_ALS_SWEEPS = 2
+MESH_ALS_TOL = 2e-3
+MESH_KM_POINTS = 1_000_000
+MESH_KM_ITERATIONS = 10
+# against the one-entry run: 1/20 of the noise's scale (sqrt(20) per
+# point) for the centers, 0.1 % for the mean squared distance
+MESH_KM_CENTER_TOL = 0.25
+MESH_KM_COST_RTOL = 1e-3
+MESH_RDF_EXAMPLES = 250_000
+MESH_RDF_DEPTH = 8
+MESH_RDF_TREES = 20
+# a thread's CUDA work with no current context (PyTorch warns so)
+NO_CONTEXT = "no current CUDA context"
 KERNEL_KINDS = ("pallas", "i8", "fold", "i8_fold")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("serving", "topic", "lambda", "ann", "kmeans", "rdf", "bench",
           "deploy", "obs", "cluster", "cluster_fast", "regions",
-          "speed_shard")
+          "speed_shard", "mesh")
 REFERENCE = "oryx_tpu/app/als/serving_model.py"
 KERNELS = {
     # wrapper: (TPU kernel it replaces, source, phase-A kind it serves)
@@ -745,6 +808,8 @@ KERNELS = {
 # exceptions that ended a thread of this process (the serving layer's
 # consumer, the solver recomputes, the HTTP workers): any fails the run
 THREAD_ERRORS: list[str] = []
+# the run's standard error, searched for NO_CONTEXT (main sets it)
+STDERR_WATCH = None
 
 
 def thread_failed(args) -> None:
@@ -860,6 +925,16 @@ def build_model(features, Y, X, known, dtype, sample_rate=1.0,
          "width": int(vecs.shape[1]),
          "load_s": time.perf_counter() - t0})
     return model
+
+
+def background(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on a thread of its own: its future."""
+    from oryx_tpu_torch.common.device import bind_thread, thread_card
+    pool = concurrent.futures.ThreadPoolExecutor(
+        1, initializer=bind_thread, initargs=(thread_card(DEVICE),))
+    future = pool.submit(fn, *args, **kwargs)
+    pool.shutdown(wait=False)
+    return future
 
 
 def free() -> None:
@@ -1395,10 +1470,11 @@ def check_route(model, label: str, route, seconds: float,
     return line
 
 
-def route_model(model, label: str) -> dict:
-    """Install the model's route as the serving manager does at load,
-    and check that the card then holds only the chosen kind's mirror
-    beyond what it held before."""
+def route_model(model, label: str, force: bool = False) -> dict:
+    """Install the model's route as the serving manager does at load
+    (``force``: measure anew, for a model whose kind chain changed), and
+    check that the card then holds only the chosen kind's mirror beyond
+    what it held before."""
     import torch
     free()
     torch.cuda.synchronize()
@@ -1406,7 +1482,7 @@ def route_model(model, label: str) -> dict:
         mirror_bytes(model)
     reset_launches()
     t0 = time.perf_counter()
-    route = model.refresh_route()
+    route = model.refresh_route(force=force)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -2103,13 +2179,21 @@ def window_times(model, rng, label: str, kind: str) -> list[dict]:
 
 def serve_config(features, Y, X, known, label: str, kind: str, dtype,
                  sample_rate, int8_selection, counts, rng, y_ids=None,
-                 anonymous: bool = False):
+                 anonymous: bool = False, model=None):
     """Build, route and serve one configuration; with ``anonymous``, a
     timed round of /recommendToAnonymous follows the rounds, its solver
-    and float64 Gramian computed before it."""
-    model = build_model(features, Y, X, known, dtype, sample_rate,
-                        int8_selection, y_ids)
-    route = routed_config(model, label, kind)
+    and float64 Gramian computed before it.  With ``model`` (the loaded
+    model of the configuration before, the same vectors), that model
+    serves with this configuration's int8 selection, routed anew."""
+    if model is None:
+        model = build_model(features, Y, X, known, dtype, sample_rate,
+                            int8_selection, y_ids)
+        route = routed_config(model, label, kind)
+    else:
+        model._int8_selection = int8_selection
+        log({"phase": "model", "config": label, "shared": True,
+             "int8_selection": int8_selection, "load_s": 0.0})
+        route = routed_config(model, label, kind, force=True)
     window_times(model, rng, label, route["chosen"])
     then = None
     if anonymous:
@@ -2126,10 +2210,11 @@ def serve_config(features, Y, X, known, label: str, kind: str, dtype,
     return model, summary
 
 
-def routed_config(model, label: str, kind: str) -> dict:
+def routed_config(model, label: str, kind: str,
+                  force: bool = False) -> dict:
     """Route the model and check that its static first kind is the
     configuration's."""
-    route = route_model(model, label)
+    route = route_model(model, label, force)
     check(route["static_kind"] == kind,
           f"{label}: static first kind {route['static_kind']!r}, expected "
           f"{kind!r}")
@@ -3051,10 +3136,19 @@ def ann_exact(Y: np.ndarray, X: np.ndarray, rng) -> dict:
     return line
 
 
-def ann_at_scale(rng) -> dict:
+def ann_draw():
+    """Phase 6a's catalog (``ann_catalog`` at the protocol's shape), on a
+    thread of its own while phase 5 runs: its future."""
+    from oryx_tpu_torch.app.als.ivf import AnnConfig
+    return background(ann_catalog, ANN_ITEMS, ANN_FEATURES,
+                      AnnConfig.from_config(ann_settings()).cells, ANN_SEED)
+
+
+def ann_at_scale(rng, catalog=None) -> dict:
     """Phase 6a: the IVF index at the reference's protocol catalog, full
     width, built through the serving manager's path; the ``ann`` line,
-    the ``window`` lines and the ``ann_exact`` line."""
+    the ``window`` lines and the ``ann_exact`` line.  ``catalog`` is the
+    future of ``ann_draw`` (drawn here without it)."""
     import torch
     from oryx_tpu_torch.app.als import ivf
     from oryx_tpu_torch.app.als import serving_model as sm
@@ -3066,7 +3160,8 @@ def ann_at_scale(rng) -> dict:
     mgr = ALSServingModelManager(ann_settings(), device=DEVICE)
     cfg = mgr.ann_config
     t0 = time.perf_counter()
-    Y = ann_catalog(ANN_ITEMS, ANN_FEATURES, cfg.cells, ANN_SEED)
+    Y = catalog.result() if catalog is not None else \
+        ann_catalog(ANN_ITEMS, ANN_FEATURES, cfg.cells, ANN_SEED)
     X = rng.standard_normal((N_USERS, ANN_FEATURES), dtype=np.float32)
     synth_s = time.perf_counter() - t0
     model = build_model(ANN_FEATURES, Y, X, {}, "float32")
@@ -3303,15 +3398,15 @@ def ann_topic(publisher, work_dir: str) -> dict:
     return line
 
 
-def kmeans_points() -> np.ndarray:
+def kmeans_points(n: int = KM_POINTS) -> np.ndarray:
     """The reference k-means bench's points (bench/apps.py:22-34): k true
-    centers times 10 plus unit normal noise, seed 5."""
+    centers times 10 plus unit normal noise, seed 5 (``n`` of them)."""
     rng = np.random.default_rng(KM_SEED)
     true_centers = rng.standard_normal((KM_K, KM_DIMS)).astype(
         np.float32) * 10
-    assign = rng.integers(0, KM_K, KM_POINTS)
+    assign = rng.integers(0, KM_K, n)
     return (true_centers[assign]
-            + rng.standard_normal((KM_POINTS, KM_DIMS), dtype=np.float32))
+            + rng.standard_normal((n, KM_DIMS), dtype=np.float32))
 
 
 def nearest64(pts: np.ndarray, centers: np.ndarray, chunk: int = 500_000):
@@ -4655,17 +4750,24 @@ def deploy_phase(publisher, work_dir: str) -> dict:
     check(not missing, f"deploy: warmup built no library of {missing}")
     check(first["nvcc_runs"] == len(cuda_build.SOURCES),
           f"deploy: warmup 1 ran nvcc {first['nvcc_runs']} times")
-    second = deploy_warmup(conf, 2)
+    # the second warmup and the cold-start bench run beside the served
+    # process, whose load they overlap (their seconds are taken on a
+    # busy host); the served process finds warmup 1's libraries
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        again = pool.submit(deploy_warmup, conf, 2)
+        coldstart = pool.submit(run_module, [
+            "oryx_tpu_torch.bench.coldstart", "--ratings", str(COLD_RATINGS),
+            "--rank", str(COLD_RANK),
+            "--cache-dir", os.path.join(work_dir, "coldstart_cache")],
+            "coldstart", 600)
+        serve = deploy_serve(publisher, work_dir, cache)
+        second = again.result()
+        cold, wall = coldstart.result()
     check(second["nvcc_runs"] == 0 and all(
         e["status"] == "found current" for e in second["compiled"]),
         "deploy: warmup 2 built a library again")
-    serve = deploy_serve(publisher, work_dir, cache)
-    cold, wall = run_module(
-        ["oryx_tpu_torch.bench.coldstart", "--ratings", str(COLD_RATINGS),
-         "--rank", str(COLD_RANK),
-         "--cache-dir", os.path.join(work_dir, "coldstart_cache")],
-        "coldstart", 600)
-    log({"phase": "deploy_coldstart", "process_s": wall, **cold})
+    log({"phase": "deploy_coldstart", "process_s": wall,
+         "beside_serving": True, **cold})
     log({"phase": "deploy", "seconds": time.perf_counter() - t0})
     return serve
 
@@ -4751,19 +4853,14 @@ def profile_kernels(trace_file: str, symbols: list[str],
             "busy_share": busy_us / 1e3 / window_ms}
 
 
-def obs_phase(publisher, work_dir: str, topic: dict | None) -> dict:
-    """Phase 10: a ServingLayer from the example config with every obs
-    key on, over phase 4's model; its answers, /metrics, traces, tail,
-    profile, event log and flight recorder; the cost of observability."""
-    import torch
+def obs_start(publisher, work_dir: str) -> dict:
+    """Phase 10's ServingLayer, started and sent phase 4's model and UP
+    records before phase 9, so that its load overlaps phase 9's
+    processes; ``obs_phase`` takes it from there (and closes it)."""
     from oryx_tpu_torch.app.als import slices
-    from oryx_tpu_torch.bench import obs_overhead
     from oryx_tpu_torch.kafka.inproc import InProcTopicProducer
     from oryx_tpu_torch.lambda_rt.serving import ServingLayer
-    from oryx_tpu_torch.obs import anatomy
-    from oryx_tpu_torch.obs.device_time import _label
 
-    label = "1M_50f_f32_lsh0.3_topic"
     t_phase = time.perf_counter()
     model_dir = os.path.join(work_dir, "model")
     publisher.join(TOPIC_WAIT_S)
@@ -4780,11 +4877,9 @@ def obs_phase(publisher, work_dir: str, topic: dict | None) -> dict:
     layer.tracer.sample_ratio = 0.0
     try:
         layer.start()
-        port, mgr = layer.port, layer.model_manager
         producer = InProcTopicProducer(
             cfg.get_string("oryx.update-topic.broker"),
             cfg.get_string("oryx.update-topic.message.topic"))
-        t0 = time.perf_counter()
         producer.send("MODEL-REF", slices.model_ref_message(
             os.path.join(model_dir, "model.pmml.xml"), model_dir,
             published["manifest"]))
@@ -4792,13 +4887,38 @@ def obs_phase(publisher, work_dir: str, topic: dict | None) -> dict:
             producer.send("UP", json.dumps(
                 ["X", f"u{u}", [float(v) for v in X[u]], known[f"u{u}"]]))
         producer.close()
+    except BaseException:
+        layer.close()
+        raise
+    return {"layer": layer, "cfg": cfg, "X": X, "known": known,
+            "sent_at": time.perf_counter(),
+            "start_s": time.perf_counter() - t_phase}
+
+
+def obs_phase(started: dict, topic: dict | None) -> dict:
+    """Phase 10: a ServingLayer from the example config with every obs
+    key on, over phase 4's model (``obs_start``); its answers, /metrics,
+    traces, tail, profile, event log and flight recorder; the cost of
+    observability."""
+    import torch
+    from oryx_tpu_torch.bench import obs_overhead
+    from oryx_tpu_torch.obs import anatomy
+    from oryx_tpu_torch.obs.device_time import _label
+
+    label = "1M_50f_f32_lsh0.3_topic"
+    t_phase = time.perf_counter()
+    layer, cfg = started["layer"], started["cfg"]
+    X, known = started["X"], started["known"]
+    try:
+        port, mgr = layer.port, layer.model_manager
         last = f"u{N_USERS - 1}"
         wait_for(lambda: http_call(port, "GET", "/ready")[0] == 204
                  and mgr.get_model()._route is not None
                  and mgr.get_model().get_known_items(last)
                  == set(known[last]),
                  "obs: /ready, the route and the UP records", TOPIC_WAIT_S)
-        load_s = time.perf_counter() - t0
+        ready_waited_s = time.perf_counter() - t_phase
+        load_s = mgr.model_load_s
         model = mgr.get_model()
         kind = routed_kind(model)
         check(kind in KERNEL_KINDS, f"obs: the route chose {kind!r}")
@@ -4978,7 +5098,9 @@ def obs_phase(publisher, work_dir: str, topic: dict | None) -> dict:
     micro = over["microbench_ns_per_request"]
     line = {"phase": "obs", "config": label, "kind": kind,
             "route": route_label, "load_s": load_s,
-            "requests": OBS_REQUESTS, "concurrency": OBS_CLIENTS,
+            "load_overlapped": "deploy",
+            "ready_waited_s": ready_waited_s,
+            "start_s": started["start_s"], "requests": OBS_REQUESTS, "concurrency": OBS_CLIENTS,
             "launches": launches,
             "sampled": percentiles(r[2] for r in sampled),
             "unsampled": percentiles(r[2] for r in unsampled),
@@ -5294,7 +5416,7 @@ def cluster_phase(publisher, work_dir: str, fast: dict | None = None,
                   region: dict | None = None) -> dict:
     """Phase 11: two serving-cluster replicas (shards 0/2 and 1/2, each
     a ServingLayer in a process of its own on the one card) load their
-    halves of a 2,097,152 x 50 float32 model off a ``file://`` update
+    halves of a 1,179,648 x 50 float32 model off a ``file://`` update
     topic; the router (this process) merges them behind DIGEST auth on
     every door.  Its answers against the single-node exact scan and a
     float64 fold-in, the replicas' routed kernels, /metrics and the
@@ -5331,11 +5453,15 @@ def cluster_phase(publisher, work_dir: str, fast: dict | None = None,
             published = json.load(f)
         waited_s = time.perf_counter() - t_wait
         if fast is not None:
-            # phase 12's replicas load first, FAST_LEAD_S ahead, so that
-            # their route measurements never overlap these replicas'
-            send_model_ref(fast["config"], model_dir, published["manifest"])
-            fast["sent_at"] = time.perf_counter()
-            time.sleep(FAST_LEAD_S)
+            # phase 12's replicas load first, at least FAST_LEAD_S ahead,
+            # so that their route measurements never overlap these
+            # replicas'
+            if fast["sent_at"] is None:
+                send_model_ref(fast["config"], model_dir,
+                               published["manifest"])
+                fast["sent_at"] = time.perf_counter()
+            time.sleep(max(0.0, FAST_LEAD_S
+                           - (time.perf_counter() - fast["sent_at"])))
         t0 = time.perf_counter()
         send_model_ref(router_cfg, model_dir, published["manifest"])
         if region is not None:
@@ -5522,6 +5648,19 @@ def start_fast_replicas(work_dir: str) -> dict:
             "config": cluster_config(fast_overlay(work_dir, password,
                                                   None)),
             "ports": None, "sent_at": None}
+
+
+def send_fast_model_ref(fast: dict, publisher, work_dir: str) -> None:
+    """Phase 12's MODEL-REF, sent once the model is published."""
+    publisher.join(CLUSTER_WAIT_S)
+    check(publisher.exitcode == 0,
+          f"cluster_fast: publishing the model failed ({publisher.exitcode})")
+    model_dir = os.path.join(work_dir, "cluster_model")
+    with open(os.path.join(model_dir, "published.json"),
+              encoding="utf-8") as f:
+        manifest = json.load(f)["manifest"]
+    send_model_ref(fast["config"], model_dir, manifest)
+    fast["sent_at"] = time.perf_counter()
 
 
 def fast_ports(fast: dict) -> list[int]:
@@ -6500,10 +6639,24 @@ def regions_phase(publisher, work_dir: str, region: dict,
     append_ups(b_uri, topic, [(f"bb{j}", np.ones(CLUSTER_FEATURES,
                                                  np.float32))
                               for j in range(REGION_BORN_B)])
-    wait_for(lambda: topic_end(a_uri, topic) == a_end + REGION_BORN_B
-             and mirror_metrics(region, "ab")["counters"].get(
-                 "mirror_loop_drops", 0) >= REGION_BORN_B,
-             "regions: records born in B through both mirrors", 120)
+    try:
+        wait_for(lambda: topic_end(a_uri, topic) == a_end + REGION_BORN_B
+                 and mirror_metrics(region, "ab")["counters"].get(
+                     "mirror_loop_drops", 0) >= REGION_BORN_B,
+                 "regions: records born in B through both mirrors", 120)
+    except RuntimeError:
+        # what the mirrors did: their counters, their logs' ends
+        for name in ("ab", "ba"):
+            proc = region["mirrors"][name]
+            print(f"--- regions: mirror {name} (exit {proc.poll()}), "
+                  f"A's end {topic_end(a_uri, topic)} of "
+                  f"{a_end + REGION_BORN_B}, counters "
+                  f"{mirror_metrics(region, name)['counters']}",
+                  file=sys.stderr)
+            with open(os.path.join(region["dir"], f"mirror_{name}.log"),
+                      encoding="utf-8", errors="replace") as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
     ends = []
     for _ in range(3):
         time.sleep(3 * REGION_POLL_MS / 1000)
@@ -6943,6 +7096,365 @@ def speed_shard_phase(shards: dict) -> dict:
     log(line)
     return line
 
+# -- phase 15: several devices on one card -----------------------------------
+
+def mesh_of_one_card():
+    """A mesh of ``MESH_ENTRIES`` entries of the one card: the code two
+    cards run, on one."""
+    import torch
+    from oryx_tpu_torch.parallel.mesh import Mesh
+    dev = torch.device("cuda", 0) if DEVICE == "cuda" else DEVICE
+    return Mesh([dev] * MESH_ENTRIES)
+
+
+def mesh_models(keep: dict) -> tuple:
+    """(phase 3's one-entry 5M x 250 bfloat16 model, its sharded twin):
+    the twin is an ``ALSServingModel(item_shards=2, mesh=...)`` loaded
+    with the same rows; without phase 3 the model is built from the
+    vectors' seed."""
+    from oryx_tpu_torch.app.als.serving_model import ALSServingModel
+    single = keep.pop("5M_bf16_exact", None)
+    if single is None:
+        Y = first_items()
+        single = build_model(FEATURES, Y, np.zeros((1, FEATURES),
+                                                    np.float32),
+                             {}, "bfloat16")
+        del Y
+        single.refresh_route()
+    t0 = time.perf_counter()
+    twin = ALSServingModel(FEATURES, True, dtype="bfloat16", device=DEVICE,
+                           item_shards=MESH_ENTRIES, mesh=mesh_of_one_card())
+    vecs, _, row_ids = single.Y.host_arrays()
+    twin.Y.load_rows(row_ids, vecs)
+    del vecs
+    twin.Y.shard_arrays_versioned()
+    return single, twin, time.perf_counter() - t0
+
+
+def near_tie_rows(got: list, want: list, rtol: float, what: str) -> int:
+    """Rows whose ids differ from ``want``'s: each must be a near-tie,
+    every position's score within ``rtol`` of the row's largest score;
+    the count."""
+    differ = 0
+    for g, w in zip(got, want):
+        check(len(g) == len(w), f"{what}: {len(g)} answers, not {len(w)}")
+        gs = np.array([v for _, v in g])
+        ws = np.array([v for _, v in w])
+        scale = max(float(np.abs(ws).max()), 1e-30)
+        check(bool(np.all(np.abs(gs - ws) <= rtol * scale)),
+              f"{what}: scores {gs} against {ws}")
+        if [i for i, _ in g] != [i for i, _ in w]:
+            differ += 1
+    return differ
+
+
+def window_ms(torch, model, Q: np.ndarray, reps: int = 5) -> float:
+    """Median host milliseconds of one served window (``top_n_batch``,
+    the answers on the host)."""
+    model.top_n_batch(10, Q)
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.top_n_batch(10, Q)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def mesh_serving(torch, single, twin) -> dict:
+    """15a: the sharded model's answers against the one-entry model's for
+    ``MESH_USERS`` users at each of ``MESH_WINDOWS``."""
+    rng = np.random.default_rng(SEED + 23)
+    Q = rng.standard_normal((MESH_USERS, FEATURES), dtype=np.float32)
+    out = {}
+    for b in MESH_WINDOWS:
+        ties = 0
+        for s in range(0, MESH_USERS, b):
+            ties += near_tie_rows(twin.top_n_batch(10, Q[s:s + b]),
+                                  single.top_n_batch(10, Q[s:s + b]),
+                                  RTOL["bfloat16"], f"mesh B={b}")
+        check(ties <= MESH_TIE_SHARE * MESH_USERS,
+              f"mesh B={b}: {ties} rows differ by near-ties, more than "
+              f"{MESH_TIE_SHARE:.0%}")
+        out[b] = {"near_tie_rows": ties,
+                  "sharded_ms": window_ms(torch, twin, Q[:b]),
+                  "single_ms": window_ms(torch, single, Q[:b])}
+    return out
+
+
+def mesh_ratings(work_dir: str):
+    """A random sample of phase 5a's interactions (drawn here when phase
+    5 did not run), as many as keep both dense layouts within
+    ``MESH_ALS_SLOTS`` slots, re-indexed over the users and items it
+    holds."""
+    from oryx_tpu_torch.app.als.common import ParsedRatings
+    from oryx_tpu_torch.bench.train import synthesize_movielens
+    path = os.path.join(work_dir, "ml20m.npz")
+    if os.path.exists(path):
+        data = np.load(path)
+        users, items, values = data["users"], data["items"], data["values"]
+    else:
+        users, items, values, _, _ = synthesize_movielens(
+            ML_USERS, ML_ITEMS, ML_RATINGS // 10, seed=TRAIN_SEED)
+    perm = np.random.default_rng(TRAIN_SEED + 3).permutation(len(users))
+
+    def slots(n):
+        # rows padded to the entries, each as wide as the longest row
+        # rounded up to a power of two, on both sides
+        out = 0
+        for ids in (users[perm[:n]], items[perm[:n]]):
+            counts = np.bincount(ids)
+            rows = int(np.count_nonzero(counts))
+            out += (MESH_ENTRIES * -(-rows // MESH_ENTRIES)
+                    * (1 << int(counts.max() - 1).bit_length()))
+        return out
+
+    lo, hi = 1, len(users)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if slots(mid) <= MESH_ALS_SLOTS:
+            lo = mid
+        else:
+            hi = mid - 1
+    u, ui = np.unique(users[perm[:lo]], return_inverse=True)
+    i, ii = np.unique(items[perm[:lo]], return_inverse=True)
+    return ParsedRatings([str(x) for x in u], [str(x) for x in i],
+                         ui.astype(np.int32), ii.astype(np.int32),
+                         values[perm[:lo]].astype(np.float32)), slots(lo)
+
+
+def mesh_als(torch, work_dir: str, mesh) -> dict:
+    """15b: ``train_als_distributed`` in both modes against
+    ``train_als`` at the same seed."""
+    from oryx_tpu_torch.app.als.trainer import train_als
+    from oryx_tpu_torch.common.config import get_default
+    from oryx_tpu_torch.parallel import train_als_distributed
+    defaults = get_default()
+    lam = defaults.get_double("oryx.als.hyperparams.lambda")
+    alpha = defaults.get_double("oryx.als.hyperparams.alpha")
+    ratings, slots = mesh_ratings(work_dir)
+    args = (ratings, TRAIN_RANK, lam, alpha, True, MESH_ALS_SWEEPS)
+    t0 = time.perf_counter()
+    single = train_als(*args, seed=TRAIN_SEED, device=DEVICE)
+    out = {"pairs": len(ratings.values), "users": len(ratings.user_ids),
+           "items": len(ratings.item_ids), "dense_slots": slots,
+           "single_s": time.perf_counter() - t0}
+    for mode in ("gather", "ring"):
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dist = train_als_distributed(*args, mesh, seed=TRAIN_SEED,
+                                     mode=mode)
+        seconds = time.perf_counter() - t0
+        err = max(float(np.abs(dist.X - single.X).max()),
+                  float(np.abs(dist.Y - single.Y).max()))
+        for side in ("X", "Y"):
+            a, b = getattr(dist, side), getattr(single, side)
+            check(bool(np.all(np.abs(a - b)
+                              <= MESH_ALS_TOL + MESH_ALS_TOL * np.abs(b))),
+                  f"mesh als {mode}: {side} is {err} from train_als")
+        out[mode] = {"s": seconds, "max_abs_err": err,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def mesh_kmeans_rdf(torch, mesh) -> dict:
+    """15c: k-means and the forests on the mesh against their one-entry
+    runs, on quality."""
+    from oryx_tpu_torch.app.kmeans.common import assign_points
+    from oryx_tpu_torch.app.kmeans.trainer import train_kmeans
+    from oryx_tpu_torch.app.rdf.forest_arrays import ForestArrays
+    from oryx_tpu_torch.app.rdf.trainer import train_forest
+    from oryx_tpu_torch.parallel.kmeans_dist import train_kmeans_distributed
+    out = {}
+    pts = kmeans_points(MESH_KM_POINTS)
+    # k-means|| spreads the initial centers over the true clusters: from
+    # random rows, several share a cluster and the near-ties on their
+    # borders amplify the two runs' different summation orders
+    kw = dict(initialization="k-means||", seed=KM_SEED)
+    t0 = time.perf_counter()
+    one = train_kmeans(pts, KM_K, MESH_KM_ITERATIONS, device=DEVICE, **kw)
+    t1 = time.perf_counter()
+    dist = train_kmeans_distributed(pts, KM_K, MESH_KM_ITERATIONS, mesh,
+                                    **kw)
+    t2 = time.perf_counter()
+    c1 = np.stack([c.center for c in one])
+    c2 = np.stack([c.center for c in dist])
+    cost = []
+    dev_pts = torch.from_numpy(pts).to(DEVICE)
+    for c in (c1, c2):
+        _, dist_c = assign_points(dev_pts, c)
+        cost.append(float(np.mean(dist_c.astype(np.float64) ** 2)))
+    del dev_pts
+    # each center's distance to the nearest of the other run's, both
+    # ways (tests/test_parallel.py's agreement test): the two runs sum in
+    # other orders, points on a border between two centers of one true
+    # cluster flip, and each flip moves a center, so the centers agree to
+    # MESH_KM_CENTER_TOL and the quality (the cost) much closer
+    ds = np.linalg.norm(c1[:, None, :] - c2[None, :, :], axis=2)
+    moved = float(max(ds.min(axis=0).max(), ds.min(axis=1).max()))
+    check(moved <= MESH_KM_CENTER_TOL,
+          f"mesh kmeans: centers {moved} from one entry's")
+    check(abs(cost[1] - cost[0]) <= MESH_KM_COST_RTOL * cost[0],
+          f"mesh kmeans: cost {cost[1]} against {cost[0]}")
+    out["kmeans"] = {"points": len(pts), "k": KM_K, "one_s": t1 - t0,
+                     "mesh_s": t2 - t1, "max_center_diff": moved,
+                     "mean_sq_dist": cost}
+    free()
+    x, y, x_test, y_test, _ = rdf_bench_data(MESH_RDF_EXAMPLES, RDF_SEED,
+                                             False)
+    schema = rdf_schema(False)
+    args = (schema, {}, MESH_RDF_TREES, MESH_RDF_DEPTH, RDF_BINS, "gini")
+    t0 = time.perf_counter()
+    one = train_forest(x, y, *args, seed=RDF_SEED, num_classes=2,
+                       device=DEVICE)
+    t1 = time.perf_counter()
+    dist = train_forest(x, y, *args, seed=RDF_SEED, num_classes=2,
+                        mesh=mesh)
+    t2 = time.perf_counter()
+    full = np.full((len(x_test), schema.num_features), np.nan, np.float32)
+    full[:, :RDF_PREDICTORS] = x_test
+    p1 = ForestArrays(one, schema.num_features, 2,
+                      device=DEVICE).predict_proba(full)
+    p2 = ForestArrays(dist, schema.num_features, 2,
+                      device=DEVICE).predict_proba(full)
+    check(np.array_equal(one.feature_importances, dist.feature_importances)
+          and np.array_equal(p1, p2),
+          "mesh rdf: the classification forest differs from one entry's")
+    accuracy = float((p2.argmax(1) == y_test).mean())
+    check(accuracy >= RDF_MIN_ACCURACY, f"mesh rdf: accuracy {accuracy}")
+    out["rdf"] = {"examples": len(x), "depth": MESH_RDF_DEPTH,
+                  "one_s": t1 - t0, "mesh_s": t2 - t1, "accuracy": accuracy}
+    xr, yr, xr_test, yr_test, _ = rdf_bench_data(RDF_REG_EXAMPLES,
+                                                 RDF_SEED + 2, True)
+    full = np.full((len(xr_test), RDF_PREDICTORS + 1), np.nan, np.float32)
+    full[:, :RDF_PREDICTORS] = xr_test
+    rmse = []
+    for m in (None, mesh):
+        reg = train_forest(xr, yr, rdf_schema(True), {}, MESH_RDF_TREES,
+                           MESH_RDF_DEPTH, RDF_BINS, "variance",
+                           seed=RDF_SEED + 2, device=DEVICE, mesh=m)
+        pred = ForestArrays(reg, RDF_PREDICTORS + 1, 0,
+                            device=DEVICE).predict_value(full)
+        rmse.append(float(np.sqrt(np.mean((pred - yr_test) ** 2))))
+    check(rmse[1] <= 1.05 * rmse[0] and rmse[1] < 0.5 * float(yr_test.std()),
+          f"mesh rdf: regression RMSE {rmse[1]} against {rmse[0]}")
+    out["rdf"]["regression_rmse"] = rmse
+    return out
+
+
+def mesh_nccl(torch) -> dict:
+    """15d: a one-process NCCL group joined through
+    ``initialize_multihost``; one all_reduce through the mesh's
+    cross-process sum."""
+    import torch.distributed as dist
+    from oryx_tpu_torch.common.config import from_dict
+    from oryx_tpu_torch.parallel.mesh import Mesh, initialize_multihost, psum
+    addr = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    joined = initialize_multihost(from_dict({
+        "oryx.distributed.coordinator-address": addr,
+        "oryx.distributed.num-processes": 1,
+        "oryx.distributed.process-id": 0}), device=DEVICE)
+    try:
+        check(joined and dist.is_initialized(), "mesh: the group did not "
+              "join")
+        backend = dist.get_backend()
+        mesh = Mesh([torch.device(DEVICE, 0) if DEVICE == "cuda"
+                     else DEVICE], group=dist.group.WORLD)
+        total = psum(mesh, [torch.arange(4, dtype=torch.float32,
+                                         device=mesh.devices[0])])[0]
+        check(total.cpu().tolist() == [0.0, 1.0, 2.0, 3.0],
+              f"mesh: all_reduce gave {total}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return {"backend": backend, "address": addr,
+            "s": time.perf_counter() - t0}
+
+
+def mesh_phase(torch, keep: dict, work_dir: str) -> dict:
+    """Phase 15: sharded serving, distributed ALS, k-means and the
+    forests on a mesh of two entries of the one card, and a one-process
+    NCCL join; the ``mesh`` line."""
+    t_phase = time.perf_counter()
+    single, twin, load_s = mesh_models(keep)
+    gc.unfreeze()
+    t0 = time.perf_counter()
+    serving = mesh_serving(torch, single, twin)
+    serving_s = time.perf_counter() - t0
+    del single, twin
+    free()
+    mesh = mesh_of_one_card()
+    t0 = time.perf_counter()
+    als = mesh_als(torch, work_dir, mesh)
+    als_s = time.perf_counter() - t0
+    free()
+    t0 = time.perf_counter()
+    kr = mesh_kmeans_rdf(torch, mesh)
+    kr_s = time.perf_counter() - t0
+    free()
+    nccl = mesh_nccl(torch)
+    line = {"phase": "mesh", "entries": [str(d) for d in mesh.devices],
+            "note": "two entries of one card: correctness and per-entry "
+                    "overhead, not the speed of two cards",
+            "serving": {"items": N_ITEMS, "features": FEATURES,
+                        "dtype": "bfloat16", "users": MESH_USERS,
+                        "twin_load_s": load_s, "s": serving_s,
+                        "windows": serving},
+            "als": {**als, "s": als_s}, "kmeans": kr["kmeans"],
+            "rdf": kr["rdf"], "kmeans_rdf_s": kr_s, "nccl": nccl,
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    return line
+
+
+class StderrWatch:
+    """This process's standard error (fd 2, which the processes it starts
+    inherit) passed through a pipe and searched for ``needle``."""
+
+    def __init__(self, needle: str):
+        self.needle = needle.encode()
+        self.hits = 0
+        self._saved = os.dup(2)
+        read, write = os.pipe()
+        os.dup2(write, 2)
+        os.close(write)
+        self._read = read
+        self._thread = threading.Thread(target=self._pump, daemon=True,
+                                        name="stderr-watch")
+        self._thread.start()
+
+    def _pump(self) -> None:
+        # never stops draining while a writer lives: a full pipe would
+        # stop every process that writes to it
+        tail = b""
+        while True:
+            try:
+                chunk = os.read(self._read, 1 << 16)
+            except OSError:
+                return
+            if not chunk:
+                return
+            view = memoryview(chunk)
+            while view:
+                try:
+                    view = view[os.write(self._saved, view):]
+                except OSError:
+                    break
+            text = tail + chunk
+            self.hits += text.count(self.needle) - tail.count(self.needle)
+            tail = text[-len(self.needle):]
+
+    def close(self) -> int:
+        """Restore fd 2; the hits so far (what the processes still
+        holding the pipe write later passes through unsearched)."""
+        sys.stderr.flush()
+        os.dup2(self._saved, 2)
+        self._thread.join(5.0)
+        return self.hits
+
+
 def known_items(rng, n_items: int) -> dict:
     return {f"u{u}": [f"i{j}" for j in rng.integers(0, n_items,
                                                     KNOWN_PER_USER)]
@@ -6978,12 +7490,30 @@ def main(argv=None) -> int:
     compile_cache.enable_from_config(from_dict(
         {"oryx.compile-cache-dir": str(cuda_build.BUILD_DIR.parent)}))
     threading.excepthook = thread_failed
+    global STDERR_WATCH
+    STDERR_WATCH = StderrWatch(NO_CONTEXT)
+    try:
+        return run_all(torch, torch.cuda.get_device_name(0), t_start, args,
+                       phases)
+    finally:
+        # fd 2 back before an exception's traceback is printed
+        STDERR_WATCH.close()
+
+
+def run_all(torch, gpu_name: str, t_start: float, args,
+            phases: set) -> int:
+    """Phases 1-15 and the summary lines."""
+    from oryx_tpu_torch.ops import cuda_build
     # phase 1: environment and build
     log(gpu_line())
-    gpu_name = torch.cuda.get_device_name(0)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
     mods = wrappers()
+    # phase 3's first catalog, the run's first draw, is drawn while nvcc
+    # builds (NumPy draws without the interpreter lock)
+    rng = np.random.default_rng(SEED)
+    first = background(rng.standard_normal, (N_ITEMS, FEATURES),
+                       dtype=np.float32) if "serving" in phases else None
     t0 = time.perf_counter()
     cuda_build.build(sorted({m.SOURCE for m in mods.values()}))
     for mod in mods.values():
@@ -7025,7 +7555,7 @@ def main(argv=None) -> int:
         child.start()
     try:
         return run_phases(torch, gpu_name, t_start, children, work_dir,
-                          args.trace, phases)
+                          args.trace, phases, rng, first)
     finally:
         for child in children.values():
             if child.is_alive():
@@ -7035,20 +7565,28 @@ def main(argv=None) -> int:
 
 
 def run_phases(torch, gpu_name: str, t_start: float, children: dict,
-               work_dir: str, trace_dir: str | None, phases: set) -> int:
-    rng = np.random.default_rng(SEED)
+               work_dir: str, trace_dir: str | None, phases: set, rng,
+               first) -> int:
+    """Phases 2-15; ``rng`` is the run's generator (``SEED``) and
+    ``first`` the future of its first draw, phase 3's first catalog."""
     cases = []
     serves = {}
     entries = []
+    # phase 3's 5M x 250 bfloat16 model, kept for phase 15
+    keep: dict = {}
     if "serving" in phases:
-        serving_phases(torch, rng, gpu_name, cases, serves)
+        serving_phases(torch, rng, first.result(), gpu_name, cases, serves,
+                       keep if "mesh" in phases else None)
     if "topic" in phases:
         # phase 4: the serving layer loads the 1M x 50 LSH model off the
         # update topic (BASELINE.md:37)
         serves["1M_50f_f32_lsh0.3_topic"] = serve_update_topic(
             children["publisher"], work_dir, rng, trace_dir)
-    shards = None
+    shards = catalog = None
     try:
+        if "ann" in phases:
+            # phase 6a's catalog is drawn while phase 5 runs
+            catalog = ann_draw()
         if "lambda" in phases:
             lambda_phase(children["preparer"], work_dir)
             if "speed_shard" in phases:
@@ -7059,7 +7597,8 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
         # the bench's shape and through its loop, then the index's load path
         # (last: its generation is the slowest child's work)
         if "ann" in phases:
-            ann_at_scale(rng)
+            ann_at_scale(rng, catalog)
+            catalog = None
             free()
         if "kmeans" in phases:
             kmeans_at_scale()
@@ -7080,20 +7619,33 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
             # phase 8: the benches and the probe kernels
             entries += bench_phase()
             free()
-        deploy = None
-        if "deploy" in phases:
-            # phase 9: the operator entry point, warmup and the kernel cache
-            deploy = deploy_phase(children["publisher"], work_dir)
-        obs = None
-        if "obs" in phases:
-            # phase 10: the observability surface on phase 4's model
-            obs = obs_phase(children["publisher"], work_dir,
-                            serves.get("1M_50f_f32_lsh0.3_topic"))
-            free()
+        deploy = obs = obs_started = None
         cluster = fast = region = regions = None
-        if "cluster_fast" in phases:
-            # phase 12's replicas start now: their start overlaps phase 11
-            fast = start_fast_replicas(work_dir)
+        if "obs" in phases:
+            # phase 10's layer starts now: its load overlaps phase 9
+            obs_started = obs_start(children["publisher"], work_dir)
+        try:
+            if "deploy" in phases:
+                # phase 9: the entry point, warmup and the kernel cache
+                deploy = deploy_phase(children["publisher"], work_dir)
+            if "cluster_fast" in phases:
+                # phase 12's replicas start and load now, beside phase 10
+                fast = start_fast_replicas(work_dir)
+                send_fast_model_ref(fast, children["cluster_publisher"],
+                                    work_dir)
+            if obs_started is not None:
+                # phase 10: the observability surface on phase 4's model
+                started, obs_started = obs_started, None
+                obs = obs_phase(started,
+                                serves.get("1M_50f_f32_lsh0.3_topic"))
+                free()
+        except BaseException:
+            if isinstance(fast, dict):
+                stop_replicas(fast["pipes"], fast["procs"])
+            raise
+        finally:
+            if obs_started is not None:
+                obs_started["layer"].close()
         if "regions" in phases:
             # phase 13's region B too: it loads while phases 11-12 run
             region = start_region_b(work_dir)
@@ -7124,6 +7676,12 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
                 shard_generation(work_dir)
                 shards = start_speed_shards(work_dir)
             speed_shard_phase(shards)
+        stop_speed_shards(shards)
+        shards = None
+        if "mesh" in phases:
+            # phase 15: several devices, two entries of the one card
+            mesh_phase(torch, keep, work_dir)
+            free()
     finally:
         stop_speed_shards(shards)
     if "serving" in phases:
@@ -7158,7 +7716,11 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
             if any(per.values()):
                 entry["regions_launches"] = per
     check(not THREAD_ERRORS, f"a thread failed: {THREAD_ERRORS}")
+    hits = STDERR_WATCH.close() if STDERR_WATCH is not None else None
+    check(not hits, f"{hits} lines say a thread ran CUDA work with "
+          f"{NO_CONTEXT!r}")
     log({"phase": "total", "seconds": time.perf_counter() - t_start,
+         "no_context_lines": hits,
          "phases": sorted(phases, key=PHASES.index)})
     log({"kernels": entries})
     log({"ok": True, "device": {"platform": "gpu", "kind": gpu_name,
@@ -7166,13 +7728,22 @@ def run_phases(torch, gpu_name: str, t_start: float, children: dict,
     return 0
 
 
-def serving_phases(torch, rng, gpu_name: str, cases: list,
-                   serves: dict) -> None:
+def first_items() -> np.ndarray:
+    """The 5M x 250 item vectors of phase 3's first configurations: the
+    first draw of the run's generator (``SEED``), so phase 15 draws them
+    again when phase 3 did not run."""
+    return np.random.default_rng(SEED).standard_normal(
+        (N_ITEMS, FEATURES), dtype=np.float32)
+
+
+def serving_phases(torch, rng, Y: np.ndarray, gpu_name: str, cases: list,
+                   serves: dict, keep: dict | None = None) -> None:
     """Phases 2-3: every configuration's kernel cases, route and served
-    rounds, then the coverage cases."""
+    rounds, then the coverage cases.  ``Y`` is the run's first draw of
+    ``rng`` (``first_items`` draws it again).  With ``keep``, the 5M x
+    250 bfloat16 model stays there for phase 15."""
     # slice 1: 5M x 250 float32, bfloat16, and 1M x 250 LSH on "pallas";
     # 5M x 250 float32 with int8 selection forced on, on "i8"
-    Y = rng.standard_normal((N_ITEMS, FEATURES), dtype=np.float32)
     X = rng.standard_normal((N_USERS, FEATURES), dtype=np.float32)
     known = known_items(rng, N_ITEMS)
     model = build_model(FEATURES, Y, X, known, "float32")
@@ -7183,11 +7754,11 @@ def serving_phases(torch, rng, gpu_name: str, cases: list,
         model, "5M_f32_exact", route, 64, 8, 8, RTOL["float32"], 8)
     vecs, active = model.Y.device_arrays()
     cases += i8_cases(vecs, active, rng, gpu_name, FEATURES, WINDOWS)
-    del model, vecs, active
+    del vecs, active
     free()
     model, serves["5M_250f_f32_int8"] = serve_config(
         FEATURES, Y, X, known, "5M_250f_f32_int8", "i8", "float32", 1.0,
-        "true", (32, 4, 4), rng)
+        "true", (32, 4, 4), rng, model=model)
     del model
     free()
     model = build_model(FEATURES, Y, X, known, "bfloat16")
@@ -7196,8 +7767,15 @@ def serving_phases(torch, rng, gpu_name: str, cases: list,
     window_times(model, rng, "5M_bf16_exact", route["chosen"])
     serves["5M_bf16_exact"] = serve_and_check(
         model, "5M_bf16_exact", route, 32, 4, 4, RTOL["bfloat16"], 4)
+    if keep is not None:
+        keep["5M_bf16_exact"] = model
     del model
     free()
+    if keep is not None:
+        # the kept model's 5M-entry id list and set would otherwise be
+        # traversed by every full garbage collection until phase 15,
+        # slowing each later in-process load by about half
+        gc.freeze()
     known_lsh = {u: [f"i{int(i[1:]) % N_LSH_ITEMS}" for i in items]
                  for u, items in known.items()}
     model = build_model(FEATURES, Y[:N_LSH_ITEMS], X, known_lsh, "float32",
@@ -7239,11 +7817,11 @@ def serving_phases(torch, rng, gpu_name: str, cases: list,
     vecs, active = model.Y.device_arrays()
     cases += fold_cases(vecs, active, rng, gpu_name, 10, WINDOWS, "20M_10f",
                         float_windows=(8, 256))
-    del model, vecs, active
+    del vecs, active
     free()
     model, serves["20M_10f_f32_noint8"] = serve_config(
         10, Y, X, known_20m, "20M_10f_f32_noint8", "fold", "float32", 1.0,
-        "false", (32, 4, 4), rng, y_ids)
+        "false", (32, 4, 4), rng, y_ids, model=model)
     del model, Y, y_ids
     free()
 

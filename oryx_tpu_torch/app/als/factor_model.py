@@ -13,7 +13,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from ...common.device import resolve_device
+from ...common.device import bound, resolve_device, thread_card
 from ...ops.solver import Solver, SingularMatrixSolverException, get_solver
 from .feature_vectors import FeatureVectorStore
 
@@ -73,7 +73,11 @@ class SolverCache:
         with self._cond:
             if self._in_flight or not self._dirty:
                 return
-        threading.Thread(target=self.compute_now, daemon=True).start()
+        # the recompute launches device work: its thread makes the
+        # solver's card current first
+        threading.Thread(target=bound(self.compute_now,
+                                      thread_card(self._device)),
+                         daemon=True).start()
 
     def get(self, blocking: bool = True) -> Solver | None:
         """The current solver, recomputed synchronously when dirty and
@@ -93,14 +97,17 @@ class FactorModelBase:
     """X/Y stores + expected-ID accounting + cached solvers."""
 
     def __init__(self, features: int, implicit: bool, dtype="float32",
-                 device=None):
+                 device=None, item_mesh=None):
+        """``item_mesh`` (``parallel/mesh.Mesh``) row-shards the item
+        store's snapshot over its entries (reference
+        ``factor_model.py:93-100``, ``item_sharding``)."""
         self.features = features
         self.implicit = implicit
         self.device = resolve_device(device)
         self.X = FeatureVectorStore(features, dtype=dtype,
                                     device=self.device)
         self.Y = FeatureVectorStore(features, dtype=dtype,
-                                    device=self.device)
+                                    device=self.device, mesh=item_mesh)
         self._expected_user_ids: set[str] = set()
         self._expected_item_ids: set[str] = set()
         self._expected_lock = threading.Lock()

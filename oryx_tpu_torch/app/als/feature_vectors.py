@@ -10,6 +10,12 @@ dirty rows into a fresh snapshot for few of them, a full re-upload when
 many changed — so a reader always holds a consistent snapshot.  Removed
 rows are zeroed and recycled via a free list; capacity grows by
 doubling.
+
+With a ``mesh`` (``parallel/mesh.Mesh``) the device snapshot is one row
+block per mesh entry, each on its entry's device (reference
+``feature_vectors.py:81-114``: a ``device_sharding`` that row-shards the
+snapshot): the capacity is a multiple of the mesh size, so the blocks
+are equal, and the rows past the live ones are inactive.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from ...common.device import resolve_device
+from ...common.device import device_context, resolve_device
 from ...common.lang import AutoReadWriteLock
 
 __all__ = ["FeatureVectorStore", "planned_capacity", "resolve_dtype",
@@ -45,6 +51,14 @@ _WIDTH_ALIGN = 32
 def device_width(features: int) -> int:
     """Column count of the device snapshot for ``features`` features."""
     return -(-features // _WIDTH_ALIGN) * _WIDTH_ALIGN
+
+
+def _gramian(vecs: torch.Tensor) -> torch.Tensor:
+    v = vecs.to(torch.float32)
+    if v.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("vtv needs full float32 products; "
+                           "torch.backends.cuda.matmul.allow_tf32 is set")
+    return v.T @ v
 
 
 def planned_capacity(n_rows: int, initial_capacity: int = 1024) -> int:
@@ -88,14 +102,24 @@ class FeatureVectorStore:
     """Mutable {id -> float32[k]} map materialized as a device tensor."""
 
     def __init__(self, features: int, initial_capacity: int = 1024,
-                 dtype="float32", device=None):
+                 dtype="float32", device=None, mesh=None):
         self.features = features
         self.device = resolve_device(device)
         self.device_features = device_width(features)
         self.dtype = resolve_dtype(dtype)
-        cap = max(16, initial_capacity)
+        self.mesh = mesh
+        self._cap_multiple = 1
+        if mesh is not None:
+            n_dev = mesh.size
+            if n_dev & (n_dev - 1):
+                raise ValueError(
+                    f"sharded store needs a power-of-two device count, "
+                    f"got {n_dev}")
+            self._cap_multiple = n_dev
+        cap = max(16, initial_capacity, self._cap_multiple)
         if cap > _LARGE_ALIGN:
             cap = -(-cap // _LARGE_ALIGN) * _LARGE_ALIGN
+        cap = -(-cap // self._cap_multiple) * self._cap_multiple
         self._id_to_row: dict[str, int] = {}
         self._row_to_id: list[str | None] = [None] * cap
         self._free: list[int] = list(range(cap - 1, -1, -1))
@@ -208,15 +232,19 @@ class FeatureVectorStore:
         with self._lock.write():
             if self._id_to_row:
                 raise ValueError("load_rows needs an empty store")
-            if len(self._row_to_id) < len(row_ids):
-                self._grow(len(row_ids))
-            for row, id_ in enumerate(row_ids):
-                if id_ is not None:
-                    self._id_to_row[id_] = row
-                    self._row_to_id[row] = id_
-            used = np.array([i is not None for i in row_ids], dtype=bool)
-            self._host[:len(row_ids)] = np.where(used[:, None], matrix, 0.0)
-            self._active[:len(row_ids)] = used
+            n = len(row_ids)
+            if len(self._row_to_id) < n:
+                self._grow(n)
+            self._id_to_row = {id_: row for row, id_ in enumerate(row_ids)
+                               if id_ is not None}
+            self._row_to_id[:n] = row_ids
+            used = np.fromiter((i is not None for i in row_ids), bool, n)
+            # written in place: a where() against a Python float would
+            # round-trip the whole matrix through float64
+            self._host[:n] = matrix
+            if not used.all():
+                self._host[:n][~used] = 0.0
+            self._active[:n] = used
             self._free = [r for r in range(len(self._row_to_id) - 1, -1, -1)
                           if self._row_to_id[r] is None]
             self._mutations += 1
@@ -277,6 +305,7 @@ class FeatureVectorStore:
             new_cap = min_capacity
         if new_cap > _LARGE_ALIGN:
             new_cap = -(-new_cap // _LARGE_ALIGN) * _LARGE_ALIGN
+        new_cap = -(-new_cap // self._cap_multiple) * self._cap_multiple
         host = np.zeros((new_cap, self.features), dtype=np.float32)
         host[:old_cap] = self._host
         self._host = host
@@ -306,7 +335,12 @@ class FeatureVectorStore:
         A snapshot is never written in place: the dirty-row scatter
         lands in a copy, so a reader that holds the previous snapshot
         (a drain between its phase A and its phase B) keeps seeing one
-        consistent matrix, as the reference's immutable arrays give."""
+        consistent matrix, as the reference's immutable arrays give.
+
+        A sharded store's snapshot is per entry: ``shard_arrays_versioned``."""
+        if self.mesh is not None:
+            raise TypeError("a sharded store's snapshot is one block per "
+                            "mesh entry: use shard_arrays_versioned")
         with self._lock.write():
             cap = len(self._row_to_id)
             if self._device is None \
@@ -329,14 +363,60 @@ class FeatureVectorStore:
             self._dirty.clear()
             return self._device, self._device_active, self._device_version
 
+    def shard_arrays_versioned(
+            self) -> tuple[list[torch.Tensor], list[torch.Tensor], int]:
+        """A sharded store's snapshot: (one row block per local mesh
+        entry, each entry's active mask, version), synced as
+        ``device_arrays_versioned`` syncs, a changed block copied before
+        its rows are written."""
+        mesh = self.mesh
+        with self._lock.write():
+            cap = len(self._row_to_id)
+            rows_per = cap // mesh.size
+            lo = [(mesh.first_entry + e) * rows_per
+                  for e in range(mesh.local_size)]
+            if self._device is None \
+                    or len(self._dirty) >= cap * _FULL_UPLOAD_FRACTION:
+                host = self._padded(self._host)
+                active = torch.from_numpy(self._active.copy())
+                self._device = [host[a:a + rows_per].to(d)
+                                for a, d in zip(lo, mesh.devices)]
+                self._device_active = [active[a:a + rows_per].to(d)
+                                       for a, d in zip(lo, mesh.devices)]
+                self._device_version += 1
+            elif self._dirty:
+                rows = np.sort(np.fromiter(self._dirty, dtype=np.int64,
+                                           count=len(self._dirty)))
+                vecs, act = list(self._device), list(self._device_active)
+                for e, (a, d) in enumerate(zip(lo, mesh.devices)):
+                    mine = rows[(rows >= a) & (rows < a + rows_per)]
+                    if not len(mine):
+                        continue
+                    with device_context(d):
+                        idx = torch.from_numpy(mine - a).to(d)
+                        vecs[e] = vecs[e].clone()
+                        vecs[e][idx] = self._padded(self._host[mine]).to(d)
+                        act[e] = act[e].clone()
+                        act[e][idx] = torch.from_numpy(
+                            self._active[mine]).to(d)
+                self._device, self._device_active = vecs, act
+                self._device_version += 1
+            self._dirty.clear()
+            return self._device, self._device_active, self._device_version
+
+    def _padded(self, host: np.ndarray) -> torch.Tensor:
+        """Host rows as device rows, on the host: columns zero-padded to
+        the device width, cast to the store dtype."""
+        out = torch.zeros((host.shape[0], self.device_features),
+                          dtype=self.dtype)
+        out[:, :self.features] = torch.from_numpy(host)
+        return out
+
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         """Host rows as device rows: columns zero-padded to the device
         width and cast to the store dtype on the host, so a bf16 store
         moves half the bytes."""
-        out = torch.zeros((host.shape[0], self.device_features),
-                          dtype=self.dtype)
-        out[:, :self.features] = torch.from_numpy(host)
-        return out.to(self.device)
+        return self._padded(host).to(self.device)
 
     def row_ids(self) -> list[str | None]:
         """Snapshot of the row -> id table for batched result decoding,
@@ -351,13 +431,19 @@ class FeatureVectorStore:
     def vtv(self) -> np.ndarray:
         """V^T V over the live vectors, one float32 matmul on the device
         (retired rows are zero; the padding columns are sliced off).
-        Reference: FeatureVectors.getVTV."""
-        vecs, _ = self.device_arrays()
-        v = vecs.to(torch.float32)
-        if v.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("vtv needs full float32 products; "
-                               "torch.backends.cuda.matmul.allow_tf32 is set")
-        out = (v.T @ v).cpu().numpy()
+        Reference: FeatureVectors.getVTV.  A sharded store sums the
+        entries' partial products (``mesh.psum``)."""
+        if self.mesh is None:
+            vecs, _ = self.device_arrays()
+            out = _gramian(vecs).cpu().numpy()
+        else:
+            from ...parallel.mesh import psum
+            blocks, _, _ = self.shard_arrays_versioned()
+            parts = []
+            for d, b in zip(self.mesh.devices, blocks):
+                with device_context(d):
+                    parts.append(_gramian(b))
+            out = psum(self.mesh, parts)[0].cpu().numpy()
         return out[:self.features, :self.features]
 
     def host_arrays(self) -> tuple[np.ndarray, np.ndarray, list[str | None]]:

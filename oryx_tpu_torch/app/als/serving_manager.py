@@ -21,8 +21,10 @@ route is installed when the load fraction crosses
 (reference :415-516): built from the trainer's published centroids and
 per-slice cells where the manifest names them, else trained here; its
 recall certificate is measured before the route, and any failure serves
-the exact kinds and counts ``ann_index_fallbacks``.  Not part of this
-package yet: item sharding over several cards (``item-shards`` 1).
+the exact kinds and counts ``ann_index_fallbacks``.
+``oryx.serving.api.item-shards`` (a power of two) row-shards the item
+store over that many cards (reference :50-63, :244); a sharded model
+builds no IVF index (:448).
 """
 
 from __future__ import annotations
@@ -70,10 +72,11 @@ class ALSServingModelManager(AbstractServingModelManager):
             config.get_optional_string("oryx.als.rescorer-provider-class"))
         # parsed and validated at boot, as every serving knob
         self.ann_config = ivf.AnnConfig.from_config(config)
-        if config.get_int("oryx.serving.api.item-shards") != 1:
-            raise ValueError("oryx.serving.api.item-shards must be 1: item "
-                             "sharding over several cards is not part of "
-                             "this package yet")
+        # the item matrix row-sharded over a mesh of cards (1: one card)
+        self.item_shards = config.get_int("oryx.serving.api.item-shards")
+        if self.item_shards < 1 or (self.item_shards
+                                    & (self.item_shards - 1)):
+            raise ValueError("item-shards must be a power of two >= 1")
         self.sample_rate = config.get_double("oryx.als.sample-rate")
         self.factor_dtype = config.get_string("oryx.als.factor-dtype")
         self.int8_selection = config.get_string(
@@ -245,7 +248,7 @@ class ALSServingModelManager(AbstractServingModelManager):
                 self.rescorer_provider,
                 dtype=self.factor_dtype, device=self.device,
                 int8_selection=self.int8_selection,
-                fold_scan=self.fold_scan)
+                fold_scan=self.fold_scan, item_shards=self.item_shards)
             # its expected ids before it is published: an empty model
             # reads as wholly loaded, and /ready and the replica's
             # heartbeat would call it ready (the reference publishes
@@ -415,7 +418,8 @@ class ALSServingModelManager(AbstractServingModelManager):
         optimization, never a readiness gate."""
         cfg = self.ann_config
         model = self.model
-        if not cfg.enabled or model is None or len(model.Y) == 0:
+        if not cfg.enabled or model is None or model._item_shards > 1 \
+                or len(model.Y) == 0:
             return
         try:
             if self._ann_artifacts_broken:

@@ -22,6 +22,12 @@ blocks of each query's nearest cells of an IVF index (``ivf.py``, plain
 PyTorch), and serves only while its measured recall certificate holds.
 "scan" is the plain PyTorch build.
 
+With ``item_shards`` > 1 (``oryx.serving.api.item-shards``) the item
+store keeps one row block per entry of a mesh (``parallel/mesh.Mesh``):
+a batch is scored per shard and merged (``parallel/serving_dist``), the
+single-request paths score each block and join the scores, and LSH,
+the IVF index and the kernel router stand aside, as on the reference.
+
 ``top_n`` scores by dot product with one user vector or by mean cosine
 similarity to a set of item vectors (``/similarity``).  Known items keep
 an incremental per-item popularity counter.
@@ -49,6 +55,7 @@ import torch
 
 from ...api.serving import ServingModel
 from ...common.device import check_f32_matmul as _check_f32_matmul
+from ...common.device import device_context
 from ...common.lang import AutoReadWriteLock
 from ...ops.phase_a import MAX_WIDTH as PHASE_A_MAX_WIDTH
 from ...ops.phase_a import phase_a
@@ -597,15 +604,33 @@ class ALSServingModel(FactorModelBase, ServingModel):
                  sample_rate: float = 1.0, rescorer_provider=None,
                  dtype="float32", device=None,
                  int8_selection: str | bool = "auto",
-                 fold_scan: str | bool = "auto"):
+                 fold_scan: str | bool = "auto", item_shards: int = 1,
+                 mesh=None):
         """``int8_selection`` ("auto", "true", "false"; the reference's
         ``oryx.serving.api.int8-selection``) selects phase A on an int8
         mirror: "auto" turns it on at features <= 64 where the store pads
         its columns.  ``fold_scan`` (``fold-scan``) lets phase A scan a
         folded mirror where the features fit 1/2 or 1/4 of the padded
         width.  The IVF index's state comes with each generation
-        (``attach_ann``).  ``device=None`` means ``cuda``."""
-        super().__init__(features, implicit, dtype=dtype, device=device)
+        (``attach_ann``).  ``device=None`` means ``cuda``.
+
+        ``item_shards`` > 1 row-shards the item store over that many mesh
+        entries and serves the dot-product top-N as a per-shard top-k
+        and one merge (reference :898-932): the serving mode for item
+        matrices past one card.  ``mesh`` overrides the mesh over the
+        first ``item_shards`` cards (or CPU entries with
+        ``device="cpu"``); it may repeat a device."""
+        self._item_shards = int(item_shards)
+        self._mesh = None
+        if self._item_shards > 1:
+            from ...parallel.mesh import Mesh, build_mesh
+            from ...parallel.serving_dist import ShardKernelCache
+            if mesh is None:
+                mesh = Mesh(build_mesh(self._item_shards, device).devices)
+            self._mesh = mesh
+            self._shard_kernels = ShardKernelCache(mesh)
+        super().__init__(features, implicit, dtype=dtype, device=device,
+                         item_mesh=self._mesh)
         self.rescorer_provider = rescorer_provider
         self._known_items: dict[str, set[str]] = {}
         # item -> number of users whose known items hold it, kept with
@@ -734,8 +759,11 @@ class ALSServingModel(FactorModelBase, ServingModel):
             else str(r["chosen"])
 
     def _lsh_active(self) -> bool:
-        """True when this model's LSH configuration actually prunes."""
-        return (self.lsh is not None and self.lsh.num_hashes > 0
+        """True when this model's LSH configuration actually prunes.
+        Always False when sharded: LSH is a one-card optimization, and
+        the sharded exact scan already splits the bandwidth bill."""
+        return (self._item_shards == 1 and self.lsh is not None
+                and self.lsh.num_hashes > 0
                 and self.lsh.max_bits_differing < self.lsh.num_hashes)
 
     def _cached_penalty(self, active, version) -> torch.Tensor:
@@ -840,7 +868,7 @@ class ALSServingModel(FactorModelBase, ServingModel):
             return self._item_buckets
 
     def _lsh_mask(self, query_vec: np.ndarray | None, vecs, version, active):
-        if self.lsh is None or query_vec is None \
+        if self._item_shards > 1 or self.lsh is None or query_vec is None \
                 or self.lsh.num_hashes == 0:
             return active
         buckets = self._cached_buckets(vecs, version)
@@ -864,20 +892,39 @@ class ALSServingModel(FactorModelBase, ServingModel):
         if (user_vector is None) == (cosine_to is None):
             raise ValueError("exactly one of user_vector and cosine_to")
         _check_f32_matmul(self.device)
-        vecs, active, version = self.Y.device_arrays_versioned()
         if user_vector is not None:
             q = np.asarray(user_vector, dtype=np.float32)
-            scores = _dot_scores(vecs, torch.from_numpy(q).to(self.device))
+            qt = torch.from_numpy(q)
+
+            def score(Y):
+                return _dot_scores(Y, qt.to(Y.device))
         else:
             V = np.asarray(cosine_to, dtype=np.float32)
             if V.ndim == 1:
                 V = V[:, None]
-            scores = _cosine_mean_scores(
-                vecs, torch.from_numpy(V).to(self.device))
+            Vt = torch.from_numpy(V)
             q = V.mean(axis=1)
+
+            def score(Y):
+                return _cosine_mean_scores(Y, Vt.to(Y.device))
+        if self._item_shards > 1:
+            # each shard scores its own rows; the scores (not the rows)
+            # are joined on the first entry, in global row order
+            blocks, actives, version = self.Y.shard_arrays_versioned()
+            d0 = self._mesh.devices[0]
+            parts = []
+            for d, b in zip(self._mesh.devices, blocks):
+                with device_context(d):
+                    parts.append(score(b))
+            scores = torch.cat([p.to(d0) for p in parts])
+            active = torch.cat([a.to(d0) for a in actives])
+            vecs = None
+        else:
+            vecs, active, version = self.Y.device_arrays_versioned()
+            scores = score(vecs)
         if lowest:
             scores = -scores
-        n_rows = int(vecs.shape[0])
+        n_rows = int(scores.shape[0])
         use_lsh = use_lsh and self._route_use_lsh(n_rows)
         mask = self._lsh_mask(q if use_lsh else None, vecs, version, active)
 
@@ -943,6 +990,8 @@ class ALSServingModel(FactorModelBase, ServingModel):
             raise ValueError("one how_many per user vector required")
         excl = [set(e) for e in exclude] if exclude is not None \
             else [set()] * n_req
+        if self._item_shards > 1:
+            return self._sharded_top_n_batch(hm, Q, excl, use_lsh)
         vecs, active, version = self.Y.device_arrays_versioned()
         n_rows = int(vecs.shape[0])
         k = min(_pad_k(max(h + len(e) for h, e in zip(hm, excl))), n_rows)
@@ -1131,7 +1180,8 @@ class ALSServingModel(FactorModelBase, ServingModel):
         gate of the dispatch chain and the router, so the router can
         never serve the IVF index below min-recall."""
         a = self._ann
-        return (a is not None and a.recall is not None
+        return (a is not None and self._item_shards == 1
+                and a.recall is not None
                 and a.recall >= a.cfg.min_recall
                 and n_rows % _BLOCK_ROWS == 0
                 and n_rows // _BLOCK_ROWS >= int(a.centroids.shape[0]))
@@ -1187,6 +1237,8 @@ class ALSServingModel(FactorModelBase, ServingModel):
             self.top_n_batch(how_many,
                              np.zeros((b, self.features), np.float32))
             b *= 2
+        if self._item_shards > 1:
+            return  # the loop above ran the sharded path; no route
         vecs, active, version = self.Y.device_arrays_versioned()
         n_rows = int(vecs.shape[0])
         k = min(_pad_k(how_many), n_rows)
@@ -1244,6 +1296,8 @@ class ALSServingModel(FactorModelBase, ServingModel):
         reused while the padded capacity and the LSH configuration are
         unchanged; ``force`` re-measures."""
         from .kernel_router import measure_routes
+        if self._item_shards > 1:
+            return None  # the per-shard merge is the only sharded path
         with self._route_lock:
             n_rows = len(self.Y.row_ids())
             r = self._route
@@ -1280,6 +1334,26 @@ class ALSServingModel(FactorModelBase, ServingModel):
                      and r.get("lsh_configured") == self._lsh_active()
                      and r.get("ann_key") == self._ann_route_key()) \
             else None
+
+    def _sharded_top_n_batch(self, hm: list[int], Q: np.ndarray,
+                             excl: list[set[str]],
+                             use_lsh: bool) -> list[list[tuple[str, float]]]:
+        """Batched top-N over the row-sharded item store: a top-k per
+        shard, one gather, the merge (``parallel/serving_dist``; reference
+        :1760-1781)."""
+        n_req = Q.shape[0]
+        blocks, actives, _ = self.Y.shard_arrays_versioned()
+        n_rows = int(blocks[0].shape[0]) * self._mesh.size
+        k = min(_pad_k(max(h + len(e) for h, e in zip(hm, excl))), n_rows)
+        b_pad = _pad_k(n_req)
+        if b_pad != n_req:
+            Q = np.concatenate(
+                [Q, np.zeros((b_pad - n_req, Q.shape[1]), np.float32)])
+        top_scores, top_idx = _fetch(*self._shard_kernels.top_k(
+            blocks, actives, self._shard_kernels.replicate(Q), k))
+        window = min(k, top_scores.shape[1])
+        return self._decode_top_n(top_scores, top_idx, hm, excl, n_req,
+                                  window < n_rows, Q, use_lsh)
 
     def _decode_top_n(self, top_scores, top_idx, hm: list[int],
                       excl: list[set[str]], n_req: int, window_partial: bool,

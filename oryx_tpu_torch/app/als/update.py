@@ -14,9 +14,10 @@ artifacts and a manifest with its MODEL-REF (``slices.py``), with
 ``oryx.als.ann.publish-index`` also the IVF index trained on the card
 (centroids and per-slice cells).
 
-Not part of this package yet, refused with an error naming its key: the
-training mesh over several cards (``oryx.batch.streaming.master =
-"mesh"`` and ``oryx.distributed.*``).
+Where ``oryx.batch.streaming.master`` and ``oryx.distributed.*`` give a
+mesh (``parallel/mesh.mesh_from_config``), the candidates train over it
+(``parallel/als_dist.train_als_distributed``), with the float64 rescue
+for a diverged one.
 """
 
 from __future__ import annotations
@@ -42,10 +43,12 @@ from ...kafka.api import KEY_UP, KeyMessage, TopicProducer
 from ...ml import params as hp
 from ...ml.integrity import NumericalDivergenceError, is_finite_array
 from ...ml.mlupdate import MLUpdate
+from ...parallel.als_dist import train_als_distributed
+from ...parallel.mesh import mesh_from_config
 from . import common as als_common
 from . import evaluation
 from . import slices
-from .trainer import ALSModel, train_als
+from .trainer import ALSModel, rescue_retrain_f64, train_als
 
 _log = logging.getLogger(__name__)
 
@@ -132,13 +135,9 @@ class ALSUpdate(MLUpdate):
             raise ValueError("decay factor must be in (0,1]")
         if self.decay_zero_threshold < 0.0:
             raise ValueError("decay zero threshold must be >= 0")
-        if config.get_string("oryx.batch.streaming.master") == "mesh" or \
-                config.get_optional_string(
-                    "oryx.distributed.coordinator-address"):
-            raise ValueError(
-                "oryx.batch.streaming.master = \"mesh\" / "
-                "oryx.distributed.coordinator-address: training over "
-                "several cards is not part of this package yet")
+        # the training mesh over several cards, joined across processes
+        # by oryx.distributed.* (None: one device)
+        self.mesh = mesh_from_config(config, self.device)
         self._hyper_params = [
             hp.from_config(config, "oryx.als.hyperparams.features"),
             hp.from_config(config, "oryx.als.hyperparams.lambda"),
@@ -167,8 +166,24 @@ class ALSUpdate(MLUpdate):
                                        self.log_strength, epsilon)
         t0 = self._stage("parse", t0)
         try:
-            model = train_als(ratings, features, lam, alpha, self.implicit,
-                              self.iterations, device=self.device)
+            if self.mesh is not None:
+                model = train_als_distributed(
+                    ratings, features, lam, alpha, self.implicit,
+                    self.iterations, self.mesh)
+                if not (is_finite_array(model.X)
+                        and is_finite_array(model.Y)):
+                    # the distributed trainer has no ladder in its loop:
+                    # its diverged candidates get the float64 rescue
+                    _log.warning("Distributed ALS diverged (features=%d "
+                                 "lambda=%g); rescuing in float64 on the "
+                                 "host", features, lam)
+                    model = rescue_retrain_f64(ratings, features, lam,
+                                               alpha, self.implicit,
+                                               self.iterations)
+            else:
+                model = train_als(ratings, features, lam, alpha,
+                                  self.implicit, self.iterations,
+                                  device=self.device)
             self._stage("train", t0)
         except NumericalDivergenceError:
             # every rescue rung failed: a clean per-candidate failure —

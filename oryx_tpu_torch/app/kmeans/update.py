@@ -5,9 +5,9 @@ KMeansUpdate.java:60-230 — the k hyperparameter, iterations, runs and
 initialization from the config, the evaluation strategy :139-176, the
 ClusteringModel PMML with cluster sizes :184).  Unsupervised: a target
 or a categorical feature is refused.  Training and evaluation run on
-``device`` (None means ``cuda``).  Not part of this package yet,
-refused with an error naming its key: the training mesh over several
-cards (``oryx.batch.streaming.master = "mesh"``).
+``device`` (None means ``cuda``), or over the mesh of
+``oryx.batch.streaming.master`` and ``oryx.distributed.*``
+(``parallel/mesh.mesh_from_config``, ``parallel/kmeans_dist``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from ...common.device import resolve_device
 from ...kafka.api import KeyMessage
 from ...ml import params as hp
 from ...ml.mlupdate import MLUpdate
+from ...parallel.kmeans_dist import train_kmeans_distributed
+from ...parallel.mesh import mesh_from_config
 from ..schema import InputSchema
 from . import evaluation, pmml as kmeans_pmml
 from .common import parse_to_matrix
@@ -56,13 +58,9 @@ class KMeansUpdate(MLUpdate):
         if self.evaluation_strategy not in evaluation.EVAL_STRATEGIES:
             raise ValueError(
                 f"bad evaluation-strategy: {self.evaluation_strategy}")
-        if config.get_string("oryx.batch.streaming.master") == "mesh" or \
-                config.get_optional_string(
-                    "oryx.distributed.coordinator-address"):
-            raise ValueError(
-                "oryx.batch.streaming.master = \"mesh\" / "
-                "oryx.distributed.coordinator-address: training over "
-                "several cards is not part of this package yet")
+        # the training mesh over several cards, joined across processes
+        # by oryx.distributed.* (None: one device)
+        self.mesh = mesh_from_config(config, self.device)
         # unsupervised, numeric-only
         if self.input_schema.has_target():
             raise ValueError("k-means does not take a target feature")
@@ -90,9 +88,14 @@ class KMeansUpdate(MLUpdate):
             return None
         _log.info("Building KMeans model with %d clusters over %d points",
                   k, len(points))
-        clusters = train_kmeans(points, k, self.iterations, self.runs,
-                                self.initialization_strategy,
-                                device=self.device)
+        if self.mesh is not None:
+            clusters = train_kmeans_distributed(
+                points, k, self.iterations, self.mesh, self.runs,
+                self.initialization_strategy)
+        else:
+            clusters = train_kmeans(points, k, self.iterations, self.runs,
+                                    self.initialization_strategy,
+                                    device=self.device)
         return kmeans_pmml.clusters_to_pmml(clusters, self.input_schema)
 
     def evaluate(self, model: Element, candidate_path: str,

@@ -32,6 +32,15 @@ is Poisson(1) example weights per tree.  Both random draws come from a
 ``_feature_uniforms``), so a forest trained from a seed differs from the
 reference's, which draws from ``jax.random``.
 
+With a ``mesh`` (``parallel/mesh.Mesh``; reference :155, :371, :384,
+:485-593) the examples are row-sharded over its entries, padded to a
+multiple of the mesh size with rows of weight 0 that settle at once;
+each entry builds its histograms and counts, one ``psum`` sums them (the
+collective that replaces MLlib's node-stats shuffle), the split scan
+runs once on the first entry, and each entry advances its own examples.
+The draws are the same as without a mesh, so a classification forest
+(integer histograms, exact sums) is the same forest.
+
 The output is host ``DecisionTree``s (tree.py) with PMML record counts
 and feature importances collected per level from the frontier occupancy
 (RDFUpdate.treeNodeExampleCounts / predictorExampleCounts).
@@ -45,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from ...common.device import check_f32_matmul, resolve_device
+from ...common.device import check_f32_matmul, device_context, resolve_device
 from ...common.rand import RandomManager
 from ..classreg import CategoricalPrediction, NumericPrediction
 from ..schema import InputSchema
@@ -241,6 +250,32 @@ def _slot_counts(slot_of: torch.Tensor, num_slots: int) -> torch.Tensor:
                                alive.to(torch.int32))
 
 
+class _Shard:
+    """One mesh entry's examples: [B_e, P] bins, [P, B_e] transposed,
+    [B_e, C] channels, [T, B_e] weights and slots."""
+
+    def __init__(self, device, binned, ychan, w, slot_of):
+        self.device = device
+        self.binned = binned
+        self.binned_t = binned.t().long().contiguous()
+        self.ychan = ychan
+        self.w = w
+        self.slot_of = slot_of
+
+
+def _shard_sum(mesh, shards: list[_Shard], fn) -> torch.Tensor:
+    """``fn(shard)`` summed over the shards (one psum over a mesh), on
+    the first entry."""
+    parts = []
+    for s in shards:
+        with device_context(s.device):
+            parts.append(fn(s))
+    if mesh is None:
+        return parts[0]
+    from ...parallel.mesh import psum
+    return psum(mesh, parts)[0]
+
+
 # -- binning ------------------------------------------------------------------
 
 def _bin_features(x: np.ndarray, is_cat: np.ndarray, num_bins: int):
@@ -266,10 +301,12 @@ def train_forest(x: np.ndarray, y: np.ndarray, schema: InputSchema,
                  max_depth: int, max_split_candidates: int,
                  impurity: str, seed: int | None = None,
                  num_classes: int | None = None,
-                 timings: dict | None = None, device=None) -> DecisionForest:
+                 timings: dict | None = None, device=None,
+                 mesh=None) -> DecisionForest:
     """Train a forest on predictors ``x`` [B, P] (categorical values as
     encodings) and targets ``y`` (class encodings or regression values)
-    on ``device`` (None means ``cuda``).
+    on ``device`` (None means ``cuda``), or over the entries of
+    ``mesh``.
 
     ``category_counts`` maps predictor index -> number of categories.
     ``timings``, when given, gathers seconds by stage under the
@@ -287,9 +324,10 @@ def train_forest(x: np.ndarray, y: np.ndarray, schema: InputSchema,
     batch, num_p = x.shape
     if batch == 0:
         raise ValueError("no training data")
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     if not classification:
-        check_f32_matmul(dev)
+        for d in (mesh.devices if mesh is not None else (dev,)):
+            check_f32_matmul(d)
 
     def _mark(stage: str, t0: float) -> float:
         now = time.perf_counter()
@@ -311,24 +349,51 @@ def train_forest(x: np.ndarray, y: np.ndarray, schema: InputSchema,
     binned_np, thresholds = _bin_features(x, is_cat, num_bins)
     t0 = _mark("bin_features", t0)
 
-    binned = torch.from_numpy(binned_np).to(dev)
-    binned_t = binned.t().long().contiguous()           # [P, B]
     if classification:
         if num_classes is None:
             num_classes = int(np.max(y)) + 1
-        ychan = torch.nn.functional.one_hot(
-            torch.from_numpy(np.asarray(y, dtype=np.int64)).to(dev),
-            num_classes).to(torch.float32)
+        y_np = np.asarray(y, dtype=np.int64)
         k_features = max(1, int(math.ceil(math.sqrt(num_p))))
     else:
-        yt = torch.from_numpy(np.asarray(y, dtype=np.float32)).to(dev)
-        ychan = torch.stack([torch.ones_like(yt), yt, yt * yt], dim=1)
+        y_np = np.asarray(y, dtype=np.float32)
         k_features = max(1, num_p // 3)
+
+    def channels(yt: torch.Tensor) -> torch.Tensor:
+        if classification:
+            return torch.nn.functional.one_hot(yt, num_classes).to(
+                torch.float32)
+        return torch.stack([torch.ones_like(yt), yt, yt * yt], dim=1)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(RandomManager.random_seed() if seed is None else seed)
     w = _bootstrap_weights(gen, (num_trees, batch), dev)
-    slot_of = torch.zeros((num_trees, batch), dtype=torch.int64, device=dev)
+    if mesh is None:
+        shards = [_Shard(dev, torch.from_numpy(binned_np).to(dev),
+                         channels(torch.from_numpy(y_np).to(dev)), w,
+                         torch.zeros((num_trees, batch), dtype=torch.int64,
+                                     device=dev))]
+    else:
+        # the examples padded to the mesh size; padding rows weigh 0
+        # and start settled (slot -1), so they never contribute
+        from ...parallel.mesh import pad_rows
+        n_pad = pad_rows(batch, mesh.size)
+        rows = n_pad // mesh.size
+        w = torch.nn.functional.pad(w, (0, n_pad - batch))
+        binned_p = np.zeros((n_pad, num_p), dtype=binned_np.dtype)
+        binned_p[:batch] = binned_np
+        y_p = np.zeros(n_pad, dtype=y_np.dtype)
+        y_p[:batch] = y_np
+        slots = torch.zeros((num_trees, n_pad), dtype=torch.int64)
+        slots[:, batch:] = -1
+        shards = []
+        for e, d in enumerate(mesh.devices):
+            lo = (mesh.first_entry + e) * rows
+            hi = lo + rows
+            with device_context(d):
+                shards.append(_Shard(
+                    d, torch.from_numpy(binned_p[lo:hi]).to(d),
+                    channels(torch.from_numpy(y_p[lo:hi]).to(d)),
+                    w[:, lo:hi].to(d), slots[:, lo:hi].to(d)))
     is_cat_t = torch.from_numpy(is_cat).to(dev)
     t0 = _mark("init_upload", t0)
 
@@ -347,8 +412,9 @@ def train_forest(x: np.ndarray, y: np.ndarray, schema: InputSchema,
         num_slots = 1 << (real_slots - 1).bit_length()
         last = depth == max_depth
         if not last:
-            hist = _histograms(binned, ychan, w, slot_of, num_slots,
-                               num_bins, classification)
+            hist = _shard_sum(mesh, shards, lambda s: _histograms(
+                s.binned, s.ychan, s.w, s.slot_of, num_slots, num_bins,
+                classification))
             feat_u = _feature_uniforms(gen, depth,
                                        (num_trees, num_slots, num_p), dev)
             gain, best_p, best_b, default_right, right_mask, totals = \
@@ -356,10 +422,11 @@ def train_forest(x: np.ndarray, y: np.ndarray, schema: InputSchema,
         else:
             # the last level only settles leaves, which need their
             # totals: one predictor's histogram, summed over its bins
-            totals = _histograms(binned[:, :1], ychan, w, slot_of,
-                                 num_slots, num_bins,
-                                 classification)[:, :, 0].sum(2)
-        counts = _slot_counts(slot_of, num_slots)
+            totals = _shard_sum(mesh, shards, lambda s: _histograms(
+                s.binned[:, :1], s.ychan, s.w, s.slot_of, num_slots,
+                num_bins, classification))[:, :, 0].sum(2)
+        counts = _shard_sum(mesh, shards,
+                            lambda s: _slot_counts(s.slot_of, num_slots))
         t0 = _mark("level_dispatch", t0)
 
         # ONE synchronising fetch of every output of the level, packed
@@ -418,10 +485,15 @@ def train_forest(x: np.ndarray, y: np.ndarray, schema: InputSchema,
         t0 = _mark("level_host_partition", t0)
         if not any(next_ids[t] for t in range(num_trees)):
             break
-        tables_dev = torch.from_numpy(tables).to(dev)   # one upload
-        slot_of = _advance(slot_of, binned_t, tables_dev[:, :, 0] > 0,
-                           best_p, best_b, tables_dev[:, :, 1] > 0,
-                           right_mask, tables_dev[:, :, 2:])
+        tables_t = torch.from_numpy(tables)
+        for s in shards:
+            with device_context(s.device):
+                tables_dev = tables_t.to(s.device)   # one upload each
+                s.slot_of = _advance(
+                    s.slot_of, s.binned_t, tables_dev[:, :, 0] > 0,
+                    best_p.to(s.device), best_b.to(s.device),
+                    tables_dev[:, :, 1] > 0, right_mask.to(s.device),
+                    tables_dev[:, :, 2:])
         frontier_ids = next_ids
         t0 = _mark("level_advance_dispatch", t0)
 

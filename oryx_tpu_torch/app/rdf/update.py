@@ -6,10 +6,10 @@ impurity hyperparameters :99-102, categorical encodings from the
 distinct values :205, training :141-163, PMML with record counts,
 importances and extensions (rdfModelToPMML), evaluation by
 classification accuracy or -RMSE (Evaluation.java:27-50)).  Training
-and evaluation run on ``device`` (None means ``cuda``).  Not part of
-this package yet, refused with an error naming its key: training over
-several cards (``oryx.batch.streaming.master = "mesh"``,
-``oryx.distributed.coordinator-address``).
+and evaluation run on ``device`` (None means ``cuda``); training runs
+over the mesh of ``oryx.batch.streaming.master`` and
+``oryx.distributed.*`` where one is configured
+(``parallel/mesh.mesh_from_config``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from ...common.device import resolve_device
 from ...kafka.api import KeyMessage
 from ...ml import params as hp
 from ...ml.mlupdate import MLUpdate
+from ...parallel.mesh import mesh_from_config
 from ..classreg import example_from_tokens
 from ..schema import CategoricalValueEncodings, InputSchema
 from . import pmml as rdf_pmml
@@ -51,13 +52,9 @@ class RDFUpdate(MLUpdate):
         self.input_schema = InputSchema(config)
         if not self.input_schema.has_target():
             raise ValueError("rdf requires a target feature")
-        if config.get_string("oryx.batch.streaming.master") == "mesh" or \
-                config.get_optional_string(
-                    "oryx.distributed.coordinator-address"):
-            raise ValueError(
-                "oryx.batch.streaming.master = \"mesh\" / "
-                "oryx.distributed.coordinator-address: training over "
-                "several cards is not part of this package yet")
+        # the training mesh over several cards, joined across processes
+        # by oryx.distributed.* (None: one device)
+        self.mesh = mesh_from_config(config, self.device)
 
     def get_hyper_parameter_values(self):
         return self.hyper_param_values
@@ -148,7 +145,8 @@ class RDFUpdate(MLUpdate):
         forest = train_forest(x, y, schema, category_counts,
                               self.num_trees, max_depth,
                               max_split_candidates, impurity,
-                              num_classes=num_classes, device=self.device)
+                              num_classes=num_classes, device=self.device,
+                              mesh=self.mesh)
         return rdf_pmml.forest_to_pmml(
             forest, schema, encodings, max_depth=max_depth,
             max_split_candidates=max_split_candidates, impurity=impurity)

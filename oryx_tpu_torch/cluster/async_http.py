@@ -48,6 +48,7 @@ import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 from ..common import clock as clockmod
+from ..common.device import bind_thread
 from ..lambda_rt.http import (_KNOWN_METHODS, _REASONS, _render_kind,
                               render_error_page, wants_csv)
 from ..resilience import faults
@@ -123,7 +124,8 @@ class AsyncFrontEnd:
             f"{c}.watchdog-stall-ms") / 1000.0
         self._bridge = ThreadPoolExecutor(
             max_workers=self.bridge_workers,
-            thread_name_prefix="router-bridge")
+            thread_name_prefix="router-bridge", initializer=bind_thread,
+            initargs=(getattr(app, "thread_card", None),))
         self.port: int | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._server = None

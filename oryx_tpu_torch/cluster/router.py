@@ -51,7 +51,7 @@ import numpy as np
 from ..api.serving import OryxServingException
 from ..common import clock as clockmod
 from ..common.config import Config
-from ..common.device import resolve_device
+from ..common.device import bound, resolve_device, thread_card
 from ..kafka import utils as kafka_utils
 from ..kafka.api import KEY_MODEL, KEY_MODEL_REF, KEY_UP
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
@@ -974,6 +974,7 @@ class RouterLayer:
                 "tracer": self.tracer,
                 "config": config,
                 "device": self.device,
+                "thread_card": thread_card(self.device),
                 "input_producer": self.input_producer,
                 "ingest_gate": self.ingest_gate,
                 "admission":
@@ -1061,7 +1062,8 @@ class RouterLayer:
 
     def start(self) -> None:
         self._consume_thread = threading.Thread(
-            target=self._consume_membership, daemon=True,
+            target=bound(self._consume_membership, self.app.thread_card),
+            daemon=True,
             name="RouterMembership")
         self._consume_thread.start()
         ssl_context = None

@@ -69,6 +69,7 @@ from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, SimpleQueue
 
 from ..common import clock as clockmod
+from ..common.device import bind_thread
 from ..resilience import faults
 
 _log = logging.getLogger(__name__)
@@ -465,7 +466,8 @@ class FrameServer:
         self.shard_cache = shard_cache
         self._workers = ThreadPoolExecutor(
             max_workers=max(1, config.get_int(f"{c}.workers")),
-            thread_name_prefix="frame-serve")
+            thread_name_prefix="frame-serve", initializer=bind_thread,
+            initargs=(getattr(app, "thread_card", None),))
         self._require_ha1 = None
         if app.user_name is not None:
             self._require_ha1 = auth_ha1(app.user_name,

@@ -257,9 +257,15 @@ def run_warmup(config, items_list: list[int], features_list: list[int],
         report["ann"] = {"cells": ann.cells, "nprobe": ann.nprobe}
     item_shards = config.get_int("oryx.serving.api.item-shards")
     if item_shards > 1:
+        # the sharded scan (parallel/serving_dist) is per-shard torch
+        # products and top-k over a live mesh: nothing of it is built
+        # here.  Say so instead of reporting a warm of single-card
+        # kernels the sharded serving layer never launches
         _log.warning(
-            "item-shards=%d: the sharded serving path is not part of this "
-            "package; warming the single-card ladder", item_shards)
+            "item-shards=%d: the sharded merge path is NOT warmed (it is "
+            "mesh-bound; the first sharded start runs it cold). Warming "
+            "the single-card ladder anyway for tools/benches.",
+            item_shards)
         report["sharded_not_warmed"] = item_shards
     t0 = time.perf_counter()
     runs0, build0 = cuda_build.NVCC_RUNS, cuda_build.BUILD_S

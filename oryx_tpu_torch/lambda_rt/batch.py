@@ -22,6 +22,7 @@ import time
 
 from ..common import compile_cache
 from ..common.config import Config
+from ..common.device import bound, thread_card
 from ..common.lang import load_instance
 from ..kafka import utils as kafka_utils
 from ..kafka.api import KeyMessage
@@ -60,6 +61,8 @@ class BatchLayer:
             "oryx.batch.storage.max-age-model-hours")
         update_class = config.get_string("oryx.batch.update-class")
         self.update_instance = load_instance(update_class, config, device)
+        # the card the generation thread makes current
+        self.thread_card = thread_card(device)
         self._group = f"OryxGroup-BatchLayer-{self.id or 'default'}"
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -101,8 +104,9 @@ class BatchLayer:
         kafka_utils.maybe_create_topic(
             self.input_broker, self.input_topic,
             partitions=kafka_utils.input_topic_partitions(self.config))
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="BatchLayer")
+        self._thread = threading.Thread(
+            target=bound(self._loop, self.thread_card), daemon=True,
+            name="BatchLayer")
         self._thread.start()
 
     def await_(self) -> None:

@@ -32,6 +32,7 @@ import urllib.parse
 from http.server import ThreadingHTTPServer
 from typing import Any, Callable, NamedTuple
 
+from ..common.device import bind_thread
 from ..resilience.policy import Deadline, DeadlineExceeded
 from ..api.serving import OryxServingException
 
@@ -229,6 +230,9 @@ class HttpApp:
                  context_path: str = "/", request_deadline_ms: int = 0):
         self._routes = [(r, _compile(r.pattern)) for r in routes]
         self.context = context
+        # the card the server's worker threads make current (None on
+        # the CPU): every request thread may launch device work
+        self.thread_card = context.get("thread_card")
         # the dispatcher records into the registry /metrics reads
         self.metrics = context.get("metrics")
         # request tracing (obs/trace.py): None = disabled, and the whole
@@ -816,6 +820,10 @@ def make_server(app: HttpApp, port: int,
         # hundreds of concurrent keep-alive clients; the socketserver
         # default backlog of 5 refuses connections under load
         request_queue_size = 512
+
+        def process_request_thread(self, request, client_address):
+            bind_thread(app.thread_card)
+            super().process_request_thread(request, client_address)
 
     server = _Server(("0.0.0.0", port), _Handler)
     if ssl_context is not None:

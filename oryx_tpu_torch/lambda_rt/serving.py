@@ -46,6 +46,7 @@ from ..cluster.membership import HeartbeatPublisher, without_heartbeats
 from ..cluster.result_cache import ShardResultCache
 from ..cluster.sharding import parse_shard_spec
 from ..common import compile_cache
+from ..common.device import bound, thread_card
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
 from ..kafka.inproc import InProcTopicProducer, resolve_broker
@@ -117,6 +118,9 @@ class ServingLayer:
             "oryx.serving.min-model-load-fraction")
         manager_class = config.get_string("oryx.serving.model-manager-class")
         self.model_manager = load_instance(manager_class, config, device)
+        # the card every worker thread of this layer makes current:
+        # request threads, batcher dispatchers, the update consumer
+        self.thread_card = thread_card(device)
 
         self._stop = threading.Event()
         self._consume_thread: threading.Thread | None = None
@@ -157,7 +161,8 @@ class ServingLayer:
             max_batch=config.get_int(f"{api}.max-batch"),
             pipeline=config.get_int(f"{api}.scoring-pipeline-depth"),
             idle_wait_s=None if idle_ms < 0 else idle_ms / 1000.0,
-            tracer=self.tracer, accountant=self.device_time)
+            tracer=self.tracer, accountant=self.device_time,
+            device=self.thread_card)
         if self.cluster_enabled:
             # the replica-side exact result cache for /shard/* answers
             # (None unless oryx.cluster.replica-cache.enabled): a shard
@@ -215,6 +220,7 @@ class ServingLayer:
                 "events": self.events,
                 "flight": self.flight,
                 "device_time": self.device_time,
+                "thread_card": self.thread_card,
             },
             read_only=self.read_only,
             user_name=self.user_name,
@@ -290,8 +296,9 @@ class ServingLayer:
             # model state = full update-topic replay from offset 0
             # (reference: ModelManagerListener.java:126)
             self._consume_thread = threading.Thread(
-                target=logging_call(self._consume_updates,
-                                    "serving-consume"),
+                target=bound(logging_call(self._consume_updates,
+                                          "serving-consume"),
+                             self.thread_card),
                 daemon=True, name="ServingLayerConsume")
             self._consume_thread.start()
         if self.config.get_optional_string("oryx.obs.profile-dir"):

@@ -54,6 +54,7 @@ from ..cluster.sharding import parse_shard_spec
 from ..common import clock as clockmod
 from ..common import compile_cache, store
 from ..common.config import Config
+from ..common.device import bound, thread_card
 from ..common.lang import load_instance, logging_call
 from ..kafka import utils as kafka_utils
 from ..kafka.api import KEY_UP, KeyMessage
@@ -96,6 +97,9 @@ class SpeedLayer:
         self.shard_tag = f"{self.shard_index}/{self.shard_count}"
         manager_class = config.get_string("oryx.speed.model-manager-class")
         self.model_manager = load_instance(manager_class, config, device)
+        # the card the layer's consumer and micro-batch threads make
+        # current
+        self.thread_card = thread_card(device)
         # each worker owns its consumer group: every worker reads the
         # whole input topic and folds its own item slices
         self._group = f"OryxGroup-SpeedLayer-{self.id or 'default'}" + (
@@ -182,11 +186,13 @@ class SpeedLayer:
         # model state = the whole update topic replayed from offset 0
         # (reference: auto.offset.reset=smallest, SpeedLayer.java:113)
         self._consume_thread = threading.Thread(
-            target=logging_call(self._consume_updates, "speed-consume"),
+            target=bound(logging_call(self._consume_updates,
+                                      "speed-consume"), self.thread_card),
             daemon=True, name="SpeedLayerConsume")
         self._consume_thread.start()
         self._batch_thread = threading.Thread(
-            target=logging_call(self._micro_batch_loop, "speed-batch"),
+            target=bound(logging_call(self._micro_batch_loop,
+                                      "speed-batch"), self.thread_card),
             daemon=True, name="SpeedLayerBatch")
         self._batch_thread.start()
 

@@ -27,6 +27,7 @@ from typing import Iterable
 import numpy as np
 
 from ..common import clock as clockmod
+from ..common.device import bind_thread
 from ..resilience import faults
 from ..resilience.policy import Deadline, DeadlineExceeded
 
@@ -67,7 +68,7 @@ class TopNBatcher:
 
     def __init__(self, max_batch: int = 1024, pipeline: int = 32,
                  idle_wait_s: float | None = None, tracer=None,
-                 accountant=None):
+                 accountant=None, device=None):
         """``pipeline`` dispatcher threads keep that many batched device
         calls in flight at once: dispatch latency (dominated by the
         host<->device round trip) overlaps instead of serializing, so
@@ -95,6 +96,8 @@ class TopNBatcher:
         span's: a wall interval from drain pickup to the results on the
         host, so it includes the window's host share."""
         self.max_batch = max_batch
+        # the card each dispatcher thread makes current (None: the CPU)
+        self._card = device
         self._tracer = tracer
         self._accountant = accountant
         self._idle_wait = idle_wait_s
@@ -232,6 +235,7 @@ class TopNBatcher:
                    1 + max(1, -int(-rtt // self._exec_ewma)))
 
     def _loop(self) -> None:
+        bind_thread(self._card)
         while True:
             with self._cond:
                 while not self._stopped:

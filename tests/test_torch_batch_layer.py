@@ -328,7 +328,9 @@ def test_als_update_time_split_and_evaluation(tmp_path):
     # the IVF publish is supported now; its configuration is validated at
     # boot
     ("oryx.als.ann.cells", 1),
-    ("oryx.batch.streaming.master", "mesh"),
+    # the mesh is ported: an oryx.distributed group without all three
+    # keys is incomplete, refused by name
+    ("oryx.distributed.process-id", 0),
     ("oryx.distributed.coordinator-address", "localhost:1234"),
 ])
 def test_deferred_update_keys_raise(key, value):

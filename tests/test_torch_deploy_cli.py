@@ -44,7 +44,7 @@ WAIT_S = 90.0
 
 
 def test_port_conf_files_parse():
-    assert len(PORT_CONFS) == 3
+    assert len(PORT_CONFS) == 4  # als, kmeans, rdf, wordcount
     for path in PORT_CONFS:
         cfg = from_file(path)
         assert cfg.get_string("oryx.input-topic.broker") == \
@@ -271,7 +271,7 @@ def test_help_lists_the_reference_subcommands(capsys):
 
 @pytest.mark.parametrize("argv, extra, key", [
     (["serving", "--shard", "0/2"], {
-        "serving.api.item-shards": 2,
+        "serving.api.item-shards": 3,
         "serving.model-manager-class":
             "oryx_tpu_torch.app.als.serving_manager.ALSServingModelManager"},
      "oryx.serving.api.item-shards"),
@@ -283,7 +283,8 @@ def test_help_lists_the_reference_subcommands(capsys):
 def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key,
                                               monkeypatch):
     """--shard passes the reference's overlay.  The serving layer
-    refuses a key it does not serve yet at once, before the
+    refuses an item shard count that is not a power of two at once,
+    with the reference's message, before the
     supervisor's restart budget; ``speed --shard 1/2`` starts a sharded
     worker (its layer, built as the CLI builds it, starts and folds
     slice 1 of 2)."""
@@ -311,7 +312,8 @@ def test_shard_flags_reach_the_layers_refusals(tmp_path, argv, extra, key,
                                 "OryxGroup-SpeedLayer-default-1x2", 2,
                                 True)]
         else:
-            with pytest.raises(ValueError, match=key):
+            with pytest.raises(ValueError,
+                               match=key.rsplit(".", 1)[1]):
                 tmain([*argv, "--conf", conf, "--device", "cpu"])
     finally:
         _drop(broker_dir)

@@ -145,3 +145,17 @@ def test_load_rows_keeps_row_positions():
     # a loaded store hands out its lowest free row first
     ts.set_vector("new", np.ones(3, np.float32))
     assert ts.row_of("new") == 4
+
+
+def test_load_rows_zeroes_free_rows():
+    """A free row (None) is zero and inactive whatever ``matrix`` holds
+    there, as the reference's store keeps its free rows."""
+    m = np.arange(12, dtype=np.float32).reshape(4, 3) + 1.0
+    ts = tfv.FeatureVectorStore(3, device="cpu")
+    ts.load_rows(["a", None, "c", None], m)
+    host, active, row_ids = ts.host_arrays()
+    np.testing.assert_array_equal(host[:4], m * np.array([[1], [0], [1],
+                                                          [0]], np.float32))
+    assert active[:4].tolist() == [True, False, True, False]
+    assert row_ids[:4] == ["a", None, "c", None]
+    assert ts.row_of("c") == 2 and len(ts) == 2

@@ -70,8 +70,29 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
                 "cluster.result_cache", "cluster.scatter",
                 "cluster.shard_resources", "cluster.router",
                 "cluster.transport", "cluster.async_http",
-                "lambda_rt.hpack", "lambda_rt.http2", "bench.gateway"):
+                "lambda_rt.hpack", "lambda_rt.http2", "bench.gateway",
+                "example", "example.batch", "example.speed",
+                "example.serving", "common.stats", "ml.oracle", "parallel",
+                "parallel.mesh", "parallel.als_dist",
+                "parallel.kmeans_dist", "parallel.serving_dist"):
         assert "oryx_tpu_torch." + mod in names, mod
+
+    # the sharded model (item shards over a CPU mesh) serves a request,
+    # and a distributed ALS step trains over the mesh
+    from oryx_tpu_torch.app.als.serving_model import ALSServingModel
+    sharded = ALSServingModel(12, True, item_shards=2, device="cpu")
+    sharded.Y.bulk_load([f"i{i}" for i in range(600)], Y)
+    assert [r[0][0] for r in sharded.top_n_batch(5, X)] == \
+        [r[0][0] for r in model.top_n_batch(5, X)]
+    from oryx_tpu_torch.app.als.common import ParsedRatings
+    from oryx_tpu_torch.parallel import build_mesh, train_als_distributed
+    pr = ParsedRatings(["u0", "u1"], ["i0", "i1", "i2"],
+                       np.array([0, 0, 1], np.int32),
+                       np.array([0, 1, 2], np.int32),
+                       np.ones(3, np.float32))
+    dm = train_als_distributed(pr, 3, 0.1, 1.0, True, 2,
+                               build_mesh(2, "cpu"), seed=1)
+    assert dm.X.shape == (2, 3) and np.isfinite(dm.Y).all()
     from oryx_tpu_torch.bench.kernel_probe import probe_model
     rec = probe_model(model, batch=8, m=1)
     assert rec["served_path"] == "flat" and rec["window_ms"] > 0
@@ -292,6 +313,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                            InputSchema)
     from oryx_tpu_torch.common.config import from_dict
     from oryx_tpu_torch.convert import serving_model_from_arrays
+    from oryx_tpu_torch.example.batch import ExampleBatchLayerUpdate
+    from oryx_tpu_torch.example.serving import ExampleServingModelManager
+    from oryx_tpu_torch.example.speed import ExampleSpeedModelManager
+    from oryx_tpu_torch.parallel.mesh import build_mesh, mesh_from_config
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arrays = dict(x_ids=["u0"], X=np.zeros((1, 4), np.float32),
@@ -318,7 +343,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: RDFServingModelManager(cfg),
                  lambda: RDFServingModel(forest, encodings, schema),
                  lambda: RouterLayer(from_dict(
-                     {"oryx.update-topic.broker": "memory://no-card"}))):
+                     {"oryx.update-topic.broker": "memory://no-card"})),
+                 lambda: ALSServingModel(4, True, item_shards=2),
+                 lambda: build_mesh(2),
+                 lambda: mesh_from_config(from_dict(
+                     {"oryx.batch.streaming.master": "mesh"})),
+                 lambda: ExampleServingModelManager(cfg),
+                 lambda: ExampleSpeedModelManager(cfg),
+                 lambda: ExampleBatchLayerUpdate(cfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the explicit CPU request is honoured

@@ -252,8 +252,10 @@ def test_kmeans_update_builds_and_evaluates():
     ({"oryx.input-schema.categorical-features": ["1"],
       "oryx.input-schema.numeric-features": ["0"]}, "numeric"),
     ({"oryx.input-schema.target-feature": "1"}, "target"),
-    ({"oryx.batch.streaming.master": "mesh"},
-     "oryx.batch.streaming.master"),
+    # the mesh is ported; an oryx.distributed group without its process
+    # count and id is refused by name
+    ({"oryx.distributed.coordinator-address": "localhost:1234"},
+     "oryx.distributed.coordinator-address"),
     ({"oryx.kmeans.initialization-strategy": "kmeans++"},
      "initialization"),
     ({"oryx.kmeans.evaluation-strategy": "nope"}, "evaluation"),

@@ -11,7 +11,7 @@ port on the CPU:
   ``oryx_tpu_torch/conf/rdf-example.conf`` answers as the reference's
   layer does on one ``file://`` broker, and ``/train`` leaves the same
   records in the same partitions of its input topic;
-- the mesh keys are refused by name.
+- an incomplete ``oryx.distributed`` group is refused by name.
 """
 
 from __future__ import annotations
@@ -437,11 +437,15 @@ def test_port_rdf_example_conf_differs_only_in_its_classes():
 
 
 @pytest.mark.parametrize("extra,key", [
-    ({"oryx.batch.streaming.master": "mesh"}, "oryx.batch.streaming.master"),
+    ({"oryx.distributed.num-processes": 2},
+     "oryx.distributed.coordinator-address"),
     ({"oryx.distributed.coordinator-address": "localhost:1234"},
      "oryx.distributed.coordinator-address"),
 ])
 def test_update_refuses_the_mesh(extra, key):
+    """The mesh is ported (``master = "mesh"`` trains over it,
+    tests/test_torch_parallel.py); an ``oryx.distributed`` group without
+    all three keys is incomplete, refused by name."""
     with pytest.raises(ValueError, match=key):
         RDFUpdate(tconfig.from_dict(_batch_entries(**extra)), device="cpu")
 

@@ -1,7 +1,6 @@
-"""The port's ServingLayer and RouterLayer refuse, by name, each
-reference key whose feature the port does not have yet (item sharding
-over several cards), instead of constructing and quietly ignoring it;
-and each key that used to be refused now starts its layer and its
+"""The port's ServingLayer refuses, by name, an item shard count that is
+not a power of two, as the reference does, instead of constructing and
+quietly ignoring it; and each key that used to be refused now starts its layer and its
 feature answers: the observability keys (tracing, the SLO engine, the
 event log and the flight recorder), the serving cluster's replica mode
 (``oryx.cluster.enabled``), TLS (``keystore-file``), DIGEST auth
@@ -29,14 +28,14 @@ BASE = {
 
 
 @pytest.mark.parametrize("key,value", [
-    ("oryx.serving.api.item-shards", 2),
+    ("oryx.serving.api.item-shards", 3),
 ])
 def test_unported_key_is_refused_by_name(tmp_path, key, value):
-    """A replica (``oryx.cluster.enabled``) refuses item sharding over
-    several cards."""
+    """A replica (``oryx.cluster.enabled``) refuses an item shard count
+    that is not a power of two, with the reference's message."""
     cfg = tconfig.from_dict({**BASE, "oryx.cluster.enabled": True,
                              key: value})
-    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
+    with pytest.raises(ValueError, match=key.rsplit(".", 1)[1]):
         ServingLayer(cfg, port=0, device="cpu")
 
 

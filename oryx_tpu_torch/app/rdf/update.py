@@ -46,9 +46,13 @@ class RDFUpdate(MLUpdate):
         self.num_trees = config.get_int("oryx.rdf.num-trees")
         if self.num_trees < 1:
             raise ValueError("num-trees must be at least 1")
+        # literal keys, so the lint's config walk sees each one read
         self.hyper_param_values = [
-            hp.from_config(config, f"oryx.rdf.hyperparams.{name}")
-            for name in ("max-split-candidates", "max-depth", "impurity")]
+            hp.from_config(config,
+                           "oryx.rdf.hyperparams.max-split-candidates"),
+            hp.from_config(config, "oryx.rdf.hyperparams.max-depth"),
+            hp.from_config(config, "oryx.rdf.hyperparams.impurity"),
+        ]
         self.input_schema = InputSchema(config)
         if not self.input_schema.has_target():
             raise ValueError("rdf requires a target feature")

@@ -1,9 +1,11 @@
 """The injectable clock seam: the one source of time of the request
-batcher, the supervisor and the observability modules.
+batcher, the supervisor, the observability modules and every module
+the simulation stands up (the ``sim-clock`` lint pass holds them to it).
 
-Counterpart of ``oryx_tpu/common/clock.py``, without its simulation
-clock (the deterministic cluster simulation is not part of this
-package).  Two implementations:
+Counterpart of ``oryx_tpu/common/clock.py``.  Two implementations
+here, and a third in the simulation (``sim/sched.SimClock``, the
+cooperative single-thread virtual clock whose ``sleep`` advances
+virtual time at once):
 
 - :class:`SystemClock` — the production default: real ``time.*`` and
   real ``Event.wait``.  Installing nothing changes nothing.

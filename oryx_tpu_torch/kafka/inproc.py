@@ -27,10 +27,10 @@ from __future__ import annotations
 import json
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
+from ..common import clock as clockmod
 from ..resilience import faults
 from .api import KeyMessage, TopicProducer
 from .partitioner import partition_for_key
@@ -465,7 +465,7 @@ class InProcBroker:
                 p = 0 if from_beginning \
                     else t.partitions[part].latest_offset()
             pos.append(p)
-        idle_since = time.monotonic()
+        idle_since = clockmod.monotonic()
         next_part = 0
         try:
             while True:
@@ -477,20 +477,20 @@ class InProcBroker:
                     if stop is not None and stop.is_set():
                         return
                     if (max_idle_sec is not None
-                            and time.monotonic() - idle_since
+                            and clockmod.monotonic() - idle_since
                             > max_idle_sec):
                         return
                     with t.cond:
                         # bounded wait: an append between the size check
                         # and this wait costs at most one poll interval
-                        t.cond.wait(poll_timeout_sec)
+                        t.cond.wait(poll_timeout_sec)  # wall-clock: Condition poll; the sim reads through read_range, never this loop
                     # other processes' appends never signal our Condition
                     t.refresh_all()
                 part = min(ready, key=lambda i: (i - next_part) % n)
                 key, message, headers = t.partitions[part].get(pos[part])
                 pos[part] += 1
                 next_part = (part + 1) % n
-                idle_since = time.monotonic()
+                idle_since = clockmod.monotonic()
                 # committed only once the consumer has processed the
                 # record and come back: a consumer that dies mid-record
                 # has it redelivered
@@ -549,7 +549,7 @@ class InProcBroker:
         # allows; flush() (and a grouped consume's end) bounds the window
         if self._offsets_path:
             self._offsets_dirty = True
-            if (time.monotonic() - self._offsets_last_write
+            if (clockmod.monotonic() - self._offsets_last_write
                     >= _OFFSET_FLUSH_SEC):
                 self._write_offsets_locked()
 
@@ -572,7 +572,7 @@ class InProcBroker:
                        for (g, t, p), v in merged.items()}, f)
         os.replace(tmp, self._offsets_path)
         self._offsets_dirty = False
-        self._offsets_last_write = time.monotonic()
+        self._offsets_last_write = clockmod.monotonic()
 
     def flush(self) -> None:
         """Write committed offsets that are still behind to the sidecar."""

@@ -88,12 +88,13 @@ class ServingLayer:
         self._frame_server = None
         self._shard_cache = None
         # TLS: a PEM certificate chain and key (keystore-password
-        # decrypts the key; the reference's key-alias does not apply to
-        # PEM) serve HTTPS on secure-port (reference :46-64)
+        # decrypts the key) serve HTTPS on secure-port (reference
+        # :46-64); key-alias does not apply to PEM and is read but unused
         self.keystore_file = config.get_optional_string(
             f"{api}.keystore-file")
         self.keystore_password = config.get_optional_string(
             f"{api}.keystore-password")
+        self.key_alias = config.get_optional_string(f"{api}.key-alias")
         if port is not None:
             self.port = port
         elif self.keystore_file:

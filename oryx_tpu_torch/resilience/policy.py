@@ -108,7 +108,7 @@ def run_with_resubscribe(fn: Callable[[], Any], stop: threading.Event,
             attempt += 1
             log.exception("%s failed; resubscribing (attempt %d)",
                           what, attempt)
-            stop.wait(backoff.delay(attempt))
+            clockmod.wait(stop, backoff.delay(attempt))
 
 
 class DeadlineExceeded(Exception):

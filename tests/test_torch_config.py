@@ -21,14 +21,16 @@ CONFS = sorted(glob.glob(os.path.join(REPO, "conf", "*.conf")))
 
 def _without_cache_comments(text: str) -> list[str]:
     """The lines of a reference.conf without the comments directly above
-    the compile-cache keys: the port's describe its kernel library
-    cache, the reference's JAX's compilation cache."""
+    the compile-cache keys and their trailing ``# compat:`` annotation:
+    the port's describe its kernel library cache, the reference's JAX's
+    compilation cache."""
     lines = text.splitlines()
     out: list[str] = []
     for line in lines:
         if line.strip().startswith("compile-cache-"):
             while out and out[-1].strip().startswith("#"):
                 out.pop()
+            line = line.split("  # compat:")[0]
         out.append(line)
     return out
 

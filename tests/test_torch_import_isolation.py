@@ -5,10 +5,11 @@ from it, answers /recommend through two cluster replicas and the
 router with the fast path on (the asyncio front end, the framed
 transport, the result cache, coalescing and the shard cache), and
 probes a model's device programs with JAX, ml_dtypes and
-the reference package blocked, its operator CLI starts under the same
-block, and its entry points and benches refuse to fall back to the CPU
-silently."""
+the reference package blocked, its operator CLI, its lint and its
+simulation run under the same block, and its entry points and benches
+refuse to fall back to the CPU silently."""
 
+import json
 import os
 import subprocess
 import sys
@@ -74,7 +75,15 @@ _BLOCKED_SCRIPT = _BLOCK + textwrap.dedent("""
                 "example", "example.batch", "example.speed",
                 "example.serving", "common.stats", "ml.oracle", "parallel",
                 "parallel.mesh", "parallel.als_dist",
-                "parallel.kmeans_dist", "parallel.serving_dist"):
+                "parallel.kmeans_dist", "parallel.serving_dist",
+                # the developer tools: the lint and the simulation
+                "analysis", "analysis.__main__", "analysis.async_blocking",
+                "analysis.core", "analysis.diagnose_catalog",
+                "analysis.drift", "analysis.guarded", "analysis.lock_order",
+                "analysis.locks", "analysis.sim_clock", "sim",
+                "sim.__main__", "sim.cluster", "sim.components",
+                "sim.faults", "sim.invariants", "sim.net", "sim.scenarios",
+                "sim.sched"):
         assert "oryx_tpu_torch." + mod in names, mod
 
     # the sharded model (item shards over a CPU mesh) serves a request,
@@ -291,6 +300,51 @@ def test_cli_help_with_jax_blocked():
                  "mirror", "kafka-setup", "kafka-tail", "kafka-input",
                  "warmup", "config-to-properties"):
         assert name in proc.stdout
+
+
+_TOOLS_SCRIPT = _BLOCK + textwrap.dedent("""
+    import contextlib, io, json, runpy
+
+    def run(module, *argv):
+        sys.argv = [module, *argv]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_module(module, run_name="__main__")
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        return code, out.getvalue()
+
+    lint_rc, _ = run("oryx_tpu_torch.analysis")
+    sim_rc, sim_out = run("oryx_tpu_torch.sim", "--scenario",
+                          "reshard-cutover", "--seed", "0")
+    leaked = sorted(m for m in sys.modules
+                    if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+    print(json.dumps({"lint": lint_rc, "sim": sim_rc, "leaked": leaked,
+                      "result": json.loads(sim_out) if sim_rc == 0
+                      else sim_out}))
+""")
+
+
+def test_lint_and_sim_run_with_jax_blocked():
+    """``python -m oryx_tpu_torch.analysis`` exits 0 over the port and
+    ``python -m oryx_tpu_torch.sim`` replays a seed, with JAX,
+    ml_dtypes and the reference package blocked; the seed's trace is
+    the reference simulation's."""
+    from oryx_tpu.sim import run_scenario as ref_run_scenario
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _TOOLS_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["lint"] == 0, proc.stderr[-4000:]
+    assert got["sim"] == 0 and not got["leaked"], got
+    ref = ref_run_scenario("reshard-cutover", 0)
+    assert (got["result"]["trace_hash"], got["result"]["steps"]) \
+        == (ref.trace_hash, ref.steps)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
